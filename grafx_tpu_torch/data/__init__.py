@@ -1,0 +1,14 @@
+"""Graph data layer: mutable graphs, tensor form, conversion."""
+
+from grafx_tpu_torch.data.configs import UTILITY_TYPES, NodeConfigs
+from grafx_tpu_torch.data.conversion import convert_to_tensor
+from grafx_tpu_torch.data.graph import GRAFX
+from grafx_tpu_torch.data.tensor import GRAFXTensor
+
+__all__ = [
+    "GRAFX",
+    "GRAFXTensor",
+    "NodeConfigs",
+    "UTILITY_TYPES",
+    "convert_to_tensor",
+]

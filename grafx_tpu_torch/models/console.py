@@ -1,0 +1,131 @@
+"""The ~100-node mixing console of ``bench.py``, ready to serve.
+
+``bench.py`` imports JAX, so its graph and processors are copied here
+(``bench.py:53-95,122-130``).  The serving parameters are made on the
+UNFUSED graph and migrated with :func:`fuse_parameters`, so the chains
+that have no gate keep their padded gate absent (``bench.py`` draws its
+parameters on the fused graph, which makes every padded gate present).
+"""
+
+from dataclasses import dataclass
+
+import torch
+
+from grafx_tpu_torch.data import GRAFX, NodeConfigs, convert_to_tensor
+from grafx_tpu_torch.processors import (
+    Compressor,
+    GraphicEqualizer,
+    NoiseGate,
+    ParametricEqualizer,
+    STFTMaskedNoiseReverb,
+    StereoGain,
+    TanhDistortion,
+)
+from grafx_tpu_torch.render import (
+    fuse_parameters,
+    fuse_serial_lti,
+    prepare_render,
+    reorder_for_fast_render,
+)
+from grafx_tpu_torch.utils import create_empty_parameters, tree_to
+
+
+def bench_graph(num_chains=17):
+    """Per-source chains (eq -> [geq] -> [gate] -> compressor -> gain ->
+    [dist]), two processed buses, a reverb send and a master chain."""
+    config = NodeConfigs(
+        ["eq", "geq", "compressor", "noisegate", "gain", "dist", "reverb"]
+    )
+    G = GRAFX(config=config)
+    chain_ends = []
+    for i in range(num_chains):
+        chain = ["in", "eq", "compressor", "gain"]
+        if i % 3 == 0:
+            chain.insert(2, "noisegate")
+        if i % 4 == 0:
+            chain.append("dist")
+        if i % 2 == 0:
+            chain.insert(2, "geq")
+        _, last = G.add_serial_chain(chain)
+        chain_ends.append(last)
+
+    bus_ends = []
+    for half in (chain_ends[: num_chains // 2], chain_ends[num_chains // 2 :]):
+        mix = G.add("mix")
+        for e in half:
+            G.connect(e, mix)
+        bus_first, bus_end = G.add_serial_chain(["geq", "compressor"])
+        G.connect(mix, bus_first)
+        bus_ends.append(bus_end)
+
+    send_mix = G.add("mix")
+    for e in bus_ends:
+        G.connect(e, send_mix)
+    rev = G.add("reverb")
+    G.connect(send_mix, rev)
+
+    master = G.add("mix")
+    for e in bus_ends:
+        G.connect(e, master)
+    G.connect(rev, master)
+    master_first, master_end = G.add_serial_chain(["eq", "gain"])
+    G.connect(master, master_first)
+    out = G.add("out")
+    G.connect(master_end, out)
+    return G
+
+
+def bench_processors():
+    return {
+        "eq": ParametricEqualizer(num_filters=6, backend="exact"),
+        "geq": GraphicEqualizer(scale="bark", backend="exact"),
+        "compressor": Compressor(energy_smoother="ballistics"),
+        "noisegate": NoiseGate(energy_smoother="iir_exact"),
+        "gain": StereoGain(),
+        "dist": TanhDistortion(),
+        "reverb": STFTMaskedNoiseReverb(ir_len=30000),
+    }
+
+
+@dataclass
+class Console:
+    """The console as served: ``render = make_render_fn(
+    console.fused_processors, console.plan)`` then ``render(x,
+    console.params)`` for ``x`` of shape ``(B, num_chains, 2, L)``."""
+
+    graph: GRAFX
+    processors: dict
+    fused_graph: GRAFX
+    fused_processors: dict
+    plan: object
+    params: dict
+    num_chains: int
+
+
+def bench_console(num_chains=17, seed=0, device="cpu"):
+    """Build the ``bench.py`` console, fused as ``bench.py`` fuses it
+    (``kinds=("fir", "iir", "dynamics")``, ``dynamics_pad="auto"``), with
+    random serving parameters drawn from ``seed`` by
+    ``create_empty_parameters`` and everything on ``device``."""
+    G = bench_graph(num_chains)
+    processors = bench_processors()
+    G_fused, processors_fused = fuse_serial_lti(
+        G, processors, kinds=("fir", "iir", "dynamics"), dynamics_pad="auto"
+    )
+    generator = torch.Generator().manual_seed(seed)
+    params = create_empty_parameters(processors, G, generator=generator)
+    params_fused = fuse_parameters(params, G, G_fused, processors_fused)
+    plan = prepare_render(
+        reorder_for_fast_render(convert_to_tensor(G_fused), method="beam")
+    )
+    for proc in processors_fused.values():
+        proc.to(device)
+    return Console(
+        graph=G,
+        processors=processors,
+        fused_graph=G_fused,
+        fused_processors=processors_fused,
+        plan=plan,
+        params=tree_to(params_fused, device),
+        num_chains=num_chains,
+    )

@@ -1,0 +1,64 @@
+"""STFT / inverse STFT with torch-compatible conventions.
+
+The port of :mod:`grafx_tpu.ops.stft`: ``center=True`` with reflect
+padding, periodic windows, and iSTFT synthesis normalized by the summed
+squared window envelope.  The JAX package runs small inverse DFTs as
+matmuls because that suits the TPU; here ``torch.fft.irfft`` does it.
+"""
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def stft(x, n_fft: int, hop_length: int, window):
+    """Short-time Fourier transform.
+
+    Args:
+        x: ``(..., L)`` real signals.
+        window: length ``n_fft`` tensor.
+
+    Returns:
+        Complex spectrogram ``(..., n_fft // 2 + 1, num_frames)`` with
+        ``num_frames = 1 + L // hop_length`` (center=True convention).
+    """
+    lead, L = x.shape[:-1], x.shape[-1]
+    xp = F.pad(x.reshape(-1, 1, L), (n_fft // 2, n_fft // 2), mode="reflect")
+    frames = xp[:, 0].unfold(-1, n_fft, hop_length)  # (M, num_frames, n_fft)
+    spec = torch.fft.rfft(frames * window, n=n_fft, dim=-1)
+    return spec.transpose(-1, -2).reshape(lead + spec.shape[-1:] + spec.shape[-2:-1])
+
+
+def istft(spec, n_fft: int, hop_length: int, window, length: int):
+    """Inverse STFT via windowed overlap-add (torch.istft convention).
+
+    Args:
+        spec: ``(..., n_fft // 2 + 1, num_frames)`` complex spectrogram.
+        length: output length (center padding removed).
+    """
+    lead = spec.shape[:-2]
+    num_frames = spec.shape[-1]
+    frames = torch.fft.irfft(spec.transpose(-1, -2), n=n_fft, dim=-1) * window
+    total = n_fft + hop_length * (num_frames - 1)
+
+    def overlap_add(fr):  # (M, num_frames, n_fft) -> (M, total)
+        return F.fold(
+            fr.transpose(1, 2),
+            output_size=(1, total),
+            kernel_size=(1, n_fft),
+            stride=(1, hop_length),
+        ).reshape(fr.shape[0], total)
+
+    y = overlap_add(frames.reshape((-1, num_frames, n_fft)))
+    w2 = (window * window).expand(1, num_frames, n_fft)
+    wsq = overlap_add(w2)[0]
+    y = y / torch.clamp(wsq, min=1e-11)
+    start = n_fft // 2
+    return y[:, start : start + length].reshape(lead + (length,))
+
+
+def hann_window(n: int, periodic: bool = True):
+    """Periodic Hann window (torch.hann_window convention), as numpy."""
+    denom = n if periodic else n - 1
+    t = np.arange(n)
+    return 0.5 * (1.0 - np.cos(2.0 * np.pi * t / denom))

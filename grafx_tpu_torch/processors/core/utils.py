@@ -1,0 +1,27 @@
+"""Small shared helpers (the port of
+:mod:`grafx_tpu.processors.core.utils`)."""
+
+import torch
+
+_MISSING = object()
+
+
+def lti_kind_of(processor):
+    """LTI serial-fusion family of ``processor`` (render/fuse.py):
+    ``"fir"`` (implements ``fir_kernel``), ``"iir"`` (exact-backend
+    biquad cascade with ``biquad_kernel``), or ``None``.  A ``lti_kind``
+    property arbitrates where present."""
+    if processor is None:
+        return None
+    kind = getattr(processor, "lti_kind", _MISSING)
+    if kind is not _MISSING:
+        return kind
+    return "fir" if hasattr(processor, "fir_kernel") else None
+
+
+def normalize_impulse(ir, eps=1e-12):
+    """Normalize an IR batch ``(B, C, L)`` to unit mean channel energy."""
+    if ir.dim() != 3:
+        raise ValueError(f"expected a (B, C, L) impulse response, got {tuple(ir.shape)}")
+    e = torch.square(ir).sum(dim=2, keepdim=True).mean(dim=1, keepdim=True)
+    return ir / torch.sqrt(e + eps)

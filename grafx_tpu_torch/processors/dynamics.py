@@ -1,0 +1,227 @@
+"""Compressor and noise gate (the port of :class:`grafx_tpu.processors.
+dynamics.Compressor` and :class:`~grafx_tpu.processors.dynamics.NoiseGate`;
+reference: src/grafx/processors/dynamics.py:213-721).
+
+With a quadratic knee, no gain smoother and a ballistics or exact
+one-pole energy smoother, the gain runs as one fused smoother + knee op
+(:func:`grafx_tpu_torch.ops.ballistics.ballistics_gain_core`): a CUDA
+kernel on the card, its plain version on the CPU.  A one-pole smoother
+is the ``at == rt == 1 - alpha`` case of that recursion with initial
+state 0, and its trailing relu is a no-op on nonnegative energy.  Other
+configurations compose the smoother with the knee math; their
+smoothers are not ported yet.
+"""
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from grafx_tpu_torch.ops.ballistics import ballistics_gain_core
+from grafx_tpu_torch.processors.core.envelope import Ballistics, TruncatedOnePoleIIRFilter
+
+
+def _make_smoother(kind, iir_len):
+    match kind:
+        case "iir":
+            return TruncatedOnePoleIIRFilter(iir_len=iir_len)
+        case "iir_exact":
+            return TruncatedOnePoleIIRFilter(exact=True)
+        case "ballistics":
+            return Ballistics()
+        case None:
+            return None
+        case _:
+            raise ValueError(f"Unknown smoother: {kind}")
+
+
+def smoother_recursion(smoother, z_alpha):
+    """``(at, rt, init)`` of the ballistics recursion equal to
+    ``smoother`` with pre-sigmoid coefficients ``z_alpha``, or ``None``
+    when the smoother is not one (shared with
+    ``render.fuse.FusedDynamicsChain``)."""
+    if isinstance(smoother, Ballistics):
+        ts = torch.sigmoid(z_alpha)
+        return ts[..., 0], ts[..., 1], 1.0
+    if isinstance(smoother, TruncatedOnePoleIIRFilter) and smoother.exact:
+        alpha = torch.clamp(torch.sigmoid(z_alpha[..., 0]), max=1.0 - 1e-5)
+        return 1.0 - alpha, 1.0 - alpha, 0.0
+    return None
+
+
+class Compressor(nn.Module):
+    """Feed-forward compressor with selectable energy/gain smoothing and
+    knee shape (reference: dynamics.py:213-489)."""
+
+    _fused_kind = "compressor"
+    #: joins the "dynamics" graph-fusion family (render/fuse.py): the
+    #: node's effect is ``y = gain(mean(x^2, ch)) * x``.
+    dynamics_fusable = True
+
+    def __init__(
+        self,
+        energy_smoother="iir",
+        gain_smoother=None,
+        gain_smooth_in_log=False,
+        knee="quadratic",
+        iir_len=16384,
+    ):
+        super().__init__()
+        self.energy_smoother = energy_smoother
+        self.energy_smoother_module = _make_smoother(energy_smoother, iir_len)
+        self.gain_smoother = gain_smoother
+        self.gain_smoother_module = _make_smoother(gain_smoother, iir_len)
+        if knee not in ("hard", "quadratic", "exponential"):
+            raise ValueError(f"Unknown knee: {knee}")
+        self.knee = knee
+        self.gain_smooth_in_log = gain_smooth_in_log
+
+    def forward(
+        self,
+        input_signals,
+        log_threshold,
+        log_ratio,
+        log_knee=None,
+        z_alpha_pre=None,
+        z_alpha_post=None,
+    ):
+        """Compress ``(N, C, L)`` signals."""
+        energy = torch.mean(torch.square(input_signals), dim=-2)
+        gain = self.gain_from_energy(
+            energy,
+            log_threshold,
+            log_ratio,
+            log_knee=log_knee,
+            z_alpha_pre=z_alpha_pre,
+            z_alpha_post=z_alpha_post,
+        )
+        return gain[:, None, :] * input_signals
+
+    def fused_recursion(self, z_alpha_pre):
+        """``(at, rt, init)`` when the gain can run as the fused smoother
+        + knee op, else ``None``."""
+        if self.knee != "quadratic" or self.gain_smoother is not None:
+            return None
+        return smoother_recursion(self.energy_smoother_module, z_alpha_pre)
+
+    def knee_constants(self, log_threshold, log_ratio, log_knee):
+        """``(th, cf, hk)`` of the fused op: shifted threshold, knee
+        coefficient and half-knee, each ``(N,)``."""
+        ratio = 1.0 + torch.exp(log_ratio[..., 0])
+        cf = 1.0 / ratio - 1.0 if self._fused_kind == "compressor" else ratio - 1.0
+        return log_threshold[..., 0] - 6.0, cf, torch.exp(log_knee[..., 0]) / 2.0
+
+    def gain_from_energy(
+        self,
+        energy,
+        log_threshold,
+        log_ratio,
+        log_knee=None,
+        z_alpha_pre=None,
+        z_alpha_post=None,
+    ):
+        """Linear gain time series from the ``(N, L)`` input energy."""
+        rec = self.fused_recursion(z_alpha_pre)
+        if rec is not None:
+            at, rt, init = rec
+            th, cf, hk = self.knee_constants(log_threshold, log_ratio, log_knee)
+            zi = torch.full_like(at, init)
+            return ballistics_gain_core(energy, zi, at, rt, th, cf, hk, self._fused_kind)
+        if self.energy_smoother_module is not None:
+            energy = self.energy_smoother_module(energy, z_alpha=z_alpha_pre)
+        log_energy = torch.log(energy + 1e-5)
+        log_gain = self.compute_gain(log_energy, log_threshold - 6.0, log_ratio, log_knee)
+        if self.gain_smoother_module is not None:
+            if self.gain_smooth_in_log:
+                return torch.exp(self.gain_smoother_module(log_gain, z_alpha=z_alpha_post))
+            return self.gain_smoother_module(torch.exp(log_gain), z_alpha=z_alpha_post)
+        return torch.exp(log_gain)
+
+    def compute_gain(self, log_energy, log_threshold, log_ratio, log_knee):
+        match self.knee:
+            case "hard":
+                return self.gain_hard_knee(log_energy, log_threshold, log_ratio, None)
+            case "quadratic":
+                return self.gain_quad_knee(log_energy, log_threshold, log_ratio, log_knee)
+            case "exponential":
+                return self.gain_exp_knee(log_energy, log_threshold, log_ratio, log_knee)
+
+    def parameter_size(self):
+        size = {"log_threshold": 1, "log_ratio": 1}
+        if self.knee != "hard":
+            size["log_knee"] = 1
+        if self.energy_smoother in ("iir", "iir_exact"):
+            size["z_alpha_pre"] = 1
+        elif self.energy_smoother == "ballistics":
+            size["z_alpha_pre"] = 2
+        if self.gain_smoother in ("iir", "iir_exact"):
+            size["z_alpha_post"] = 1
+        elif self.gain_smoother == "ballistics":
+            size["z_alpha_post"] = 2
+        return size
+
+    @staticmethod
+    def gain_hard_knee(log_energy, log_threshold, log_ratio, _):
+        ratio = 1.0 + torch.exp(log_ratio)
+        out = torch.minimum(
+            log_energy, log_threshold + (log_energy - log_threshold) / ratio
+        )
+        return out - log_energy
+
+    @staticmethod
+    def gain_quad_knee(log_energy, log_threshold, log_ratio, log_knee):
+        ratio = 1.0 + torch.exp(log_ratio)
+        half_knee = torch.exp(log_knee) / 2.0
+        below = log_energy
+        above = log_threshold + (log_energy - log_threshold) / ratio
+        middle = log_energy + (1.0 / ratio - 1.0) * torch.square(
+            log_energy - log_threshold + half_knee
+        ) / (4.0 * half_knee)
+        out = torch.where(
+            log_energy < log_threshold - half_knee,
+            below,
+            torch.where(log_energy > log_threshold + half_knee, above, middle),
+        )
+        return out - log_energy
+
+    @staticmethod
+    def gain_exp_knee(log_energy, log_threshold, log_ratio, log_knee):
+        ratio = 1.0 + torch.exp(log_ratio)
+        knee = torch.exp(log_knee)
+        return (1.0 / ratio - 1.0) * F.softplus(knee * (log_energy - log_threshold)) / knee
+
+
+class NoiseGate(Compressor):
+    """Feed-forward noise gate: the below-threshold mirror of
+    :class:`Compressor` (reference: dynamics.py:492-721)."""
+
+    _fused_kind = "noisegate"
+
+    @staticmethod
+    def gain_hard_knee(log_energy, log_threshold, log_ratio, _):
+        ratio = 1.0 + torch.exp(log_ratio)
+        out = torch.minimum(
+            log_energy, ratio * (log_energy - log_threshold) + log_threshold
+        )
+        return out - log_energy
+
+    @staticmethod
+    def gain_quad_knee(log_energy, log_threshold, log_ratio, log_knee):
+        ratio = 1.0 + torch.exp(log_ratio)
+        half_knee = torch.exp(log_knee) / 2.0
+        below = ratio * (log_energy - log_threshold) + log_threshold
+        above = log_energy
+        middle = log_energy + (1.0 - ratio) * torch.square(
+            log_energy - log_threshold - half_knee
+        ) / (4.0 * half_knee)
+        out = torch.where(
+            log_energy < log_threshold - half_knee,
+            below,
+            torch.where(log_energy > log_threshold + half_knee, above, middle),
+        )
+        return out - log_energy
+
+    @staticmethod
+    def gain_exp_knee(log_energy, log_threshold, log_ratio, log_knee):
+        one_minus_ratio = -torch.exp(log_ratio)
+        knee = torch.exp(log_knee)
+        return one_minus_ratio * F.softplus(knee * (log_threshold - log_energy)) / knee

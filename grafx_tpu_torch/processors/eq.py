@@ -1,0 +1,121 @@
+"""Parametric and graphic equalizers (the port of the biquad equalizers
+of :mod:`grafx_tpu.processors.eq`; reference: src/grafx/processors/
+eq.py:217-436)."""
+
+import torch
+from torch import nn
+
+from grafx_tpu_torch.processors.core.geq import GraphicEqualizerBiquad
+from grafx_tpu_torch.processors.core.iir import IIRFilter
+from grafx_tpu_torch.processors.core.midside import lr_to_ms, ms_to_lr
+from grafx_tpu_torch.processors.filter import (
+    BaseParametricEqualizerFilter,
+    HighShelf,
+    LowShelf,
+    PeakingFilter,
+    _IIRFusionMixin,
+)
+
+
+class ParametricEqualizer(_IIRFusionMixin, nn.Module):
+    """Cascade of K biquads: low-shelf + peaks + high-shelf (or all
+    peaks) (reference: eq.py:217-336)."""
+
+    def __init__(
+        self,
+        num_filters=10,
+        processor_channel="mono",
+        use_shelving_filters=True,
+        **backend_kwargs,
+    ):
+        super().__init__()
+        self.num_filters = num_filters
+        self.use_shelving_filters = use_shelving_filters
+        self.processor_channel = processor_channel
+        self.biquad = IIRFilter(order=2, **backend_kwargs)
+        if processor_channel not in ("mono", "stereo", "midside"):
+            raise ValueError(f"Invalid processor_channel: {processor_channel}")
+
+    def compute_coefficients(self, w0, q_inv, log_gain):
+        """Biquad stacks ``(B, C_h, K, 3)``."""
+        w0, q_inv, A = BaseParametricEqualizerFilter.filter_parameter_activations(
+            w0, q_inv, log_gain
+        )
+        cos_w0, alpha = (
+            BaseParametricEqualizerFilter.compute_common_filter_parameters(w0, q_inv)
+        )
+        Bs, As = self.get_biquad_coefficients(cos_w0, alpha, A)
+        return Bs, As, None
+
+    def precompute(self, w0, q_inv, log_gain):
+        """``precompute`` hook: coefficient activations + kernel build for
+        ALL nodes of this type at once."""
+        Bs, As, _ = self.compute_coefficients(w0, q_inv, log_gain)
+        return self.biquad.precompute(Bs, As)
+
+    def forward(self, input_signals, w0=None, q_inv=None, log_gain=None, _cache=None):
+        if _cache is None:
+            _cache = self.precompute(w0, q_inv, log_gain)
+        if self.processor_channel == "midside":
+            x = lr_to_ms(input_signals)
+            return ms_to_lr(self.biquad(x, cache=_cache))
+        return self.biquad(input_signals, cache=_cache)
+
+    def get_biquad_coefficients(self, cos_w0, alpha, A):
+        if not self.use_shelving_filters:
+            return PeakingFilter.get_biquad_coefficients(cos_w0, alpha, A)
+
+        # first filter = low shelf, last = high shelf, middle = peaks
+        def split(x):
+            return x[..., :1], x[..., 1:-1], x[..., -1:]
+
+        (c_ls, c_pk, c_hs) = split(cos_w0)
+        (a_ls, a_pk, a_hs) = split(alpha)
+        (A_ls, A_pk, A_hs) = split(A)
+        Bs_ls, As_ls = LowShelf.get_biquad_coefficients(c_ls, a_ls, A_ls)
+        Bs_pk, As_pk = PeakingFilter.get_biquad_coefficients(c_pk, a_pk, A_pk)
+        Bs_hs, As_hs = HighShelf.get_biquad_coefficients(c_hs, a_hs, A_hs)
+        Bs = torch.cat([Bs_ls, Bs_pk, Bs_hs], dim=-2)
+        As = torch.cat([As_ls, As_pk, As_hs], dim=-2)
+        return Bs, As
+
+    def parameter_size(self):
+        n_channels = 1 if self.processor_channel == "mono" else 2
+        size = (n_channels, self.num_filters)
+        return {k: size for k in ["w0", "q_inv", "log_gain"]}
+
+
+class GraphicEqualizer(_IIRFusionMixin, nn.Module):
+    """24-band bark / 31-band third-octave graphic EQ
+    (reference: eq.py:339-436)."""
+
+    def __init__(self, processor_channel="mono", scale="bark", sr=44100, **backend_kwargs):
+        super().__init__()
+        self.geq = GraphicEqualizerBiquad(scale=scale, sr=sr)
+        self.biquad = IIRFilter(**backend_kwargs)
+        self.processor_channel = processor_channel
+        if processor_channel not in ("mono", "stereo", "midside"):
+            raise ValueError(f"Invalid processor_channel: {processor_channel}")
+
+    def compute_coefficients(self, log_gains):
+        """Biquad stacks ``(B, C_h, K, 3)``."""
+        Bs, As = self.geq(log_gains)
+        return Bs, As, None
+
+    def precompute(self, log_gains):
+        """``precompute`` hook: band-filter design + kernel build for all
+        nodes of this type at once."""
+        Bs, As, _ = self.compute_coefficients(log_gains)
+        return self.biquad.precompute(Bs, As)
+
+    def forward(self, input_signals, log_gains=None, _cache=None):
+        if _cache is None:
+            _cache = self.precompute(log_gains)
+        if self.processor_channel == "midside":
+            x = lr_to_ms(input_signals)
+            return ms_to_lr(self.biquad(x, cache=_cache))
+        return self.biquad(input_signals, cache=_cache)
+
+    def parameter_size(self):
+        n_channels = 1 if self.processor_channel == "mono" else 2
+        return {"log_gains": (n_channels, self.geq.num_bands)}

@@ -1,0 +1,60 @@
+"""Signal-row reads, fan-in aggregation and batch expansion for the
+render executor (the port of :mod:`grafx_tpu.render.core`, for the
+``"stages"`` buffer mode: there is no threaded signal buffer to write)."""
+
+import torch
+
+
+def read_tensor(x, access, dim=0):
+    """Read rows of a tensor along ``dim`` per a static access pattern."""
+    if access.method == "slice":
+        lo, hi = access.idx
+        return x.narrow(dim, lo, hi - lo)
+    if access.method == "index":
+        idx = torch.as_tensor(access.idx, device=x.device)
+        return x.index_select(dim, idx)
+    raise ValueError(f"Unavailable read method: {access.method}")
+
+
+def read_tensor_or_tensor_dict(x, access, dim=0, postprocess=None):
+    """Recursively read a tensor or nested dict of tensors
+    (reference: core.py:53-77)."""
+    if isinstance(x, dict):
+        return {
+            k: read_tensor_or_tensor_dict(v, access, dim=dim, postprocess=postprocess)
+            for k, v in x.items()
+        }
+    y = read_tensor(x, access, dim=dim)
+    return postprocess(y) if postprocess is not None else y
+
+
+def aggregate_tensor(x, aggregation, dim=0):
+    """Fan-in aggregation (reference: core.py:101-112): ``sum`` collapses
+    all rows into one, ``scatter`` segment-sums rows into stage-node
+    positions."""
+    if aggregation.method == "none":
+        return x
+    if aggregation.method == "sum":
+        return x.sum(dim=dim, keepdim=True)
+    if aggregation.method == "scatter":
+        shape = list(x.shape)
+        shape[dim] = aggregation.num_segments
+        idx = torch.as_tensor(aggregation.idx, device=x.device)
+        return x.new_zeros(shape).index_add_(dim, idx, x)
+    raise ValueError(f"Unavailable aggregation method: {aggregation.method}")
+
+
+def expand_tensor_or_tensor_dict(x, expand, dim=0):
+    """Broadcast a new batch axis of size ``expand`` at ``dim``
+    (reference: core.py:115-134); a view, no copy."""
+    if isinstance(x, dict):
+        return {k: expand_tensor_or_tensor_dict(v, expand, dim) for k, v in x.items()}
+    x = x.unsqueeze(dim)
+    sizes = [-1] * x.dim()
+    sizes[dim] = expand
+    return x.expand(sizes)
+
+
+def flatten_batch_and_node(x):
+    """Merge leading (batch, node) dims (reference: core.py:138-140)."""
+    return x.reshape((-1,) + tuple(x.shape[2:]))

@@ -1,0 +1,229 @@
+"""The render executor: run a static render plan eagerly.
+
+The port of :mod:`grafx_tpu.render.graph` in its ``"stages"`` buffer
+mode: every stage's output stays its own tensor and reads resolve into
+them as slices (after ``reorder_for_fast_render`` most reads are one
+view, no copy).  Under ``jax.jit`` the assembled signal buffer is free
+when unused; eager torch would really build it (about 400 MB per request
+on the ``bench.py`` console), so it is assembled only on request.
+"""
+
+import torch
+
+from grafx_tpu_torch.data.configs import UTILITY_TYPES
+from grafx_tpu_torch.render.core import (
+    aggregate_tensor,
+    expand_tensor_or_tensor_dict,
+    flatten_batch_and_node,
+    read_tensor_or_tensor_dict,
+)
+
+
+def _row_sources(render_data):
+    """Static map buffer_row -> (stage index, row within that stage's
+    output).  Every buffer row is written exactly once by a known stage,
+    so reads resolve directly into per-stage outputs."""
+    row_src = {}
+    for j, stage in enumerate(render_data.iter_list):
+        dw = stage.dest_write
+        if dw.method == "none":
+            continue
+        rows = range(dw.idx[0], dw.idx[1]) if dw.method == "slice" else dw.idx
+        for p, r in enumerate(rows):
+            if r in row_src:
+                raise ValueError(
+                    f"Render plan writes buffer row {r} twice (stages"
+                    f" {row_src[r][0]} and {j}); the stages executor"
+                    " requires single-assignment rows."
+                )
+            row_src[r] = (j, p)
+    return row_src
+
+
+def _read_rows_from_stages(stage_outputs, rows, row_src, dim,
+                           channel_broadcast=False):
+    """Gather buffer rows as slices of per-stage outputs; consecutive rows
+    from the same stage coalesce into one slice.  ``channel_broadcast``
+    broadcasts each part's channel dim to the common maximum (signal
+    buffer assembly for MIMO graphs that mix mono and stereo rows)."""
+    runs = []  # (stage, lo, hi)
+    for r in rows:
+        try:
+            j, p = row_src[r]
+        except KeyError:
+            raise ValueError(
+                f"Render plan reads buffer row {r} which no stage writes"
+                " (malformed plan: an edge references a node output that"
+                " is never produced)."
+            ) from None
+        if runs and runs[-1][0] == j and runs[-1][2] == p:
+            runs[-1][2] = p + 1
+        else:
+            runs.append([j, p, p + 1])
+    parts = [stage_outputs[j].narrow(dim, lo, hi - lo) for j, lo, hi in runs]
+    if len(parts) == 1:
+        return parts[0]
+    if channel_broadcast:
+        c_max = max(p.shape[-2] for p in parts)
+        parts = [p.expand(p.shape[:-2] + (c_max, p.shape[-1])) for p in parts]
+    return torch.cat(parts, dim=dim)
+
+
+def _access_rows(access):
+    if access.method == "slice":
+        return list(range(access.idx[0], access.idx[1]))
+    return list(access.idx)
+
+
+def render_grafx(
+    processors,
+    input_signals,
+    per_type_parameters,
+    render_data,
+    return_buffer=False,
+):
+    """Render an audio graph.
+
+    Args:
+        processors: dict mapping node-type name to a processor callable
+            ``f(*signals, **params) -> signals [, intermediates]``.
+        input_signals: ``(|V_0|, C, L)`` or ``(B, |V_0|, C, L)`` tensor.
+        per_type_parameters: nested dict, type -> name -> tensor whose
+            dim 0 is the node batch, on the device of ``input_signals``.
+        render_data: the static :class:`RenderData` plan.
+        return_buffer: also assemble the ``(.., num_buffers, C, L)``
+            signal buffer (a full copy of every node's output).
+
+    Returns:
+        ``(output_signals, intermediates_list, signal_buffer)``;
+        ``signal_buffer`` is ``None`` unless ``return_buffer``.
+    """
+    if render_data.method == "one-by-one":
+        raise NotImplementedError(
+            "one-by-one plans need the array-buffer executor, which is not"
+            " ported yet."
+        )
+    ndim = input_signals.dim()
+
+    # Per-type precompute (docs/processors.md): a processor exposing
+    # ``precompute(**params)`` builds its parameter-dependent kernels
+    # once for all nodes of the type; each stage slices the cache like
+    # parameter rows and receives it via ``_cache=``.
+    precomputed = {}
+    for _type, _proc in processors.items():
+        if hasattr(_proc, "precompute") and _type in per_type_parameters:
+            cache = _proc.precompute(**per_type_parameters[_type])
+            if cache is not None:
+                precomputed[_type] = cache
+
+    if ndim == 3:
+        node_dim = 0
+        postprocess = None
+    elif ndim == 4:
+        batch_size, _, channels, audio_len = input_signals.shape
+        node_dim = 1
+        postprocess = flatten_batch_and_node
+        per_type_parameters = expand_tensor_or_tensor_dict(
+            per_type_parameters, expand=batch_size, dim=0
+        )
+        precomputed = {
+            k: expand_tensor_or_tensor_dict(v, expand=batch_size, dim=0)
+            for k, v in precomputed.items()
+        }
+    else:
+        raise ValueError(f"input_signals has {ndim} dims; expected 3 or 4.")
+
+    num_sources = render_data.iter_list[0].dest_write.num_rows
+    if input_signals.shape[node_dim] != num_sources:
+        raise ValueError(
+            f"Expected {num_sources} input signals (the graph's 'in' nodes),"
+            f" got {input_signals.shape[node_dim]}."
+        )
+
+    row_src = _row_sources(render_data)
+    stage_outputs = [input_signals]
+    intermediates_list = []
+    output_signals = None
+
+    for i in range(1, render_data.max_order + 1):
+        stage = render_data.iter_list[i]
+
+        stage_inputs = []
+        for read, aggregate in zip(stage.source_reads, stage.aggregations):
+            sig = _read_rows_from_stages(
+                stage_outputs, _access_rows(read), row_src, node_dim
+            )
+            sig = aggregate_tensor(sig, aggregate, dim=node_dim)
+            if ndim == 4:
+                sig = flatten_batch_and_node(sig)
+            stage_inputs.append(sig)
+
+        node_type = stage.node_type
+        if node_type in processors:
+            parameters = read_tensor_or_tensor_dict(
+                per_type_parameters.get(node_type, {}),
+                stage.parameter_read,
+                dim=node_dim,
+                postprocess=postprocess,
+            )
+            if node_type in precomputed:
+                cache_i = read_tensor_or_tensor_dict(
+                    precomputed[node_type],
+                    stage.parameter_read,
+                    dim=node_dim,
+                    postprocess=postprocess,
+                )
+                output = processors[node_type](
+                    *stage_inputs, **parameters, _cache=cache_i
+                )
+            else:
+                output = processors[node_type](*stage_inputs, **parameters)
+            if isinstance(output, tuple):
+                output_signals, intermediates = output
+                intermediates_list.append(intermediates)
+            else:
+                output_signals = output
+        elif node_type in UTILITY_TYPES:
+            output_signals = stage_inputs
+        else:
+            raise ValueError(f"Wrong node type given: {node_type}")
+
+        if isinstance(output_signals, list):
+            if len(output_signals) == 1:
+                output_signals = output_signals[0]
+            else:
+                # per-node outlets become contiguous buffer rows
+                stacked = torch.stack(output_signals, dim=-3)
+                output_signals = stacked.reshape((-1,) + stacked.shape[-2:])
+
+        if ndim == 4:
+            output_signals = output_signals.reshape(
+                (batch_size, -1, channels, audio_len)
+            )
+        stage_outputs.append(output_signals)
+
+    signal_buffer = None
+    if return_buffer:
+        written = [r for r in range(render_data.num_buffers) if r in row_src]
+        signal_buffer = _read_rows_from_stages(
+            stage_outputs, written, row_src, node_dim, channel_broadcast=True
+        )
+    return output_signals, intermediates_list, signal_buffer
+
+
+def make_render_fn(processors, render_data):
+    """Build a render closure over static (processors, plan) with
+    signature ``f(input_signals, per_type_parameters, return_buffer=False)``
+    (the counterpart of :func:`grafx_tpu.render.graph.make_render_fn`;
+    eager, so there is nothing to compile or cache)."""
+
+    def render_fn(input_signals, per_type_parameters, return_buffer=False):
+        return render_grafx(
+            processors,
+            input_signals,
+            per_type_parameters,
+            render_data,
+            return_buffer=return_buffer,
+        )
+
+    return render_fn

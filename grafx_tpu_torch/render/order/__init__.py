@@ -1,0 +1,25 @@
+"""Type-scheduling searches for the render order."""
+
+from grafx_tpu_torch.render.order.graph import (
+    compute_render_order,
+    reorder_for_fast_render,
+    return_render_ordered_graph,
+)
+from grafx_tpu_torch.render.order.tensor import (
+    beam_search,
+    compute_render_order_tensor,
+    greedy_search,
+    node_id_from_render_order,
+    return_render_ordered_tensor,
+)
+
+__all__ = [
+    "beam_search",
+    "compute_render_order",
+    "compute_render_order_tensor",
+    "greedy_search",
+    "node_id_from_render_order",
+    "reorder_for_fast_render",
+    "return_render_ordered_graph",
+    "return_render_ordered_tensor",
+]
