@@ -1,31 +1,38 @@
-"""Serve the bench.py mixing console once on one NVIDIA GPU through
+"""Serve and train the bench.py mixing console on one NVIDIA GPU through
 grafx_tpu_torch, and check every hand-written kernel on the way.
 
 Run from the root of the repository, on a machine with the card:
 
     python3 chip_smoke.py
 
-Phases (each prints one line; any failure exits non-zero before the
-result line):
+Phases (each prints one line or more; any failure exits non-zero
+before the result line):
 
 1. device: the card's name and power limit, TF32 switched off;
 2. build: the CUDA kernels compiled from ``grafx_tpu_torch/csrc``;
-3. kernels: each kernel against its plain PyTorch version on the card,
-   at small shapes and at the shapes the console gives it, with their
-   times;
+3. kernels: each of the six kernels against its plain PyTorch version on
+   the card, at small shapes and at the shapes the console gives it,
+   with their times;
 4. exactness: the exact IIR cascade against scipy float64;
 5. serve: three requests of (4, 17, 2, 2^17) through the fused console,
-   with every kernel's launch count;
-6. card vs CPU: the same console at batch 1, L = 2^14, on the card and
+   with every kernel's launch count (the primal kernels #1/#2 only);
+6. train: three gradient steps of ``bench_trainer(17)`` at (4, 17, 2,
+   2^17), with device ms per step, peak memory, the losses, which leaves
+   moved, and every kernel's launch count (the training kernels #3-#6
+   only);
+7. grad card vs CPU: the trainer's loss and every parameter gradient at
+   batch 1, L = 2^14, on the card and on the CPU;
+8. card vs CPU: the served console at batch 1, L = 2^14, on the card and
    on the CPU.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 
-``--profile DIR`` adds, after phase 5, one more warm request under
-``torch.profiler``: it prints the request's device ms (CUDA events), host
-wall ms, busy device ms and the card's idle share, and writes the
-per-op table to ``DIR/profile_request.txt``.
+``--profile DIR`` adds, after phase 5, one more warm request and, after
+phase 6, one more warm step under ``torch.profiler``: each prints its
+device ms (CUDA events), host wall ms, busy device ms and the card's idle
+share, and writes its per-op table to ``DIR/profile_request.txt`` and
+``DIR/profile_step.txt``.
 """
 
 import argparse
@@ -39,14 +46,30 @@ import sys
 import numpy as np
 import torch
 
-from grafx_tpu_torch.models import bench_console
+from grafx_tpu_torch.models import bench_console, bench_trainer
 from grafx_tpu_torch.ops import _cuda
 from grafx_tpu_torch.ops import ballistics as bal
 from grafx_tpu_torch.ops.iir import exactness_check_db
 from grafx_tpu_torch.render import make_render_fn
+from grafx_tpu_torch.utils import tree_items
 
-SOURCE = "grafx_tpu_torch/csrc/ballistics_gain.cu"
+GAIN_SRC = "grafx_tpu_torch/csrc/ballistics_gain.cu"
+GRAD_SRC = "grafx_tpu_torch/csrc/ballistics_grad.cu"
+# name -> (source, the TPU kernel it replaces), in the order of PERF.md's table
+KERNELS = {
+    "ballistics_gain_pair_core": (GAIN_SRC, "grafx_tpu/ops/ballistics_tpu.py:826"),
+    "ballistics_gain_core": (GAIN_SRC, "grafx_tpu/ops/ballistics_tpu.py:587"),
+    "ballistics_gain_pair_fwd": (GAIN_SRC, "grafx_tpu/ops/ballistics_tpu.py:747"),
+    "ballistics_gain_pair_bwd": (GRAD_SRC, "grafx_tpu/ops/ballistics_tpu.py:892"),
+    "ballistics_gain_fwd": (GAIN_SRC, "grafx_tpu/ops/ballistics_tpu.py:449"),
+    "ballistics_gain_bwd": (GRAD_SRC, "grafx_tpu/ops/ballistics_tpu.py:496"),
+}
+SERVE_KERNELS = ("ballistics_gain_pair_core", "ballistics_gain_core")
+TRAIN_KERNELS = ("ballistics_gain_pair_fwd", "ballistics_gain_pair_bwd",
+                 "ballistics_gain_fwd", "ballistics_gain_bwd")
 MAX_ABS = 2e-5  # the bound benchmarks/verify_ballistics_tpu.py uses on the TPU
+DU_REL = 1e-5  # du: max abs error <= DU_REL * max |ref|
+GRAD_REL = 1e-4  # per-row gradients: max abs error <= GRAD_REL * max |ref|
 BATCH, CHAINS, AUDIO_LEN = 4, 17, 2**17
 
 
@@ -83,6 +106,15 @@ def energy(gen, n, length):
     return torch.mean(torch.square(x), dim=-2)
 
 
+def console_input(shape, generator, device):
+    """Noise with quiet passages (-40 dB in half of 32 blocks), so that
+    the gates and the compressors' knees act and have gradients."""
+    block = shape[-1] // 32
+    x = torch.randn(shape, generator=generator, device=device)
+    loud = torch.rand(shape[:-2] + (1, 32), generator=generator, device=device) < 0.5
+    return x * torch.where(loud, 1.0, 0.01).repeat_interleave(block, dim=-1)
+
+
 def device_ms(fn, reps):
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -93,30 +125,72 @@ def device_ms(fn, reps):
     return start.elapsed_time(end) / reps, out
 
 
-def kernel_cases(gen):
-    """(name, kernel call, plain call) at small shapes: both kinds, a
-    one-pole member, an absent member and a ragged row count."""
+def max_err(got, ref):
+    return (got - ref).abs().max().item()
+
+
+class KernelCase:
+    """One call of a kernel pair (primal-only #1/#2, or forward #3/#5 with
+    its adjoint #4/#6) with its plain versions on the same inputs."""
+
+    def __init__(self, pair, u, consts, kinds, inits, gg):
+        self.pair, self.u, self.consts, self.gg = pair, u, consts, gg
+        self.kinds, self.inits = kinds, inits
+
+    def _kw(self, inits=True):
+        if not self.pair:
+            return {"kind": self.kinds}
+        return {"kinds": self.kinds, "inits": self.inits} if inits else {"kinds": self.kinds}
+
+    def primal(self, plain=False):
+        fn = ((bal.ballistics_gain_pair_plain if plain else bal.ballistics_gain_pair_core)
+              if self.pair else (bal.ballistics_gain_plain if plain else bal.ballistics_gain_core))
+        return fn(self.u, *self.consts, **self._kw())
+
+    def forward(self, plain=False):
+        fn = ((bal.ballistics_gain_pair_fwd_plain if plain else bal.ballistics_gain_pair_fwd)
+              if self.pair else (bal.ballistics_gain_fwd_plain if plain else bal.ballistics_gain_fwd))
+        return fn(self.u, *self.consts, **self._kw())
+
+    def backward(self, res, plain=False):
+        """The adjoint on the residuals ``res`` of a forward."""
+        if self.pair:
+            fn = bal.ballistics_gain_pair_bwd_plain if plain else bal.ballistics_gain_pair_bwd
+            return fn(self.u, *res[1:], self.gg, *self.consts, **self._kw(inits=False))
+        fn = bal.ballistics_gain_bwd_plain if plain else bal.ballistics_gain_bwd
+        return fn(self.u, res[1], res[2], self.gg, *self.consts[1:], **self._kw())
+
+    @property
+    def names(self):
+        fwd = "ballistics_gain_pair_fwd" if self.pair else "ballistics_gain_fwd"
+        return ("ballistics_gain_pair_core" if self.pair else "ballistics_gain_core",
+                fwd, fwd.replace("_fwd", "_bwd"))
+
+
+def kernel_cases(gen, length=2**13):
+    """Cases at small shapes: N = 68, 8 and 37 rows, both kinds, a
+    one-pole member with init 0, absent members; (label, case, absent
+    rows per member)."""
     cases = []
     for n in (68, 8, 37):
-        u = energy(gen, n, 2**13)
+        u = energy(gen, n, length)
+        gg = torch.randn(n, length, generator=gen, device="cuda")
         for kind in ("compressor", "noisegate"):
             zi = torch.rand(n, generator=gen, device="cuda")
-            c = [zi] + gain_consts(gen, n, kind, absent=torch.arange(n, device="cuda") % 5 == 0)
-            cases.append(("ballistics_gain_core", n, kind,
-                          lambda u=u, c=c, k=kind: bal.ballistics_gain_core(u, *c, kind=k),
-                          lambda u=u, c=c, k=kind: bal.ballistics_gain_plain(u, *c, kind=k)))
+            absent = torch.arange(n, device="cuda") % 5 == 0
+            c = [zi] + gain_consts(gen, n, kind, absent=absent)
+            cases.append((f"N={n} {kind}", KernelCase(False, u, c, kind, None, gg), (absent,)))
         for kinds, inits in ((("noisegate", "compressor"), (0.0, 1.0)),
                              (("compressor", "noisegate"), (1.0, 1.0))):
             absent = torch.arange(n, device="cuda") % 3 != 0
             c = gain_consts(gen, n, kinds[0], onepole=inits[0] == 0.0, absent=absent)
             c += gain_consts(gen, n, kinds[1])
-            cases.append(("ballistics_gain_pair_core", n, kinds,
-                          lambda u=u, c=c, k=kinds, i=inits: bal.ballistics_gain_pair_core(u, *c, kinds=k, inits=i),
-                          lambda u=u, c=c, k=kinds, i=inits: bal.ballistics_gain_pair_plain(u, *c, kinds=k, inits=i)))
+            cases.append((f"N={n} {'/'.join(kinds)} inits={inits}",
+                          KernelCase(True, u, c, kinds, inits, gg), (absent, None)))
     return cases
 
 
-def main_path_cases(gen):
+def console_cases(gen):
     """The console's two calls: the 17 gate -> compressor composites at
     batch 4 (68 rows; 11 of every 17 gates absent) and the two bus
     compressors at batch 4 (8 rows), over 2^17 samples."""
@@ -124,33 +198,95 @@ def main_path_cases(gen):
     absent = (torch.arange(n, device="cuda") % CHAINS) % 3 != 0
     u = energy(gen, n, AUDIO_LEN)
     c = gain_consts(gen, n, "noisegate", onepole=True, absent=absent) + gain_consts(gen, n, "compressor")
-    kinds, inits = ("noisegate", "compressor"), (0.0, 1.0)
-    pair = (lambda: bal.ballistics_gain_pair_core(u, *c, kinds=kinds, inits=inits),
-            lambda: bal.ballistics_gain_pair_plain(u, *c, kinds=kinds, inits=inits))
+    gg = torch.randn(n, AUDIO_LEN, generator=gen, device="cuda")
+    pair = KernelCase(True, u, c, ("noisegate", "compressor"), (0.0, 1.0), gg)
     n = BATCH * 2
     u2 = energy(gen, n, AUDIO_LEN)
     c2 = [torch.ones(n, device="cuda")] + gain_consts(gen, n, "compressor")
-    single = (lambda: bal.ballistics_gain_core(u2, *c2, kind="compressor"),
-              lambda: bal.ballistics_gain_plain(u2, *c2, kind="compressor"))
-    return {"ballistics_gain_pair_core": pair, "ballistics_gain_core": single}
+    gg2 = torch.randn(n, AUDIO_LEN, generator=gen, device="cuda")
+    return [pair, KernelCase(False, u2, c2, "compressor", None, gg2)]
+
+
+def grad_names(case):
+    if case.pair:
+        return [f"d{p}_{m}" for m in "ab" for p in ("at", "rt", "th", "cf", "hk")]
+    return ["dzi", "dat", "drt", "dth", "dcf", "dhk"]
+
+
+def check_case(label, case, stats, absent=None, timed=False):
+    """Hold the primal kernel, the forward and the adjoint against their
+    plain versions.  With ``timed``, each plain version's one run is
+    timed, then each kernel over 5 runs after a warm-up."""
+    prim_name, fwd_name, bwd_name = case.names
+
+    def plain(name, fn):
+        if not timed:
+            return fn()
+        ms, out = device_ms(fn, reps=1)
+        stats[name]["plain_ms"] = ms
+        return out
+
+    prim, fwd = case.primal(), case.forward()
+    bwd = case.backward(fwd)
+    prim_ref = plain(prim_name, lambda: case.primal(plain=True))
+    fwd_ref = plain(fwd_name, lambda: case.forward(plain=True))
+    # the kernel's residuals for both: #4/#6 alone
+    bwd_ref = plain(bwd_name, lambda: case.backward(fwd, plain=True))
+    torch.cuda.synchronize()
+
+    err = max_err(prim, prim_ref)
+    check(err < MAX_ABS, f"{prim_name} {label}: max abs err {err} >= {MAX_ABS}")
+    stats[prim_name]["max_abs_err"] = max(stats[prim_name]["max_abs_err"], err)
+    check(torch.equal(fwd[0], prim), f"{fwd_name} {label}: the gain differs from {prim_name}'s")
+    ferr = max(max_err(a, b) for a, b in zip(fwd, fwd_ref))
+    check(ferr < MAX_ABS, f"{fwd_name} {label}: gain/residual max abs err {ferr} >= {MAX_ABS}")
+    stats[fwd_name]["max_abs_err"] = max(stats[fwd_name]["max_abs_err"], ferr)
+
+    du_err, du_scale = max_err(bwd[0], bwd_ref[0]), bwd_ref[0].abs().max().item()
+    check(du_err <= DU_REL * du_scale, f"{bwd_name} {label}: du err {du_err} > {DU_REL} x {du_scale}")
+    rel = 0.0
+    for name, g, r in zip(grad_names(case), bwd[1:], bwd_ref[1:]):
+        e, scale = max_err(g, r), r.abs().max().item()
+        check(e <= GRAD_REL * scale, f"{bwd_name} {label} {name}: err {e} > {GRAD_REL} x {scale}")
+        rel = max(rel, e / scale if scale > 0 else 0.0)
+        stats[bwd_name]["max_abs_err"] = max(stats[bwd_name]["max_abs_err"], e)
+    stats[bwd_name]["max_abs_err"] = max(stats[bwd_name]["max_abs_err"], du_err)
+    if absent is not None:
+        # an absent member (cf = 0) gets no gradient through its walk or
+        # knee; dcf is the cotangent of the masked cf, which the mask zeroes
+        for m, rows in zip(("a", "b") if case.pair else ("",), absent):
+            if rows is None:
+                continue
+            for name, g in zip(grad_names(case), bwd[1:]):
+                if name.endswith(m) and not name.startswith("dcf"):
+                    check(bool((g[rows] == 0).all()), f"{bwd_name} {label}: absent {name} != 0")
+            if not case.pair:
+                check(bool((bwd[0][rows] == 0).all()), f"{bwd_name} {label}: absent du != 0")
+    say("kernels", case=label, primal_err=f"{err:.3g}", fwd_err=f"{ferr:.3g}",
+        du_err=f"{du_err:.3g}", du_scale=f"{du_scale:.3g}", grad_rel_err=f"{rel:.3g}")
+    if timed:
+        for name, kern in ((prim_name, case.primal), (fwd_name, case.forward),
+                           (bwd_name, lambda: case.backward(fwd))):
+            kern()  # warm-up
+            stats[name]["ms"] = device_ms(kern, reps=5)[0]
+            say("kernels", kernel=name, shape=tuple(case.u.shape),
+                kernel_ms=f"{stats[name]['ms']:.3f}", plain_ms=f"{stats[name]['plain_ms']:.1f}")
 
 
 def db(err, ref):
     return 20.0 * torch.log10(torch.linalg.norm(err) / torch.linalg.norm(ref)).item()
 
 
-def profile_request(render, x, params, out_dir, card):
-    """One warm request under torch.profiler.  The busy time is the union
-    of the device ops' intervals; the idle share is the rest of the span
-    the CUDA events measure."""
+def profile_run(fn, out_dir, name, card):
+    """One warm run of ``fn`` under torch.profiler.  The busy time is the
+    union of the device ops' intervals; the idle share is the rest of the
+    span the CUDA events measure."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with torch.inference_mode(), profile(
-        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    ) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ms, _ = device_ms(lambda: render(x, params), reps=1)
+        ms, _ = device_ms(fn, reps=1)
         wall_ms = 1e3 * (time.perf_counter() - t0)
     spans = sorted(
         (e.time_range.start, e.time_range.end)
@@ -166,11 +302,11 @@ def profile_request(render, x, params, out_dir, card):
             end = max(end, e)
     busy_ms = (busy_us + end - start) / 1e3
     os.makedirs(out_dir, exist_ok=True)
-    table = os.path.join(out_dir, "profile_request.txt")
+    table = os.path.join(out_dir, f"profile_{name}.txt")
     with open(table, "w") as f:
         f.write(f"{card}\n")
         f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60))
-    say("profile", request_ms=f"{ms:.3f}", host_wall_ms=f"{wall_ms:.3f}",
+    say("profile", run=name, device_ms=f"{ms:.3f}", host_wall_ms=f"{wall_ms:.3f}",
         device_busy_ms=f"{busy_ms:.3f}", device_ops=len(spans),
         idle_share=f"{max(0.0, 1.0 - busy_ms / ms):.3f}", table=table, card=repr(card))
 
@@ -178,8 +314,9 @@ def profile_request(render, x, params, out_dir, card):
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--profile", metavar="DIR",
-                        help="profile one more warm request and write its table to DIR")
+                        help="profile one more warm request and step; write their tables to DIR")
     args = parser.parse_args()
+    t_start = time.perf_counter()
 
     # 1. device
     if not torch.cuda.is_available():
@@ -201,33 +338,19 @@ def main():
 
     # 2. build
     lib = _cuda.library()
-    say("build", seconds=f"{lib.build_seconds:.2f}", library=lib.path)
+    say("build", seconds=f"{lib.build_seconds:.2f}", libraries=list(lib.paths.values()))
     for line in lib.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  nvcc:", line.strip(), flush=True)
 
     # 3. kernels against their plain versions on the card
     gen = torch.Generator(device="cuda").manual_seed(0)
-    stats = {name: {"max_abs_err": 0.0} for name in ("ballistics_gain_pair_core", "ballistics_gain_core")}
+    stats = {name: {"max_abs_err": 0.0} for name in KERNELS}
     with torch.inference_mode():
-        for name, n, kinds, kern, plain in kernel_cases(gen):
-            got, ref = kern(), plain()
-            torch.cuda.synchronize()
-            err = (got - ref).abs().max().item()
-            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
-            label = kinds if isinstance(kinds, str) else "/".join(kinds)
-            say("kernels", case=name, rows=n, kinds=label, max_abs_err=f"{err:.3g}")
-            check(err < MAX_ABS, f"{name} N={n} {kinds}: max abs err {err} >= {MAX_ABS}")
-        for name, (kern, plain) in main_path_cases(gen).items():
-            kern()  # warm-up
-            ms, got = device_ms(kern, reps=5)
-            plain_ms, ref = device_ms(plain, reps=1)
-            err = (got - ref).abs().max().item()
-            check(err < MAX_ABS, f"{name} at the console's shape: max abs err {err} >= {MAX_ABS}")
-            stats[name].update(ms=ms, plain_ms=plain_ms)
-            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
-            say("kernels", case=name, shape=tuple(got.shape), max_abs_err=f"{err:.3g}",
-                kernel_ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.1f}")
+        for label, case, absent in kernel_cases(gen):
+            check_case(label, case, stats, absent)
+        for case in console_cases(gen):
+            check_case(f"console {tuple(case.u.shape)}", case, stats, timed=True)
 
     # 4. exactness of the exact IIR cascade on the card
     exact_db = exactness_check_db(device="cuda")
@@ -243,8 +366,7 @@ def main():
         requests.append(torch.randn(BATCH, CHAINS, 2, AUDIO_LEN, generator=g, device="cuda"))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    bal.ballistics_gain_core.launches = 0
-    bal.ballistics_gain_pair_core.launches = 0
+    bal.reset_launch_counts()
     request_ms = []
     with torch.inference_mode():
         for x in requests:
@@ -252,21 +374,111 @@ def main():
             check(y.shape == (BATCH, 1, 2, AUDIO_LEN), f"output shape {tuple(y.shape)}")
             check(bool(torch.isfinite(y).all()), "non-finite output")
             request_ms.append(ms)
-    launches = {
-        "ballistics_gain_core": bal.ballistics_gain_core.launches,
-        "ballistics_gain_pair_core": bal.ballistics_gain_pair_core.launches,
-    }
+    launches = bal.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     for name, count in launches.items():
-        check(count > 0, f"{name} was not launched on the serving path")
-        stats[name]["launches"] = count
+        if name in SERVE_KERNELS:
+            check(count > 0, f"{name} was not launched on the serving path")
+            stats[name]["launches"] = count
+        else:
+            check(count == 0, f"{name} was launched on the serving path")
     say("serve", requests=len(request_ms), request_ms=[round(t, 3) for t in request_ms],
         median_ms=f"{statistics.median(request_ms):.3f}", peak_mem_gib=f"{peak_gb:.2f}",
         launches=launches, card=repr(smi))
     if args.profile:
-        profile_request(render, requests[-1], console.params, args.profile, smi)
+        with torch.inference_mode():
+            profile_run(lambda: render(requests[-1], console.params), args.profile, "request", smi)
+    del console, render, requests, y
 
-    # 6. the card against the port's CPU path
+    # 6. train the full-width console: three gradient steps
+    trainer = bench_trainer(CHAINS, seed=0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = console_input((BATCH, CHAINS, 2, AUDIO_LEN), g, "cuda")
+    target = torch.randn(BATCH, 1, 2, AUDIO_LEN, generator=g, device="cuda")
+    leaves = tree_items(trainer.params)
+    start = {k: p.detach().clone() for k, p in leaves}
+    lr = trainer.optimizer.param_groups[0]["lr"]
+    largest_step = {k: torch.zeros_like(p) for k, p in leaves if p.requires_grad}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bal.reset_launch_counts()
+    step_ms, step_losses = [], []
+    for _ in range(3):
+        ms, (_, audio) = device_ms(lambda: trainer.step(x, target), reps=1)
+        step_ms.append(ms)
+        step_losses.append(audio.item())
+        for k, p in leaves:
+            if p.requires_grad:
+                check(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                      and bool((p.grad != 0).any()), f"no finite nonzero gradient reached {k}")
+                largest_step[k] = torch.maximum(largest_step[k], lr * p.grad.abs())
+    launches = bal.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    check(all(np.isfinite(step_losses)), f"non-finite losses {step_losses}")
+    for name, count in launches.items():
+        if name in TRAIN_KERNELS:
+            check(count > 0, f"{name} was not launched on the training path")
+            stats[name]["launches"] = count
+        else:
+            check(count == 0, f"{name} (no-grad) was launched on the training path")
+    moved, frozen, below_ulp = 0, 0, []
+    for k, p in leaves:
+        same = torch.equal(p.detach(), start[k])
+        if k.endswith("_absent"):
+            check(same and not p.requires_grad, f"the absent mask {k} changed or trains")
+            frozen += 1
+        elif not same:
+            moved += 1
+        else:
+            # a leaf may keep its value only where every SGD step was
+            # below float32 resolution (half an ulp, within 2x) of it
+            resolution = 0.5 * torch.finfo(torch.float32).eps * p.detach().abs()
+            check(bool((largest_step[k] <= resolution).all()),
+                  f"the trainable leaf {k} did not change, with steps above float32 resolution")
+            below_ulp.append(k)
+    say("train", steps=len(step_ms), step_ms=[round(t, 3) for t in step_ms],
+        warm_median_ms=f"{statistics.median(step_ms[1:]):.3f}", peak_mem_gib=f"{peak_gb:.2f}",
+        losses=[f"{v:.6f}" for v in step_losses], leaves_moved=moved,
+        leaves_below_float32_step=below_ulp, absent_unchanged=frozen,
+        launches=launches, card=repr(smi))
+    if args.profile:
+        profile_run(lambda: trainer.step(x, target), args.profile, "step", smi)
+    del trainer, x, target
+
+    # 7. the card's loss and gradients against the port's CPU path
+    g = torch.Generator().manual_seed(4)
+    x = console_input((1, CHAINS, 2, 2**14), g, "cpu")
+    target = torch.randn(1, 1, 2, 2**14, generator=g)
+    losses, grads = {}, {}
+    for device in ("cuda", "cpu"):
+        tr = bench_trainer(CHAINS, seed=5, device=device)
+        total, audio = tr.loss(x.to(device), target.to(device))
+        total.backward()
+        losses[device] = audio.detach().cpu().double()
+        grads[device] = {k: torch.zeros(p.shape) if p.grad is None else p.grad.cpu()
+                         for k, p in tree_items(tr.params)}
+    loss_db = db(losses["cuda"] - losses["cpu"], losses["cpu"])
+    cat = {d: torch.cat([v.ravel() for v in grads[d].values()]) for d in grads}
+    grad_db = db(cat["cuda"] - cat["cpu"], cat["cpu"])
+    check(bool(torch.isfinite(cat["cuda"]).all()), "non-finite card gradient")
+    check(loss_db <= -60.0, f"loss card vs CPU at {loss_db:.1f} dB > -60 dB")
+    check(grad_db <= -60.0, f"gradient card vs CPU at {grad_db:.1f} dB > -60 dB")
+    worst, worst_leaf, zero_leaves = -1e9, None, 0
+    for k, ref in grads["cpu"].items():
+        got = grads["cuda"][k]
+        if bool((ref != 0).any()):
+            leaf_db = db(got - ref, ref)
+            check(leaf_db <= -40.0, f"gradient of {k} card vs CPU at {leaf_db:.1f} dB > -40 dB")
+            if leaf_db > worst:
+                worst, worst_leaf = leaf_db, k
+        else:
+            check(bool((got == 0).all()), f"gradient of {k} is zero on the CPU, not on the card")
+            zero_leaves += 1
+    say("grad_card_vs_cpu", loss_db=f"{loss_db:.1f}", grad_db=f"{grad_db:.1f}",
+        worst_leaf_db=f"{worst:.1f}", worst_leaf=worst_leaf, zero_leaves=zero_leaves,
+        leaves=len(grads["cpu"]))
+
+    # 8. the served console, card against the port's CPU path
     x = torch.from_numpy(np.random.default_rng(4).standard_normal((1, CHAINS, 2, 2**14)).astype(np.float32))
     outs = {}
     for device in ("cuda", "cpu"):
@@ -278,15 +490,12 @@ def main():
     check(bool(torch.isfinite(outs["cuda"]).all()), "non-finite card output")
     check(card_db <= -60.0, f"card vs CPU at {card_db:.1f} dB > -60 dB")
 
-    replaces = {
-        "ballistics_gain_pair_core": "grafx_tpu/ops/ballistics_tpu.py:826",
-        "ballistics_gain_core": "grafx_tpu/ops/ballistics_tpu.py:587",
-    }
+    say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces[name],
-         "launches": s["launches"], "max_abs_err": s["max_abs_err"],
-         "ms": s["ms"], "plain_ms": s["plain_ms"]}
-        for name, s in stats.items()
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": stats[name]["launches"], "max_abs_err": stats[name]["max_abs_err"],
+         "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"]}
+        for name, (source, replaces) in KERNELS.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

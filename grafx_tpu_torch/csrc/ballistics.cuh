@@ -1,0 +1,72 @@
+// Shared pieces of the ballistics gain kernels (ballistics_gain.cu,
+// ballistics_grad.cu): the 32 x 32 time tiles a walk stages through
+// shared memory, and the quadratic knee of
+// grafx_tpu/ops/ballistics_tpu.py (_knee_f, _knee_fp, _knee_fhk).
+//
+// kind 0: compressor (cf = 1/ratio - 1); kind 1: noise gate
+// (cf = ratio - 1).  logf/expf are the accurate library versions and
+// divisions are IEEE: no file including this may be built with
+// --use_fast_math.
+#pragma once
+
+#include <cuda_pipeline.h>
+#include <cuda_runtime.h>
+
+namespace grafx {
+
+constexpr int kTile = 32;
+constexpr float kEps = 1e-5f;
+
+using Tile = float[kTile][kTile + 1];  // +1: row and column reads hit 32 banks
+
+// Starts the copy of the (rows x 32) tile of x at time t0 into shared
+// memory: lane j copies sample t0 + j of each row.  Samples past the
+// edges are zeros.
+__device__ __forceinline__ void fetch_tile(Tile& t, const float* x, int row0,
+                                           int rows, long long len, long long t0,
+                                           int lane) {
+  const bool in_time = t0 + lane < len;
+#pragma unroll
+  for (int i = 0; i < kTile; ++i) {
+    if (i < rows && in_time) {
+      __pipeline_memcpy_async(&t[i][lane], x + (row0 + i) * len + t0 + lane, sizeof(float));
+    } else {
+      t[i][lane] = 0.0f;
+    }
+  }
+}
+
+__device__ __forceinline__ float knee_f(float x, float hk, int kind) {
+  if (kind == 0) {
+    const float d = x + hk;
+    const float mid = d * d / (4.0f * hk);
+    return x > hk ? x : (x < -hk ? 0.0f : mid);
+  }
+  const float d = x - hk;
+  const float mid = -(d * d) / (4.0f * hk);
+  return x < -hk ? x : (x > hk ? 0.0f : mid);
+}
+
+// df/dx
+__device__ __forceinline__ float knee_fp(float x, float hk, int kind) {
+  if (kind == 0) {
+    const float mid = (x + hk) / (2.0f * hk);
+    return x > hk ? 1.0f : (x < -hk ? 0.0f : mid);
+  }
+  const float mid = -(x - hk) / (2.0f * hk);
+  return x < -hk ? 1.0f : (x > hk ? 0.0f : mid);
+}
+
+// df/dhk, nonzero only inside the knee
+__device__ __forceinline__ float knee_fhk(float x, float hk, int kind) {
+  const bool inside = x >= -hk && x <= hk;
+  const float mid = kind == 0 ? (x + hk) * (hk - x) / (4.0f * hk * hk)
+                              : (x - hk) * (x + hk) / (4.0f * hk * hk);
+  return inside ? mid : 0.0f;
+}
+
+__device__ __forceinline__ float knee_gain(float y, float th, float cf, float hk, int kind) {
+  return expf(cf * knee_f(logf(y + kEps) - th, hk, kind));
+}
+
+}  // namespace grafx

@@ -1,18 +1,22 @@
-// Fused ballistics-smoother + quadratic-knee gain, forward only, for
-// Hopper (sm_90a).  Built with nvcc into a shared library with a plain C
+// Fused ballistics-smoother + quadratic-knee gain, forward, for Hopper
+// (sm_90a).  Built with nvcc into a shared library with a plain C
 // interface and loaded through ctypes (grafx_tpu_torch/ops/_cuda.py).
 //
-// Replaces two Pallas TPU kernels of grafx_tpu/ops/ballistics_tpu.py:
-//   * grafx_gain_fwd       <- _fwd_gain_only_kernel      (ballistics_tpu.py:587)
-//   * grafx_gain_pair_fwd  <- _fwd_gain_pair_only_kernel (ballistics_tpu.py:826)
+// Replaces four Pallas TPU kernels of grafx_tpu/ops/ballistics_tpu.py:
+//   * grafx_gain_fwd           <- _fwd_gain_only_kernel      (ballistics_tpu.py:587)
+//   * grafx_gain_pair_fwd      <- _fwd_gain_pair_only_kernel (ballistics_tpu.py:826)
+//   * grafx_gain_fwd_res       <- _fwd_gain_kernel           (ballistics_tpu.py:449)
+//   * grafx_gain_pair_fwd_res  <- _fwd_gain_pair_kernel      (ballistics_tpu.py:747)
+// The *_res versions also write the residuals the adjoints
+// (ballistics_grad.cu) need: d[n] = x[n] - y[n-1] of each walk and its
+// final state y[L-1].
 //
 // What is computed (per row, sequentially over time):
 //   y[n]  = (u[n] > y[n-1]) ? (1-at) y[n-1] + at u[n] : (1-rt) y[n-1] + rt u[n]
 //   gain  = exp(cf * f(log(y + 1e-5) - th)),  f = quadratic knee (_knee_f)
 // and for the pair, a second walk over the gated energy ga^2 u whose gain
 // multiplies the first.  An absent member has cf = 0, so its gain is
-// exactly 1.  logf/expf are the accurate library versions: the file must
-// not be built with --use_fast_math.
+// exactly 1.
 //
 // Design and what bounds it.  Only the walk is serial: it cannot be split
 // over time (the attack/release choice depends on the state), and the
@@ -20,16 +24,17 @@
 // compressors), i.e. 3 and 1 warps on 3 of the card's 132 SMs.  So the
 // work is cut in two kernels:
 //   * walk_kernel: one thread per row walks all L samples and writes the
-//     envelope.  A warp owns 32 rows and stages (32 rows x 32 samples)
-//     tiles of the input through a ring of kStages tiles in shared memory,
-//     filled with cp.async, so that global loads run along time (coalesced)
-//     and kStages - 1 tiles are in flight while the warp walks.  Per
-//     sample the serial chain is one compare, one FMA and one select
-//     (~10 cycles), but on an H100 a walk takes ~1 us per 32-sample tile
-//     (~60 cycles a sample): a lone warp per SM is bound by issuing the
-//     tile's 64 four-byte copies and stores and their shared-memory
-//     traffic, not by the chain or by bandwidth.  Wider accesses or
-//     helper warps that move the tiles are the next step.
+//     envelope (and, with residuals, d and the final state).  A warp owns
+//     32 rows and stages (32 rows x 32 samples) tiles of the input through
+//     a ring of kStages tiles in shared memory, filled with cp.async, so
+//     that global loads run along time (coalesced) and kStages - 1 tiles
+//     are in flight while the warp walks.  Per sample the serial chain is
+//     one compare, one FMA and one select (~10 cycles), but on an H100 a
+//     walk takes ~1 us per 32-sample tile (~60 cycles a sample): a lone
+//     warp per SM is bound by issuing the tile's 64 four-byte copies and
+//     stores and their shared-memory traffic, not by the chain or by
+//     bandwidth.  Wider accesses or helper warps that move the tiles are
+//     the next step.
 //   * knee_kernel: the log / exp knee, an elementwise pass over all N x L
 //     envelopes on every SM.  Inside the walk it would be the longest part
 //     of each step with nothing to hide its latency.
@@ -37,60 +42,26 @@
 // (times ga).  The envelopes go through device memory: 8 B per sample and
 // pass, well below what bounds the walk.
 
-#include <cuda_pipeline.h>
-#include <cuda_runtime.h>
+#include "ballistics.cuh"
 
 namespace {
 
-constexpr int kTile = 32;
+using namespace grafx;
+
 constexpr int kStages = 8;
 constexpr int kKneeThreads = 256;
-constexpr float kEps = 1e-5f;
-
-// KIND 0: compressor (cf = 1/ratio - 1), 1: noise gate (cf = ratio - 1).
-template <int KIND>
-__device__ __forceinline__ float knee_gain(float y, float th, float cf, float hk) {
-  const float x = logf(y + kEps) - th;
-  float f;
-  if (KIND == 0) {
-    const float d = x + hk;
-    const float mid = d * d / (4.0f * hk);
-    f = x > hk ? x : (x < -hk ? 0.0f : mid);
-  } else {
-    const float d = x - hk;
-    const float mid = -(d * d) / (4.0f * hk);
-    f = x < -hk ? x : (x > hk ? 0.0f : mid);
-  }
-  return expf(cf * f);
-}
-
-using Tile = float[kTile][kTile + 1];  // +1: row and column reads hit 32 banks
-
-// Starts the copy of the (rows x 32) tile of x at time t0 into shared
-// memory: lane j copies sample t0 + j of each row.  Samples past the
-// edges are zeros; walking them only changes states that are never stored.
-__device__ __forceinline__ void fetch_tile(Tile& t, const float* x, int row0,
-                                           int rows, long long len, long long t0,
-                                           int lane) {
-  const bool in_time = t0 + lane < len;
-#pragma unroll
-  for (int i = 0; i < kTile; ++i) {
-    if (i < rows && in_time) {
-      __pipeline_memcpy_async(&t[i][lane], x + (row0 + i) * len + t0 + lane, sizeof(float));
-    } else {
-      t[i][lane] = 0.0f;
-    }
-  }
-}
 
 // y = the ballistics walk over x from zi (or init where zi is null), with
 // per-row smoothing at, rt.  y may be x: tile k is read before it is
-// written, and the ring only reads ahead.
+// written, and the ring only reads ahead.  With RES, also d[n] = x[n] -
+// y[n-1] and last = y[L-1].
+template <bool RES>
 __global__ void __launch_bounds__(kTile)
-walk_kernel(const float* x, float* y, const float* __restrict__ zi, float init,
-            const float* __restrict__ at_, const float* __restrict__ rt_, int n,
-            long long len) {
+walk_kernel(const float* x, float* y, float* __restrict__ d, float* __restrict__ last,
+            const float* __restrict__ zi, float init, const float* __restrict__ at_,
+            const float* __restrict__ rt_, int n, long long len) {
   __shared__ Tile ring[kStages];
+  __shared__ float dres[RES ? kTile : 1][kTile + 1];
   const int lane = threadIdx.x;
   const int row0 = blockIdx.x * kTile;
   const int rows = min(kTile, n - row0);
@@ -111,35 +82,45 @@ walk_kernel(const float* x, float* y, const float* __restrict__ zi, float init,
     const long long t0 = k * kTile;
     __pipeline_wait_prior(kStages - 1);  // this lane's copies of tile k landed
     __syncwarp();                        // and every other lane's
-#pragma unroll
-    for (int j = 0; j < kTile; ++j) {
+    auto step = [&](int j) {
       const float u = t[lane][j];
+      if (RES) dres[lane][j] = u - s;
       s = u > s ? oma * s + at * u : omr * s + rt * u;
       t[lane][j] = s;
+    };
+    if (t0 + kTile <= len) {
+#pragma unroll
+      for (int j = 0; j < kTile; ++j) step(j);
+    } else {  // the ragged last tile: stop at L - 1, so that s is y[L-1]
+      for (int j = 0; j < len - t0; ++j) step(j);
     }
     __syncwarp();
     if (t0 + lane < len) {
-      for (int i = 0; i < rows; ++i) y[(row0 + i) * len + t0 + lane] = t[i][lane];
+      for (int i = 0; i < rows; ++i) {
+        const long long at_i = (row0 + i) * len + t0 + lane;
+        y[at_i] = t[i][lane];
+        if (RES) d[at_i] = dres[i][lane];
+      }
     }
     __syncwarp();
     if (k + kStages < tiles) fetch_tile(t, x, row0, rows, len, t0 + kStages * kTile, lane);
     __pipeline_commit();
   }
+  if (RES && live) last[row] = s;
 }
 
 // y = mul * knee(y) in place (mul may be null).  Where e is not null,
 // also e = knee(y)^2 * u: the energy a pair's second member walks over.
-template <int KIND>
 __global__ void __launch_bounds__(kKneeThreads)
 knee_kernel(float* __restrict__ y, const float* __restrict__ th,
             const float* __restrict__ cf, const float* __restrict__ hk,
             const float* __restrict__ mul, const float* __restrict__ u,
-            float* __restrict__ e, long long len) {
+            float* __restrict__ e, int kind, long long len) {
   const int row = blockIdx.y;
   const long long t = (long long)blockIdx.x * kKneeThreads + threadIdx.x;
   if (t >= len) return;
   const long long i = row * len + t;
-  const float g = knee_gain<KIND>(y[i], th[row], cf[row], hk[row]);
+  const float g = knee_gain(y[i], th[row], cf[row], hk[row], kind);
   y[i] = mul != nullptr ? mul[i] * g : g;
   if (e != nullptr) e[i] = g * g * u[i];
 }
@@ -148,18 +129,20 @@ cudaError_t knee(int kind, float* y, const float* c, const float* mul,
                  const float* u, float* e, int n, long long len, cudaStream_t s) {
   // c points at the member's th row of its (k, n) constants: th, cf, hk.
   const dim3 grid((unsigned)((len + kKneeThreads - 1) / kKneeThreads), n);
-  if (kind == 0) {
-    knee_kernel<0><<<grid, kKneeThreads, 0, s>>>(y, c, c + n, c + 2 * n, mul, u, e, len);
-  } else {
-    knee_kernel<1><<<grid, kKneeThreads, 0, s>>>(y, c, c + n, c + 2 * n, mul, u, e, len);
-  }
+  knee_kernel<<<grid, kKneeThreads, 0, s>>>(y, c, c + n, c + 2 * n, mul, u, e, kind, len);
   return cudaGetLastError();
 }
 
-cudaError_t walk(const float* x, float* y, const float* zi, float init,
-                 const float* at, const float* rt, int n, long long len,
+// d and last both null: the primal walk; both set: with residuals.
+cudaError_t walk(const float* x, float* y, float* d, float* last, const float* zi,
+                 float init, const float* at, const float* rt, int n, long long len,
                  cudaStream_t s) {
-  walk_kernel<<<(n + kTile - 1) / kTile, kTile, 0, s>>>(x, y, zi, init, at, rt, n, len);
+  const int blocks = (n + kTile - 1) / kTile;
+  if (d != nullptr) {
+    walk_kernel<true><<<blocks, kTile, 0, s>>>(x, y, d, last, zi, init, at, rt, n, len);
+  } else {
+    walk_kernel<false><<<blocks, kTile, 0, s>>>(x, y, d, last, zi, init, at, rt, n, len);
+  }
   return cudaGetLastError();
 }
 
@@ -168,35 +151,24 @@ bool bad_shape(int n, long long len, int kind) {
          kind < 0 || kind > 1;
 }
 
-}  // namespace
-
-extern "C" {
-
-// All pointers are device pointers to contiguous float32 arrays: u and
-// gain (n, len), consts (6, n) with rows zi, at, rt, th, cf, hk.
-// kind: 0 compressor, 1 noise gate.  Returns the cudaError_t of the
-// launches (0 on success).
-int grafx_gain_fwd(const float* u, float* gain, const float* consts, int n,
-                   long long len, int kind, int device, void* stream) {
+// The single-member gain; d / ylast null for the primal path.
+int gain_fwd(const float* u, float* gain, float* d, float* ylast, const float* consts,
+             int n, long long len, int kind, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (bad_shape(n, len, kind)) return (int)cudaErrorInvalidValue;
   if (n <= 0 || len <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* c = consts;
-  err = walk(u, gain, c, 0.0f, c + n, c + 2 * n, n, len, s);
-  if (err != cudaSuccess) return (int)err;
+  if ((err = walk(u, gain, d, ylast, c, 0.0f, c + n, c + 2 * n, n, len, s))) return (int)err;
   return (int)knee(kind, gain, c + 3 * n, nullptr, nullptr, nullptr, n, len, s);
 }
 
-// consts (10, n) with rows at_a, rt_a, th_a, cf_a, hk_a, at_b, rt_b, th_b,
-// cf_b, hk_b; kind_a / kind_b as above; init_a / init_b the members'
-// initial envelopes (1.0 ballistics, 0.0 exact one-pole).  scratch is a
-// second (n, len) device array.
-int grafx_gain_pair_fwd(const float* u, float* gain, float* scratch,
-                        const float* consts, int n, long long len, int kind_a,
-                        int kind_b, float init_a, float init_b, int device,
-                        void* stream) {
+// The pair; d_a, d_b, v_last, u_last all null for the primal path.
+int gain_pair_fwd(const float* u, float* gain, float* scratch, float* d_a, float* d_b,
+                  float* v_last, float* u_last, const float* consts, int n,
+                  long long len, int kind_a, int kind_b, float init_a, float init_b,
+                  int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (bad_shape(n, len, kind_a) || bad_shape(n, len, kind_b)) {
@@ -207,10 +179,50 @@ int grafx_gain_pair_fwd(const float* u, float* gain, float* scratch,
   const float* a = consts;
   const float* b = consts + 5 * n;
   // scratch <- ga; gain <- ga^2 u, walked in place, then ga * gb
-  if ((err = walk(u, scratch, nullptr, init_a, a, a + n, n, len, s))) return (int)err;
+  if ((err = walk(u, scratch, d_a, v_last, nullptr, init_a, a, a + n, n, len, s))) return (int)err;
   if ((err = knee(kind_a, scratch, a + 2 * n, nullptr, u, gain, n, len, s))) return (int)err;
-  if ((err = walk(gain, gain, nullptr, init_b, b, b + n, n, len, s))) return (int)err;
+  if ((err = walk(gain, gain, d_b, u_last, nullptr, init_b, b, b + n, n, len, s))) return (int)err;
   return (int)knee(kind_b, gain, b + 2 * n, scratch, nullptr, nullptr, n, len, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+// All pointers are device pointers to contiguous float32 arrays: u, gain
+// and d (n, len); consts (6, n) with rows zi, at, rt, th, cf, hk; ylast
+// (n,).  kind: 0 compressor, 1 noise gate.  Returns the cudaError_t of
+// the launches (0 on success).
+int grafx_gain_fwd(const float* u, float* gain, const float* consts, int n,
+                   long long len, int kind, int device, void* stream) {
+  return gain_fwd(u, gain, nullptr, nullptr, consts, n, len, kind, device, stream);
+}
+
+int grafx_gain_fwd_res(const float* u, float* gain, float* d, float* ylast,
+                       const float* consts, int n, long long len, int kind,
+                       int device, void* stream) {
+  return gain_fwd(u, gain, d, ylast, consts, n, len, kind, device, stream);
+}
+
+// consts (10, n) with rows at_a, rt_a, th_a, cf_a, hk_a, at_b, rt_b, th_b,
+// cf_b, hk_b; kind_a / kind_b as above; init_a / init_b the members'
+// initial envelopes (1.0 ballistics, 0.0 exact one-pole).  scratch, d_a
+// and d_b are (n, len); v_last and u_last (n,).
+int grafx_gain_pair_fwd(const float* u, float* gain, float* scratch,
+                        const float* consts, int n, long long len, int kind_a,
+                        int kind_b, float init_a, float init_b, int device,
+                        void* stream) {
+  return gain_pair_fwd(u, gain, scratch, nullptr, nullptr, nullptr, nullptr, consts, n,
+                       len, kind_a, kind_b, init_a, init_b, device, stream);
+}
+
+int grafx_gain_pair_fwd_res(const float* u, float* gain, float* scratch, float* d_a,
+                            float* d_b, float* v_last, float* u_last,
+                            const float* consts, int n, long long len, int kind_a,
+                            int kind_b, float init_a, float init_b, int device,
+                            void* stream) {
+  return gain_pair_fwd(u, gain, scratch, d_a, d_b, v_last, u_last, consts, n, len,
+                       kind_a, kind_b, init_a, init_b, device, stream);
 }
 
 }  // extern "C"

@@ -1,4 +1,5 @@
-"""The ~100-node mixing console of ``bench.py``, ready to serve.
+"""The ~100-node mixing console of ``bench.py``, ready to serve
+(:func:`bench_console`) and to train (:func:`bench_trainer`).
 
 ``bench.py`` imports JAX, so its graph and processors are copied here
 (``bench.py:53-95,122-130``).  The serving parameters are made on the
@@ -12,6 +13,8 @@ from dataclasses import dataclass
 import torch
 
 from grafx_tpu_torch.data import GRAFX, NodeConfigs, convert_to_tensor
+from grafx_tpu_torch.models.optimize import GraphParameterOptimizer
+from grafx_tpu_torch.ops.losses import mse_loss
 from grafx_tpu_torch.processors import (
     Compressor,
     GraphicEqualizer,
@@ -100,6 +103,24 @@ class Console:
     plan: object
     params: dict
     num_chains: int
+
+
+def bench_trainer(num_chains=17, seed=0, device="cpu"):
+    """The gradient step ``bench.py`` times (``bench.py:188-197``) as a
+    :class:`GraphParameterOptimizer`: the console fused with
+    ``"pad-auto"``, MSE loss, SGD with lr 1e-3, and parameters drawn from
+    ``seed`` on the unfused graph and migrated (so the padded gates stay
+    absent, and frozen).  ``bench_trainer(c, s).params`` equal
+    ``bench_console(c, s).params``."""
+    return GraphParameterOptimizer(
+        bench_graph(num_chains),
+        bench_processors(),
+        loss_fn=mse_loss,
+        optimizer=lambda params: torch.optim.SGD(params, lr=1e-3),
+        generator=torch.Generator().manual_seed(seed),
+        fuse="pad-auto",
+        device=device,
+    )
 
 
 def bench_console(num_chains=17, seed=0, device="cpu"):

@@ -1,0 +1,181 @@
+"""Gradient-based graph parameter estimation (the port of
+:mod:`grafx_tpu.models.optimize` on ``torch.optim``).
+
+One step is the canonical GRAFX training loop: render -> audio loss +
+aux losses -> backward -> optimizer step.  PyTorch runs it eagerly, so
+there is nothing to compile.
+"""
+
+import torch
+
+from grafx_tpu_torch.data import convert_to_tensor
+from grafx_tpu_torch.ops.losses import (
+    multi_resolution_stft_loss,
+    multi_resolution_stft_loss_precomputed,
+    precompute_stft_targets,
+)
+from grafx_tpu_torch.render import (
+    fuse_parameters,
+    fuse_serial_lti,
+    make_render_fn,
+    prepare_render,
+    reorder_for_fast_render,
+)
+from grafx_tpu_torch.utils import create_empty_parameters, tree_leaves, tree_map
+
+
+def _adam(params):
+    return torch.optim.Adam(params, lr=1e-2)
+
+
+class GraphParameterOptimizer:
+    """Fit a graph's processor parameters to match target audio.
+
+    Args:
+        G: a :class:`GRAFX` graph.
+        processors: type -> processor mapping.
+        loss_fn: ``f(output, target) -> scalar`` (default:
+            multi-resolution STFT loss, whose target spectrograms are then
+            computed once per target tensor).
+        optimizer: a factory ``f(list of tensors) -> torch.optim.Optimizer``
+            (default: Adam with lr 1e-2).  It receives the trainable
+            leaves only, so frozen leaves are never updated.
+        trainable: optional freezing spec: a type-level dict
+            ``{"eq": True, "reverb": False, ...}`` (missing types train)
+            or a full boolean tree with the parameters' structure.
+            Frozen leaves get ``requires_grad=False`` and keep their
+            initial values bit for bit.  Every ``_absent`` member mask is
+            frozen whatever the spec says: it is structure, not a weight.
+        aux_weight: weight of the summed aux (intermediates) losses.
+        method: scheduling method.
+        generator: ``torch.Generator`` for the initial parameters
+            (default: seeded with 0).
+        fuse: ``False``, ``True``, ``"pad"`` or ``"pad-auto"``: apply
+            :func:`~grafx_tpu_torch.render.fuse_serial_lti` first
+            (``dynamics_pad`` off, off, on, ``"auto"``).  Parameters are
+            drawn on the ORIGINAL graph and migrated with
+            :func:`~grafx_tpu_torch.render.fuse_parameters`, so padded
+            members start absent with zero rows (drawing them on the fused
+            graph would make every padded member present and train it).
+        device: where the parameters, the processors and the step live.
+    """
+
+    def __init__(
+        self,
+        G,
+        processors,
+        loss_fn=multi_resolution_stft_loss,
+        optimizer=None,
+        trainable=None,
+        aux_weight=1.0,
+        method="beam",
+        generator=None,
+        fuse=False,
+        device="cpu",
+    ):
+        G_unfused = processors_unfused = None
+        if fuse:
+            G_unfused, processors_unfused = G, processors
+            G, processors = fuse_serial_lti(
+                G,
+                processors,
+                dynamics_pad=("auto" if fuse == "pad-auto" else (fuse == "pad")),
+            )
+        self.G = G
+        self.processors = processors
+        self._precompute_target = loss_fn is multi_resolution_stft_loss
+        if self._precompute_target:
+            loss_fn = multi_resolution_stft_loss_precomputed
+            self._target_cache = (None, None)  # (target tensor, its spectrograms)
+        self.loss_fn = loss_fn
+        self.aux_weight = aux_weight
+
+        G_t = reorder_for_fast_render(convert_to_tensor(G), method=method)
+        self.render_data = prepare_render(G_t)
+        for proc in processors.values():
+            proc.to(device)
+        self.render = make_render_fn(processors, self.render_data)
+
+        if G_unfused is not None:
+            params = fuse_parameters(
+                create_empty_parameters(processors_unfused, G_unfused, generator=generator),
+                G_unfused, G, processors, method=method,
+            )
+        else:
+            params = create_empty_parameters(processors, G, generator=generator)
+        mask = (
+            self._trainable_mask(trainable, params)
+            if trainable is not None
+            else tree_map(lambda _: True, params)
+        )
+        mask = self._freeze_absent(mask)
+        self.params = tree_map(lambda p, m: p.to(device).requires_grad_(bool(m)), params, mask)
+        self.optimizer = (optimizer or _adam)(
+            [p for p in tree_leaves(self.params) if p.requires_grad]
+        )
+
+    @staticmethod
+    def _freeze_absent(mask):
+        """Set every ``_absent`` subtree of a boolean mask to ``False``."""
+        if not isinstance(mask, dict):
+            return mask
+        return {
+            k: tree_map(lambda _: False, v) if k == "_absent"
+            else GraphParameterOptimizer._freeze_absent(v)
+            for k, v in mask.items()
+        }
+
+    @staticmethod
+    def _trainable_mask(trainable, params):
+        """Expand a ``trainable`` spec to a boolean tree over ``params``."""
+        if isinstance(trainable, dict) and all(isinstance(v, bool) for v in trainable.values()):
+            unknown = set(trainable) - set(params)
+            if unknown:
+                raise ValueError(
+                    f"trainable names unknown processor types {sorted(unknown)};"
+                    f" graph has {sorted(params)}"
+                )
+            return {
+                t: tree_map(lambda _, flag=bool(trainable.get(t, True)): flag, sub)
+                for t, sub in params.items()
+            }
+        return trainable
+
+    def loss(self, input_signals, target):
+        """``(total_loss, audio_loss)`` at the current parameters,
+        differentiable in them; ``total = audio + aux_weight * aux``."""
+        if self._precompute_target:
+            cached, specs = self._target_cache
+            if cached is not target:
+                with torch.no_grad():
+                    specs = precompute_stft_targets(target)
+                self._target_cache = (target, specs)
+            target = specs
+        out, intermediates, _ = self.render(input_signals, self.params)
+        audio = self.loss_fn(out, target)
+        aux = sum(v.sum() for inter in intermediates for v in tree_leaves(inter))
+        return audio + self.aux_weight * aux, audio
+
+    def step(self, input_signals, target):
+        """One optimization step; returns ``(total_loss, audio_loss)``
+        (detached scalars)."""
+        self.optimizer.zero_grad(set_to_none=True)
+        total, audio = self.loss(input_signals, target)
+        total.backward()
+        self.optimizer.step()
+        return total.detach(), audio.detach()
+
+    def fit(self, input_signals, target, num_steps=100, log_every=0):
+        """Run ``num_steps`` updates; returns the audio-loss history."""
+        history = []
+        for i in range(num_steps):
+            _, audio = self.step(input_signals, target)
+            history.append(float(audio))
+            if log_every and (i % log_every == 0):
+                print(f"step {i}: audio_loss={history[-1]:.6f}")
+        return history
+
+    def render_current(self, input_signals):
+        """Render with the current parameters (no gradient)."""
+        with torch.no_grad():
+            return self.render(input_signals, self.params)[0]

@@ -1,18 +1,36 @@
-"""Fused ballistics smoothing + quadratic-knee gain, forward only.
+"""Fused ballistics smoothing + quadratic-knee gain, with gradients.
 
-The port of the primal (no-gradient) branches of
-:func:`grafx_tpu.ops.ballistics.ballistics_gain_core` and
-:func:`~grafx_tpu.ops.ballistics.ballistics_gain_pair_core`.  Each has two
-implementations with one contract:
+The port of :func:`grafx_tpu.ops.ballistics.ballistics_gain_core` and
+:func:`~grafx_tpu.ops.ballistics.ballistics_gain_pair_core` and their
+``custom_vjp``s.  Six kernels, each with two implementations of one
+contract:
 
-* a plain PyTorch version (``*_plain``): a loop over time, vectorized
+* a plain PyTorch version (``*_plain``): loops over time, vectorized
   over rows.  The wrapper uses it for CPU tensors; it is also the
   reference the CUDA kernel is held against on the card;
-* a CUDA kernel written for Hopper (``csrc/ballistics_gain.cu``), which
-  the wrapper launches for CUDA tensors.  There is no fallback: a CUDA
+* a CUDA kernel written for Hopper (``csrc/ballistics_gain.cu`` for the
+  forwards, ``csrc/ballistics_grad.cu`` for the adjoints), which the
+  wrapper launches for CUDA tensors.  There is no fallback: a CUDA
   tensor reaches the kernel or the wrapper raises.
 
 Each wrapper counts its kernel launches in its ``launches`` attribute.
+
+=====================================  ==================================
+wrapper                                replaces (grafx_tpu/ops/ballistics_tpu.py)
+=====================================  ==================================
+:func:`ballistics_gain_pair_core`      ``_fwd_gain_pair_only_kernel`` (no grad)
+:func:`ballistics_gain_core`           ``_fwd_gain_only_kernel`` (no grad)
+:func:`ballistics_gain_pair_fwd`       ``_fwd_gain_pair_kernel``
+:func:`ballistics_gain_pair_bwd`       ``_bwd_gain_pair_kernel``
+:func:`ballistics_gain_fwd`            ``_fwd_gain_kernel``
+:func:`ballistics_gain_bwd`            ``_bwd_gain_kernel``
+=====================================  ==================================
+
+The two public cores dispatch as the JAX ones do: with grad enabled and
+any input requiring grad they run a ``torch.autograd.Function`` whose
+forward saves the JAX residuals (``d = u - y[n-1]`` and the final state)
+and whose backward is the adjoint kernel; otherwise the primal-only
+kernel.
 
 The recursion, with per-row smoothing factors ``at`` (attack) and ``rt``
 (release), is the select form
@@ -22,14 +40,21 @@ The recursion, with per-row smoothing factors ``at`` (attack) and ``rt``
 
 and the gain is ``exp(cf * f(log(y + 1e-5) - th))`` with ``f`` the
 quadratic knee of ``grafx_tpu.ops.ballistics_tpu._knee_f``.  Gradients
-come with the training kernels, in a later port.
+treat the attack/release decisions (``d > 0``) as constants.  The
+adjoint rebuilds ``y`` from ``u - d`` shifted one sample (``y[L-1]`` is
+the saved final state) and walks ``gh[n] = g[n] + (1 - c[n+1]) gh[n+1]``
+back in time.  Per-row parameter sums are taken per 32-sample tile and
+then over the tiles, as the Pallas kernels sum each tile.
 """
 
 import torch
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from grafx_tpu_torch.ops import _cuda
 
 _EPS = 1e-5
+_TILE = 32
 _KINDS = {"compressor": 0, "noisegate": 1}
 
 
@@ -39,12 +64,36 @@ def fused_gain_available():
     return True
 
 
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+
 def _knee_f(x, hk, kind):
     if kind == "compressor":
         mid = torch.square(x + hk) / (4.0 * hk)
         return torch.where(x > hk, x, torch.where(x < -hk, 0.0, mid))
     mid = -torch.square(x - hk) / (4.0 * hk)
     return torch.where(x < -hk, x, torch.where(x > hk, 0.0, mid))
+
+
+def _knee_fp(x, hk, kind):
+    """df/dx."""
+    if kind == "compressor":
+        mid = (x + hk) / (2.0 * hk)
+        return torch.where(x > hk, 1.0, torch.where(x < -hk, 0.0, mid))
+    mid = -(x - hk) / (2.0 * hk)
+    return torch.where(x < -hk, 1.0, torch.where(x > hk, 0.0, mid))
+
+
+def _knee_fhk(x, hk, kind):
+    """df/dhk (nonzero only in the knee region)."""
+    inside = (x >= -hk) & (x <= hk)
+    if kind == "compressor":
+        mid = (x + hk) * (hk - x) / (4.0 * hk * hk)
+    else:
+        mid = (x - hk) * (x + hk) / (4.0 * hk * hk)
+    return torch.where(inside, mid, 0.0)
 
 
 def _knee_gain(y, th, cf, hk, kind):
@@ -66,43 +115,181 @@ def _walk(u, y0, at, rt):
     return y
 
 
+def _residual(u, y, y0):
+    """``d[n] = u[n] - y[n-1]`` (``y[-1] = y0``)."""
+    return u - torch.cat([y0[:, None], y[:, :-1]], dim=1)
+
+
+def _rebuild(ud, last):
+    """``y[n] = (u - d)[n+1]``, with ``y[L-1]`` the saved final state."""
+    return torch.cat([ud[:, 1:], last[:, None]], dim=1)
+
+
+def _tile_sum(x):
+    """Per-row sum over time: per 32-sample tile, then over the tiles."""
+    n, length = x.shape
+    x = F.pad(x, (0, -length % _TILE))
+    return x.reshape(n, -1, _TILE).sum(-1).sum(-1)
+
+
+def _reverse_walk(g, d, at, rt):
+    """The adjoint recursion ``gh[n] = g[n] + (1 - c[n+1]) gh[n+1]``
+    with ``c = at`` where ``d > 0`` (attack) else ``rt``.
+
+    Returns ``(c gh, dat, drt, dzi)``: the input cotangent, the tile sums
+    of ``d gh`` over attack and release samples, and ``(1 - c[0]) gh[0]``.
+    """
+    att = d > 0
+    c = torch.where(att, at[:, None], rt[:, None])
+    omc = 1.0 - c
+    gh = torch.empty_like(g)
+    st = torch.zeros_like(at)
+    a = torch.zeros_like(at)
+    for n in range(g.shape[1] - 1, -1, -1):
+        st = torch.addcmul(g[:, n], a, st)
+        gh[:, n] = st
+        a = omc[:, n]
+    dc = d * gh
+    dat = _tile_sum(torch.where(att, dc, 0.0))
+    drt = _tile_sum(torch.where(att, 0.0, dc))
+    return c * gh, dat, drt, omc[:, 0] * gh[:, 0]
+
+
+def _knee_terms(y, th, hk, kind):
+    x = torch.log(y + _EPS) - th[:, None]
+    return x, _knee_f(x, hk[:, None], kind), _knee_fp(x, hk[:, None], kind)
+
+
+def _knee_adjoint(base, y, x, f, fp, cf, hk, kind):
+    """For ``base`` = (gain cotangent) x gain: the envelope cotangent
+    ``g`` and the tile sums ``(dth, dcf, dhk)``."""
+    cf = cf[:, None]
+    g = base * cf * fp / (y + _EPS)
+    return (
+        g,
+        _tile_sum(-base * cf * fp),
+        _tile_sum(base * f),
+        _tile_sum(base * cf * _knee_fhk(x, hk[:, None], kind)),
+    )
+
+
 def ballistics_gain_plain(u, zi, at, rt, th, cf, hk, kind="compressor"):
     """Plain version of :func:`ballistics_gain_core` (any device)."""
-    return _knee_gain(_walk(u, zi, at, rt), th, cf, hk, kind)
+    return ballistics_gain_fwd_plain(u, zi, at, rt, th, cf, hk, kind)[0]
 
 
-def ballistics_gain_pair_plain(
+def ballistics_gain_fwd_plain(u, zi, at, rt, th, cf, hk, kind="compressor"):
+    """Plain version of :func:`ballistics_gain_fwd` (any device)."""
+    y = _walk(u, zi, at, rt)
+    return _knee_gain(y, th, cf, hk, kind), _residual(u, y, zi), y[:, -1].clone()
+
+
+def ballistics_gain_bwd_plain(u, d, y_last, gg, at, rt, th, cf, hk, kind="compressor"):
+    """Plain version of :func:`ballistics_gain_bwd` (any device)."""
+    y = _rebuild(u - d, y_last)
+    x, f, fp = _knee_terms(y, th, hk, kind)
+    base = gg * torch.exp(cf[:, None] * f)
+    g, dth, dcf, dhk = _knee_adjoint(base, y, x, f, fp, cf, hk, kind)
+    du, dat, drt, dzi = _reverse_walk(g, d, at, rt)
+    return du, dzi, dat, drt, dth, dcf, dhk
+
+
+def ballistics_gain_pair_plain(u, *consts, kinds=("noisegate", "compressor"), inits=(1.0, 1.0)):
+    """Plain version of :func:`ballistics_gain_pair_core` (any device)."""
+    return ballistics_gain_pair_fwd_plain(u, *consts, kinds=kinds, inits=inits)[0]
+
+
+def ballistics_gain_pair_fwd_plain(
     u, at_a, rt_a, th_a, cf_a, hk_a, at_b, rt_b, th_b, cf_b, hk_b,
     kinds=("noisegate", "compressor"), inits=(1.0, 1.0),
 ):
-    """Plain version of :func:`ballistics_gain_pair_core` (any device)."""
+    """Plain version of :func:`ballistics_gain_pair_fwd` (any device)."""
     init_a = torch.full_like(at_a, inits[0])
     init_b = torch.full_like(at_b, inits[1])
-    ga = _knee_gain(_walk(u, init_a, at_a, rt_a), th_a, cf_a, hk_a, kinds[0])
+    v = _walk(u, init_a, at_a, rt_a)
+    ga = _knee_gain(v, th_a, cf_a, hk_a, kinds[0])
     ec = ga * ga * u
-    gb = _knee_gain(_walk(ec, init_b, at_b, rt_b), th_b, cf_b, hk_b, kinds[1])
-    return ga * gb
+    u2 = _walk(ec, init_b, at_b, rt_b)
+    gb = _knee_gain(u2, th_b, cf_b, hk_b, kinds[1])
+    return (
+        ga * gb,
+        _residual(u, v, init_a),
+        _residual(ec, u2, init_b),
+        v[:, -1].clone(),
+        u2[:, -1].clone(),
+    )
 
 
-def _launch_args(u, consts, name):
-    """Validate a kernel's inputs; returns ``(u, consts (k, N), out)``."""
-    if u.dtype != torch.float32 or u.dim() != 2:
-        raise ValueError(f"{name}: u must be a float32 (N, L) tensor, got {u.dtype} {tuple(u.shape)}")
-    if torch.is_grad_enabled() and (
-        u.requires_grad or any(c.requires_grad for c in consts)
-    ):
-        raise NotImplementedError(
-            f"{name}: the CUDA path is forward-only; the gradient kernels"
-            " are not ported yet."
-        )
+def ballistics_gain_pair_bwd_plain(
+    u, d_a, d_b, v_last, u_last, gg,
+    at_a, rt_a, th_a, cf_a, hk_a, at_b, rt_b, th_b, cf_b, hk_b,
+    kinds=("noisegate", "compressor"),
+):
+    """Plain version of :func:`ballistics_gain_pair_bwd` (any device)."""
+    v = _rebuild(u - d_a, v_last)
+    xa, fa, fpa = _knee_terms(v, th_a, hk_a, kinds[0])
+    ga = torch.exp(cf_a[:, None] * fa)
+    ec = ga * ga * u
+    u2 = _rebuild(ec - d_b, u_last)
+    xb, fb, fpb = _knee_terms(u2, th_b, hk_b, kinds[1])
+    gb = torch.exp(cf_b[:, None] * fb)
+    # second member: base_b is its gain's cotangent times gb
+    base_b = gg * ga * gb
+    g2, dth_b, dcf_b, dhk_b = _knee_adjoint(base_b, u2, xb, fb, fpb, cf_b, hk_b, kinds[1])
+    dec, dat_b, drt_b, _ = _reverse_walk(g2, d_b, at_b, rt_b)
+    # first member: ga reaches the output directly and through ec = ga^2 u
+    base_a = base_b + dec * 2.0 * ga * ga * u
+    g1, dth_a, dcf_a, dhk_a = _knee_adjoint(base_a, v, xa, fa, fpa, cf_a, hk_a, kinds[0])
+    du_walk, dat_a, drt_a, _ = _reverse_walk(g1, d_a, at_a, rt_a)
+    return (
+        du_walk + dec * ga * ga,
+        dat_a, drt_a, dth_a, dcf_a, dhk_a,
+        dat_b, drt_b, dth_b, dcf_b, dhk_b,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _device(u, name):
+    """``"cpu"`` or ``"cuda"``; anything else raises."""
+    if u.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {u.device}")
+    return u.device.type
+
+
+def _rows(name, *arrays):
+    """Validate ``(N, L)`` float32 operands on one device; contiguous."""
+    shape, device = arrays[0].shape, arrays[0].device
+    for a in arrays:
+        if a.dtype != torch.float32 or a.dim() != 2 or a.shape != shape or a.device != device:
+            raise ValueError(
+                f"{name}: every signal must be a float32 {tuple(shape)} tensor on"
+                f" {device}, got {a.dtype} {tuple(a.shape)} on {a.device}"
+            )
+    return [a.contiguous() for a in arrays]
+
+
+def _consts(name, u, *consts):
+    """Validate ``(N,)`` float32 constants; returns them stacked ``(k, N)``."""
     n = u.shape[0]
     for c in consts:
         if c.shape != (n,) or c.device != u.device or c.dtype != torch.float32:
             raise ValueError(f"{name}: every constant must be a float32 ({n},) tensor on {u.device}")
-    return u.contiguous(), torch.stack(consts).contiguous(), torch.empty_like(u, memory_format=torch.contiguous_format)
+    return torch.stack(consts).contiguous()
 
 
-def _check(rc, name):
+def _tiles(u):
+    return -(-u.shape[1] // _TILE)
+
+
+def _run(name, fn_name, u, *args):
+    """Launch ``fn_name(*args, device, stream)``; raise on a CUDA error."""
+    rc = getattr(_cuda.library(), fn_name)(
+        *args, u.device.index, torch.cuda.current_stream(u.device).cuda_stream
+    )
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {rc}")
 
@@ -110,7 +297,10 @@ def _check(rc, name):
 def ballistics_gain_core(u, zi, at, rt, th, cf, hk, kind="compressor"):
     """Ballistics smoothing + quadratic-knee gain in one call.
 
-    Replaces ``_fwd_gain_only_kernel`` (grafx_tpu/ops/ballistics_tpu.py).
+    Differentiable in every tensor argument.  Without grad it launches the
+    primal-only kernel (replaces ``_fwd_gain_only_kernel``); with grad it
+    runs :func:`ballistics_gain_fwd` and, backward,
+    :func:`ballistics_gain_bwd`.
 
     Args:
         u: ``(N, L)`` energy envelopes.
@@ -124,21 +314,64 @@ def ballistics_gain_core(u, zi, at, rt, th, cf, hk, kind="compressor"):
     Returns:
         ``(N, L)`` gains.
     """
-    if u.device.type == "cpu":
+    args = (u, zi, at, rt, th, cf, hk)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        return _Gain.apply(*args, kind)
+    name = "ballistics_gain_core"
+    if _device(u, name) == "cpu":
         return ballistics_gain_plain(u, zi, at, rt, th, cf, hk, kind)
-    if u.device.type != "cuda":
-        raise ValueError(f"ballistics_gain_core: unsupported device {u.device}")
-    u, consts, out = _launch_args(u, (zi, at, rt, th, cf, hk), "ballistics_gain_core")
-    rc = _cuda.library().grafx_gain_fwd(
-        u.data_ptr(), out.data_ptr(), consts.data_ptr(), u.shape[0], u.shape[1],
-        _KINDS[kind], u.device.index, torch.cuda.current_stream(u.device).cuda_stream,
-    )
-    _check(rc, "ballistics_gain_core")
+    (u,) = _rows(name, u)
+    consts = _consts(name, u, zi, at, rt, th, cf, hk)
+    gain = torch.empty_like(u)
+    _run(name, "grafx_gain_fwd", u, u.data_ptr(), gain.data_ptr(), consts.data_ptr(),
+         u.shape[0], u.shape[1], _KINDS[kind])
     ballistics_gain_core.launches += 1
-    return out
+    return gain
 
 
-ballistics_gain_core.launches = 0
+def ballistics_gain_fwd(u, zi, at, rt, th, cf, hk, kind="compressor"):
+    """Gain plus the adjoint's residuals (replaces ``_fwd_gain_kernel``).
+
+    Returns:
+        ``(gain, d, y_last)``: ``(N, L)`` gains, ``d = u - y[n-1]`` and
+        the ``(N,)`` final envelope state.
+    """
+    name = "ballistics_gain_fwd"
+    if _device(u, name) == "cpu":
+        return ballistics_gain_fwd_plain(u, zi, at, rt, th, cf, hk, kind)
+    (u,) = _rows(name, u)
+    consts = _consts(name, u, zi, at, rt, th, cf, hk)
+    gain, d = torch.empty_like(u), torch.empty_like(u)
+    y_last = u.new_empty(u.shape[0])
+    _run(name, "grafx_gain_fwd_res", u, u.data_ptr(), gain.data_ptr(), d.data_ptr(),
+         y_last.data_ptr(), consts.data_ptr(), u.shape[0], u.shape[1], _KINDS[kind])
+    ballistics_gain_fwd.launches += 1
+    return gain, d, y_last
+
+
+def ballistics_gain_bwd(u, d, y_last, gg, at, rt, th, cf, hk, kind="compressor"):
+    """Adjoint of :func:`ballistics_gain_fwd` for the gain cotangent
+    ``gg`` (replaces ``_bwd_gain_kernel``).
+
+    Returns:
+        ``(du, dzi, dat, drt, dth, dcf, dhk)``: ``du`` ``(N, L)``, the
+        rest ``(N,)``.
+    """
+    name = "ballistics_gain_bwd"
+    if _device(u, name) == "cpu":
+        return ballistics_gain_bwd_plain(u, d, y_last, gg, at, rt, th, cf, hk, kind)
+    u, d, gg = _rows(name, u, d, gg)
+    consts = _consts(name, u, at, rt, th, cf, hk)
+    y_last = _consts(name, u, y_last)
+    n = u.shape[0]
+    du = torch.empty_like(u)
+    grads = u.new_empty(6, n)
+    partials = u.new_empty(5, n, _tiles(u))
+    _run(name, "grafx_gain_bwd", u, u.data_ptr(), d.data_ptr(), y_last.data_ptr(),
+         gg.data_ptr(), consts.data_ptr(), du.data_ptr(), grads.data_ptr(),
+         partials.data_ptr(), n, u.shape[1], _KINDS[kind])
+    ballistics_gain_bwd.launches += 1
+    return (du, *grads.unbind(0))
 
 
 def ballistics_gain_pair_core(
@@ -153,8 +386,11 @@ def ballistics_gain_pair_core(
     state ``inits[0]``) and ``g_b`` the second stage's gain on the gated
     energy ``g_a^2 u``.
 
-    Replaces ``_fwd_gain_pair_only_kernel``
-    (grafx_tpu/ops/ballistics_tpu.py).
+    Differentiable in ``u`` and the ten constants (``inits`` are static).
+    Without grad it launches the primal-only kernel (replaces
+    ``_fwd_gain_pair_only_kernel``); with grad it runs
+    :func:`ballistics_gain_pair_fwd` and, backward,
+    :func:`ballistics_gain_pair_bwd`.
 
     Args:
         u: ``(N, L)`` input energy envelopes.
@@ -167,21 +403,149 @@ def ballistics_gain_pair_core(
         ``(N, L)`` combined gains.
     """
     consts = (at_a, rt_a, th_a, cf_a, hk_a, at_b, rt_b, th_b, cf_b, hk_b)
-    if u.device.type == "cpu":
+    if torch.is_grad_enabled() and any(a.requires_grad for a in (u, *consts)):
+        return _GainPair.apply(u, *consts, tuple(kinds), tuple(inits))
+    name = "ballistics_gain_pair_core"
+    if _device(u, name) == "cpu":
         return ballistics_gain_pair_plain(u, *consts, kinds=kinds, inits=inits)
-    if u.device.type != "cuda":
-        raise ValueError(f"ballistics_gain_pair_core: unsupported device {u.device}")
-    u, consts, out = _launch_args(u, consts, "ballistics_gain_pair_core")
-    scratch = torch.empty_like(out)
-    rc = _cuda.library().grafx_gain_pair_fwd(
-        u.data_ptr(), out.data_ptr(), scratch.data_ptr(), consts.data_ptr(),
-        u.shape[0], u.shape[1],
-        _KINDS[kinds[0]], _KINDS[kinds[1]], float(inits[0]), float(inits[1]),
-        u.device.index, torch.cuda.current_stream(u.device).cuda_stream,
-    )
-    _check(rc, "ballistics_gain_pair_core")
+    (u,) = _rows(name, u)
+    c = _consts(name, u, *consts)
+    gain, scratch = torch.empty_like(u), torch.empty_like(u)
+    _run(name, "grafx_gain_pair_fwd", u, u.data_ptr(), gain.data_ptr(), scratch.data_ptr(),
+         c.data_ptr(), u.shape[0], u.shape[1], _KINDS[kinds[0]], _KINDS[kinds[1]],
+         float(inits[0]), float(inits[1]))
     ballistics_gain_pair_core.launches += 1
-    return out
+    return gain
 
 
-ballistics_gain_pair_core.launches = 0
+def ballistics_gain_pair_fwd(
+    u, at_a, rt_a, th_a, cf_a, hk_a, at_b, rt_b, th_b, cf_b, hk_b,
+    kinds=("noisegate", "compressor"), inits=(1.0, 1.0),
+):
+    """Pair gain plus the adjoint's residuals (replaces
+    ``_fwd_gain_pair_kernel``).
+
+    Returns:
+        ``(gain, d_a, d_b, v_last, u_last)``: ``d_a = u - v[n-1]`` and
+        ``d_b = ec - u2[n-1]`` for the members' envelopes ``v``, ``u2``
+        and the gated energy ``ec = g_a^2 u``, and their final states.
+    """
+    name = "ballistics_gain_pair_fwd"
+    consts = (at_a, rt_a, th_a, cf_a, hk_a, at_b, rt_b, th_b, cf_b, hk_b)
+    if _device(u, name) == "cpu":
+        return ballistics_gain_pair_fwd_plain(u, *consts, kinds=kinds, inits=inits)
+    (u,) = _rows(name, u)
+    c = _consts(name, u, *consts)
+    gain, scratch, d_a, d_b = (torch.empty_like(u) for _ in range(4))
+    lasts = u.new_empty(2, u.shape[0])
+    _run(name, "grafx_gain_pair_fwd_res", u, u.data_ptr(), gain.data_ptr(),
+         scratch.data_ptr(), d_a.data_ptr(), d_b.data_ptr(), lasts[0].data_ptr(),
+         lasts[1].data_ptr(), c.data_ptr(), u.shape[0], u.shape[1],
+         _KINDS[kinds[0]], _KINDS[kinds[1]], float(inits[0]), float(inits[1]))
+    ballistics_gain_pair_fwd.launches += 1
+    return gain, d_a, d_b, lasts[0], lasts[1]
+
+
+def ballistics_gain_pair_bwd(
+    u, d_a, d_b, v_last, u_last, gg,
+    at_a, rt_a, th_a, cf_a, hk_a, at_b, rt_b, th_b, cf_b, hk_b,
+    kinds=("noisegate", "compressor"),
+):
+    """Adjoint of :func:`ballistics_gain_pair_fwd` for the gain cotangent
+    ``gg`` (replaces ``_bwd_gain_pair_kernel``).
+
+    Returns:
+        ``(du, dat_a, drt_a, dth_a, dcf_a, dhk_a, dat_b, drt_b, dth_b,
+        dcf_b, dhk_b)``: ``du`` ``(N, L)``, the rest ``(N,)``.
+    """
+    name = "ballistics_gain_pair_bwd"
+    consts = (at_a, rt_a, th_a, cf_a, hk_a, at_b, rt_b, th_b, cf_b, hk_b)
+    if _device(u, name) == "cpu":
+        return ballistics_gain_pair_bwd_plain(
+            u, d_a, d_b, v_last, u_last, gg, *consts, kinds=kinds
+        )
+    u, d_a, d_b, gg = _rows(name, u, d_a, d_b, gg)
+    c = _consts(name, u, *consts)
+    lasts = _consts(name, u, v_last, u_last)
+    n = u.shape[0]
+    du = torch.empty_like(u)
+    scratch = u.new_empty(2, *u.shape)
+    grads = u.new_empty(10, n)
+    partials = u.new_empty(10, n, _tiles(u))
+    _run(name, "grafx_gain_pair_bwd", u, u.data_ptr(), d_a.data_ptr(), d_b.data_ptr(),
+         lasts.data_ptr(), gg.data_ptr(), c.data_ptr(), du.data_ptr(), scratch.data_ptr(),
+         grads.data_ptr(), partials.data_ptr(), n, u.shape[1],
+         _KINDS[kinds[0]], _KINDS[kinds[1]])
+    ballistics_gain_pair_bwd.launches += 1
+    return (du, *grads.unbind(0))
+
+
+KERNEL_WRAPPERS = (
+    ballistics_gain_pair_core,
+    ballistics_gain_core,
+    ballistics_gain_pair_fwd,
+    ballistics_gain_pair_bwd,
+    ballistics_gain_fwd,
+    ballistics_gain_bwd,
+)
+for _w in KERNEL_WRAPPERS:
+    _w.launches = 0
+del _w
+
+
+def reset_launch_counts():
+    """Set every kernel wrapper's launch count to 0."""
+    for w in KERNEL_WRAPPERS:
+        w.launches = 0
+
+
+def launch_counts():
+    """``{wrapper name: launches}`` for every kernel wrapper."""
+    return {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+
+
+# ---------------------------------------------------------------------------
+# Autograd
+# ---------------------------------------------------------------------------
+
+
+class _Gain(torch.autograd.Function):
+    """:func:`ballistics_gain_core` with the ``custom_vjp`` of
+    ``grafx_tpu.ops.ballistics.ballistics_gain_core``."""
+
+    @staticmethod
+    def forward(ctx, u, zi, at, rt, th, cf, hk, kind):
+        gain, d, y_last = ballistics_gain_fwd(u, zi, at, rt, th, cf, hk, kind)
+        ctx.save_for_backward(u, d, y_last, at, rt, th, cf, hk)
+        ctx.kind = kind
+        return gain
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gg):
+        u, d, y_last, *consts = ctx.saved_tensors
+        return (*ballistics_gain_bwd(u, d, y_last, gg, *consts, kind=ctx.kind), None)
+
+
+class _GainPair(torch.autograd.Function):
+    """:func:`ballistics_gain_pair_core` with the ``custom_vjp`` of
+    ``grafx_tpu.ops.ballistics.ballistics_gain_pair_core``."""
+
+    @staticmethod
+    def forward(ctx, u, *args):
+        *consts, kinds, inits = args
+        gain, d_a, d_b, v_last, u_last = ballistics_gain_pair_fwd(
+            u, *consts, kinds=kinds, inits=inits
+        )
+        ctx.save_for_backward(u, d_a, d_b, v_last, u_last, *consts)
+        ctx.kinds = kinds
+        return gain
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gg):
+        u, d_a, d_b, v_last, u_last, *consts = ctx.saved_tensors
+        grads = ballistics_gain_pair_bwd(
+            u, d_a, d_b, v_last, u_last, gg, *consts, kinds=ctx.kinds
+        )
+        return (*grads, None, None)

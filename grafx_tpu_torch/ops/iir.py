@@ -1,4 +1,4 @@
-"""Exact blocked IIR (biquad cascade) filtering, forward only.
+"""Exact blocked IIR (biquad cascade) filtering, differentiable.
 
 The port of the exact path of :mod:`grafx_tpu.ops.iir`: the signal is
 split into blocks of length ``T``; inside a block the zero-state response
@@ -9,7 +9,9 @@ samples, propagated across the ``L / T`` blocks by prefix doubling.
 Cascades of 3+ biquads run as ONE blocked linear system with a ``2K``-dim
 state, its kernels assembled by log-depth pairwise composition.  The
 numerics rationale (eigenbasis coordinates, compensated discriminant)
-is documented at the JAX counterparts of each function.
+is documented at the JAX counterparts of each function.  Gradients run
+through torch autograd, except the cross-block state propagation, which
+carries the JAX package's hand-written adjoint (:class:`_PropagateStates`).
 
 Exact to float32: every contraction must run in full float32.  On a GPU
 that means no TF32 (``torch.backends.cuda.matmul.allow_tf32`` False);
@@ -18,6 +20,7 @@ the data path refuses to run otherwise.
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from grafx_tpu_torch.ops.fftconv import fft_convolve, next_pow2
 
@@ -243,21 +246,57 @@ def _zero_state_response(xb, h, toeplitz):
     return fft_convolve(xb, h[:, None, :], mode="causal", pad_mode="pow2")
 
 
+def _doubling(v, A, transpose):
+    """Prefix doubling on ``(N, NB, S)`` vectors: ``v[k] += A^(2^l) v[k -
+    2^l]`` (forward), or with ``A^T`` and ``v[k + 2^l]`` (its
+    time-reversed transpose)."""
+    num_blocks = v.shape[-2]
+    out = v
+    P = A
+    shift = 1
+    while shift < num_blocks:
+        if transpose:
+            shifted = F.pad(out, (0, 0, 0, shift))[..., shift:, :]
+            out = out + torch.einsum("nji,nbj->nbi", P, shifted)
+        else:
+            shifted = F.pad(out, (0, 0, shift, 0))[..., :num_blocks, :]
+            out = out + torch.einsum("nij,nbj->nbi", P, shifted)
+        P = torch.bmm(P, P)
+        shift *= 2
+    return out
+
+
+class _PropagateStates(torch.autograd.Function):
+    """Cross-block state propagation with the hand-written adjoint of
+    ``grafx_tpu.ops.iir._propagate_states`` (the linear-recurrence
+    result), so that autograd never transposes the ``bmm(P, P)`` squaring
+    chain:
+
+        lambda[k] = g[k] + A^T lambda[k+1]   (reverse doubling)
+        ds_in = lambda,   dA = sum_k lambda[k] s[k-1]^T
+    """
+
+    @staticmethod
+    def forward(ctx, s_in, A):
+        s = _doubling(s_in, A, transpose=False)
+        ctx.save_for_backward(s, A)
+        return s
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        s, A = ctx.saved_tensors
+        lam = _doubling(g, A, transpose=True)
+        s_prev = torch.cat([torch.zeros_like(s[:, :1]), s[:, :-1]], dim=1)
+        return lam, torch.einsum("nbi,nbj->nij", lam, s_prev)
+
+
 def _propagate_states(s_in, A):
     """Cross-block state propagation ``s[k] = A s[k-1] + s_in[k]``
     (``s[-1] = 0``) for a constant per-item transition ``A (N, S, S)``, by
     prefix doubling on the ``(N, NB, S)`` vectors:
     ``s[k] += A^(2^l) s[k - 2^l]``."""
-    num_blocks = s_in.shape[-2]
-    out = s_in
-    P = A
-    shift = 1
-    while shift < num_blocks:
-        shifted = F.pad(out, (0, 0, shift, 0))[..., :num_blocks, :]
-        out = out + torch.einsum("nij,nbj->nbi", P, shifted)
-        P = torch.bmm(P, P)
-        shift *= 2
-    return out
+    return _PropagateStates.apply(s_in, A)
 
 
 def _split_blocks(x, T):

@@ -30,6 +30,7 @@ from grafx_tpu_torch.processors.core.iir import IIRFilter
 from grafx_tpu_torch.processors.core.utils import lti_kind_of
 from grafx_tpu_torch.render.order.graph import compute_render_order
 from grafx_tpu_torch.render.order.tensor import node_id_from_render_order
+from grafx_tpu_torch.utils import tree_map
 
 
 class _FusedChain(nn.Module):
@@ -434,12 +435,6 @@ def _scheduled_type_rows(G, method):
     return rows
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def fuse_parameters(params, G, G_fused, processors_fused, method="beam"):
     """Migrate per-type parameters from ``G`` to its fused rewrite.
 
@@ -468,7 +463,7 @@ def fuse_parameters(params, G, G_fused, processors_fused, method="beam"):
     fused_row = _scheduled_type_rows(G_fused, method)
 
     def gather(tree, rows):
-        return _tree_map(lambda a: a[torch.as_tensor(rows, device=a.device)], tree)
+        return tree_map(lambda a: a[torch.as_tensor(rows, device=a.device)], tree)
 
     out = {}
     for t2, proc in processors_fused.items():
@@ -489,7 +484,7 @@ def fuse_parameters(params, G, G_fused, processors_fused, method="beam"):
                 sub = gather(params[t_orig], rows)
                 if any(s is None for s in srcs):
                     keep = np.array([0.0 if s is None else 1.0 for s in srcs], np.float32)
-                    sub = _tree_map(
+                    sub = tree_map(
                         lambda a: a * torch.as_tensor(keep, device=a.device).reshape(
                             (-1,) + (1,) * (a.dim() - 1)
                         ),

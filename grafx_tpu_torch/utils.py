@@ -96,11 +96,31 @@ def parameters_from_numpy(tree, device="cpu"):
     return torch.tensor(np.asarray(tree, dtype=np.float32), device=device)
 
 
+def tree_map(fn, tree, *rest):
+    """``fn`` applied leaf by leaf over nested dicts of one structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_items(tree, prefix=""):
+    """``[(path, leaf)]`` of a nested dict, depth first in sorted key
+    order; paths join keys with ``/``."""
+    items = []
+    for k in sorted(tree):
+        v = tree[k]
+        items += tree_items(v, f"{prefix}{k}/") if isinstance(v, dict) else [(prefix + k, v)]
+    return items
+
+
+def tree_leaves(tree):
+    """The leaves of a nested dict, in :func:`tree_items` order."""
+    return [leaf for _, leaf in tree_items(tree)]
+
+
 def tree_to(tree, device):
     """Move every tensor of a nested dict to ``device``."""
-    if isinstance(tree, dict):
-        return {k: tree_to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+    return tree_map(lambda t: t.to(device), tree)
 
 
 def permute_grafx_tensor(

@@ -1,6 +1,7 @@
-"""The plain versions of the two forward gain kernels against the Pallas
-kernels they replace, run as tests/ops/test_ballistics_pallas.py runs
-them (time-major padded layout, small chunk, interpret mode)."""
+"""The plain versions of the six gain kernels against the Pallas kernels
+they replace, run as tests/ops/test_ballistics_pallas.py runs them
+(time-major padded layout, small chunk, interpret mode), and the
+autograd Functions around the training kernels."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,12 +10,16 @@ import torch
 
 from grafx_tpu.ops.ballistics_tpu import (
     LANES,
+    backward_gain_pair_pallas_tm,
+    backward_gain_pallas_tm,
     expand_lanes,
     forward_gain_only_pallas_tm,
     forward_gain_pair_pallas_tm,
+    forward_gain_pallas_tm,
     pad_time_major,
 )
 from grafx_tpu_torch.ops import _cuda
+from grafx_tpu_torch.ops import ballistics as bal
 from grafx_tpu_torch.ops.ballistics import (
     ballistics_gain_core,
     ballistics_gain_pair_core,
@@ -142,3 +147,184 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _cuda._nvcc()
+
+
+# ---------------------------------------------------------------------------
+# Training kernels (#3-#6): forwards with residuals and adjoints
+# ---------------------------------------------------------------------------
+
+RTOL_GAIN, ATOL_GAIN = 2e-4, 2e-5  # tests/ops/test_ballistics_pallas.py:210-211
+RTOL_PAIR, ATOL_PAIR = 3e-4, 3e-5  # tests/ops/test_ballistics_pallas.py:333-334
+
+
+def _pick(v, N):
+    return np.asarray(v[::8].reshape(-1)[:N])
+
+
+def _close(got, ref, rtol, atol, what):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=rtol, atol=atol, err_msg=what)
+
+
+@pytest.mark.parametrize(
+    "kind, N, L, onepole, absent",
+    [
+        ("compressor", 5, 192, False, False),
+        ("noisegate", 5, 200, False, False),  # 200: the end pad crosses the carry
+        ("compressor", 130, 96, False, False),  # ragged N across lane groups
+        ("noisegate", 3, 200, True, False),  # one-pole, initial state 0
+        ("compressor", 4, 192, False, True),
+    ],
+)
+def test_gain_fwd_bwd_plain_match_pallas(kind, N, L, onepole, absent):
+    """#5 and #6: gain, residuals and every gradient against
+    forward_gain_pallas_tm / backward_gain_pallas_tm."""
+    rng = np.random.RandomState(N + L + 3)
+    u = _energy(rng, N, L)
+    consts = _consts(rng, N, kind, onepole, absent)
+    gg = rng.randn(N, L).astype(np.float32)
+    ut = pad_time_major(jnp.asarray(u), CHUNK)
+    lanes = [_lanes(c) for c in consts]
+    gain_t, d_t, ylast = forward_gain_pallas_tm(ut, *lanes, chunk=CHUNK, kind=kind, interpret=True)
+    outs = backward_gain_pallas_tm(
+        d_t, ut, ylast, pad_time_major(jnp.asarray(gg), CHUNK), *lanes[1:],
+        chunk=CHUNK, kind=kind, interpret=True,
+    )
+
+    before = bal.launch_counts()
+    gain, d, y_last = bal.ballistics_gain_fwd(torch.tensor(u), *_t(consts), kind=kind)
+    _close(gain, gain_t[:L, :N].T, RTOL_GAIN, ATOL_GAIN, "gain")
+    _close(d, d_t[:L, :N].T, RTOL_GAIN, ATOL_GAIN, "d")
+    np.testing.assert_array_equal(
+        gain.numpy(), bal.ballistics_gain_plain(torch.tensor(u), *_t(consts), kind=kind).numpy()
+    )
+    # y_last is the walk's state at L - 1
+    walk = bal._walk(torch.tensor(u), *_t(consts[:3]))
+    np.testing.assert_array_equal(y_last.numpy(), walk[:, -1].numpy())
+    if L % CHUNK == 0:  # with end padding the TPU's saved state walks through the pad
+        _close(y_last, _pick(ylast, N), RTOL_GAIN, ATOL_GAIN, "y_last")
+    got = bal.ballistics_gain_bwd(
+        torch.tensor(u), d, y_last, torch.tensor(gg), *_t(consts[1:]), kind=kind
+    )
+    assert bal.launch_counts() == before  # CPU tensors: plain versions
+    names = ["du", "dzi", "dat", "drt", "dth", "dcf", "dhk"]
+    refs = [outs[0][:L, :N].T, outs[3], outs[1], outs[2], outs[4], outs[5], outs[6]]
+    for name, g, ref in zip(names, got, refs):
+        assert g.shape == ((N, L) if name == "du" else (N,))
+        _close(g, ref if name == "du" else _pick(ref, N), RTOL_GAIN, ATOL_GAIN, f"{kind} {name}")
+    if absent:  # cf = 0: gain 1, and no gradient reaches the walk or the knee
+        assert np.all(gain.numpy() == 1.0)
+        for name, g in zip(names, got):
+            if name != "dcf":  # the cotangent of cf itself, which the mask zeroes
+                assert np.all(g.numpy() == 0.0), name
+
+
+@pytest.mark.parametrize(
+    "kinds, inits, N, L, absent",
+    [
+        (("noisegate", "compressor"), (1.0, 1.0), 5, 192, None),
+        (("noisegate", "compressor"), (0.0, 1.0), 5, 200, None),  # one-pole gate
+        (("compressor", "noisegate"), (1.0, 1.0), 130, 96, None),  # ragged N
+        (("noisegate", "compressor"), (0.0, 1.0), 6, 200, 0),  # padded gate
+        (("noisegate", "compressor"), (1.0, 1.0), 3, 160, 1),
+    ],
+)
+def test_gain_pair_fwd_bwd_plain_match_pallas(kinds, inits, N, L, absent):
+    """#3 and #4: gain, residuals and the eleven gradients against
+    forward_gain_pair_pallas_tm(with_residuals=True) /
+    backward_gain_pair_pallas_tm."""
+    rng = np.random.RandomState(N + L + 11)
+    u = _energy(rng, N, L)
+    ca = _consts(rng, N, kinds[0], onepole=inits[0] == 0.0, absent=absent == 0)[1:]
+    cb = _consts(rng, N, kinds[1], absent=absent == 1)[1:]
+    gg = rng.randn(N, L).astype(np.float32)
+    ut = pad_time_major(jnp.asarray(u), CHUNK)
+    la, lb = tuple(_lanes(c) for c in ca), tuple(_lanes(c) for c in cb)
+    gain_t, da_t, db_t, vlast, ulast = forward_gain_pair_pallas_tm(
+        ut, la, lb, chunk=CHUNK, kinds=kinds, interpret=True, with_residuals=True, inits=inits,
+    )
+    outs = backward_gain_pair_pallas_tm(
+        da_t, db_t, ut, vlast, ulast, pad_time_major(jnp.asarray(gg), CHUNK), la, lb,
+        chunk=CHUNK, kinds=kinds, interpret=True,
+    )
+
+    before = bal.launch_counts()
+    ut_ = torch.tensor(u)
+    gain, d_a, d_b, v_last, u_last = bal.ballistics_gain_pair_fwd(
+        ut_, *_t(ca), *_t(cb), kinds=kinds, inits=inits
+    )
+    _close(gain, gain_t[:L, :N].T, RTOL_PAIR, ATOL_PAIR, "gain")
+    _close(d_a, da_t[:L, :N].T, RTOL_PAIR, ATOL_PAIR, "d_a")
+    _close(d_b, db_t[:L, :N].T, RTOL_PAIR, ATOL_PAIR, "d_b")
+    np.testing.assert_array_equal(
+        gain.numpy(),
+        bal.ballistics_gain_pair_plain(ut_, *_t(ca), *_t(cb), kinds=kinds, inits=inits).numpy(),
+    )
+    if L % CHUNK == 0:  # with end padding the TPU's saved states walk through the pad
+        _close(v_last, _pick(vlast, N), RTOL_PAIR, ATOL_PAIR, "v_last")
+        _close(u_last, _pick(ulast, N), RTOL_PAIR, ATOL_PAIR, "u_last")
+    got = bal.ballistics_gain_pair_bwd(
+        ut_, d_a, d_b, v_last, u_last, torch.tensor(gg), *_t(ca), *_t(cb), kinds=kinds
+    )
+    assert bal.launch_counts() == before
+    names = ["du", "dat_a", "drt_a", "dth_a", "dcf_a", "dhk_a",
+             "dat_b", "drt_b", "dth_b", "dcf_b", "dhk_b"]
+    for i, (name, g) in enumerate(zip(names, got)):
+        ref = outs[0][:L, :N].T if i == 0 else _pick(outs[i], N)
+        _close(g, ref, RTOL_PAIR, ATOL_PAIR, name)
+    if absent is not None:
+        member = "_a" if absent == 0 else "_b"
+        for name, g in zip(names, got):
+            if name.endswith(member) and not name.startswith("dcf"):
+                assert np.all(g.numpy() == 0.0), name
+
+
+def _leaves(n, seed):
+    rng = np.random.RandomState(seed)
+    u = _energy(rng, n, 70)
+    ca = _consts(rng, n, "noisegate", onepole=True)[1:]
+    cb = _consts(rng, n, "compressor")[1:]
+    return [torch.tensor(a, requires_grad=True) for a in (u, *ca, *cb)], rng.randn(n, 70)
+
+
+@pytest.mark.parametrize("pair", [False, True])
+def test_autograd_functions_match_autograd_through_the_plain_walk(pair):
+    """The cores under autograd (the Functions around #3-#6) against torch
+    autograd through the plain primal, which differentiates the walk's
+    in-place loop; the decisions are held constant in both."""
+    leaves, gg = _leaves(4, 5 + pair)
+    u, consts = leaves[0], leaves[1:]
+    zi = torch.rand(4, dtype=torch.float32, requires_grad=True)
+    if pair:
+        def run(core):
+            return core(u, *consts, kinds=("noisegate", "compressor"), inits=(0.0, 1.0))
+        cores = (ballistics_gain_pair_core, bal.ballistics_gain_pair_plain)
+        inputs = leaves
+    else:
+        def run(core):
+            return core(u, zi, *consts[5:], kind="compressor")
+        cores = (ballistics_gain_core, bal.ballistics_gain_plain)
+        inputs = [u, zi, *consts[5:]]
+    gg = torch.tensor(gg, dtype=torch.float32)
+    before = bal.launch_counts()
+    got_out = run(cores[0])
+    got = torch.autograd.grad((got_out * gg).sum(), inputs)
+    ref_out = run(cores[1])
+    ref = torch.autograd.grad((ref_out * gg).sum(), inputs)
+    assert bal.launch_counts() == before
+    np.testing.assert_array_equal(got_out.detach().numpy(), ref_out.detach().numpy())
+    for i, (g, r) in enumerate(zip(got, ref)):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=RTOL_PAIR, atol=ATOL_PAIR, err_msg=str(i))
+
+
+def test_training_wrappers_refuse_other_devices():
+    u = torch.empty(2, 8, device="meta")
+    c = torch.empty(2, device="meta")
+    calls = [
+        lambda: bal.ballistics_gain_fwd(u, *[c] * 6),
+        lambda: bal.ballistics_gain_bwd(u, u, c, u, *[c] * 5),
+        lambda: bal.ballistics_gain_pair_fwd(u, *[c] * 10),
+        lambda: bal.ballistics_gain_pair_bwd(u, u, u, c, c, u, *[c] * 10),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()
