@@ -1,5 +1,5 @@
-"""Serve and train the bench.py mixing console on one NVIDIA GPU through
-grafx_tpu_torch, and check every hand-written kernel on the way.
+"""Serve, train and stream the bench.py mixing console on one NVIDIA GPU
+through grafx_tpu_torch, and check every hand-written kernel on the way.
 
 Run from the root of the repository, on a machine with the card:
 
@@ -10,9 +10,10 @@ before the result line):
 
 1. device: the card's name and power limit, TF32 switched off;
 2. build: the CUDA kernels compiled from ``grafx_tpu_torch/csrc``;
-3. kernels: each of the six kernels against its plain PyTorch version on
-   the card, at small shapes and at the shapes the console gives it,
-   with their times;
+3. kernels: each of the seven kernels against its plain PyTorch version
+   on the card, at small shapes and at the shapes the console gives it,
+   with their times (the plain ballistics walk #7 also split in two,
+   carrying its state, against one walk);
 4. exactness: the exact IIR cascade against scipy float64;
 5. serve: three requests of (4, 17, 2, 2^17) through the fused console,
    with every kernel's launch count (the primal kernels #1/#2 only);
@@ -23,16 +24,22 @@ before the result line):
 7. grad card vs CPU: the trainer's loss and every parameter gradient at
    batch 1, L = 2^14, on the card and on the CPU;
 8. card vs CPU: the served console at batch 1, L = 2^14, on the card and
-   on the CPU.
+   on the CPU;
+9. stream: (17, 2, 2^17) through ``StreamRenderer`` in 32 blocks of
+   4096, with device and host ms per block, the real-time factor, peak
+   memory and every kernel's launch count (#7 only), the streamed output
+   against the one-shot render on the card, and ``step_many`` (4 blocks)
+   against single steps.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 
-``--profile DIR`` adds, after phase 5, one more warm request and, after
-phase 6, one more warm step under ``torch.profiler``: each prints its
-device ms (CUDA events), host wall ms, busy device ms and the card's idle
-share, and writes its per-op table to ``DIR/profile_request.txt`` and
-``DIR/profile_step.txt``.
+``--profile DIR`` adds, after phase 5, one more warm request, after phase
+6, one more warm step and, after phase 9, one more warm block under
+``torch.profiler``: each prints its device ms (CUDA events), host wall
+ms, busy device ms and the card's idle share, and writes its per-op
+table to ``DIR/profile_request.txt``, ``DIR/profile_step.txt`` and
+``DIR/profile_stream_block.txt``.
 """
 
 import argparse
@@ -50,7 +57,7 @@ from grafx_tpu_torch.models import bench_console, bench_trainer
 from grafx_tpu_torch.ops import _cuda
 from grafx_tpu_torch.ops import ballistics as bal
 from grafx_tpu_torch.ops.iir import exactness_check_db
-from grafx_tpu_torch.render import make_render_fn
+from grafx_tpu_torch.render import StreamRenderer, make_render_fn
 from grafx_tpu_torch.utils import tree_items
 
 GAIN_SRC = "grafx_tpu_torch/csrc/ballistics_gain.cu"
@@ -63,14 +70,19 @@ KERNELS = {
     "ballistics_gain_pair_bwd": (GRAD_SRC, "grafx_tpu/ops/ballistics_tpu.py:892"),
     "ballistics_gain_fwd": (GAIN_SRC, "grafx_tpu/ops/ballistics_tpu.py:449"),
     "ballistics_gain_bwd": (GRAD_SRC, "grafx_tpu/ops/ballistics_tpu.py:496"),
+    "ballistics_core": (GAIN_SRC, "grafx_tpu/ops/ballistics_tpu.py:35"),
 }
+# the natural-layout experiment computes #7's function: the same kernel replaces it
+LAYOUT_ROW = ("ballistics_core", GAIN_SRC, "benchmarks/ballistics_layout_ab.py:36")
 SERVE_KERNELS = ("ballistics_gain_pair_core", "ballistics_gain_core")
 TRAIN_KERNELS = ("ballistics_gain_pair_fwd", "ballistics_gain_pair_bwd",
                  "ballistics_gain_fwd", "ballistics_gain_bwd")
+STREAM_KERNELS = ("ballistics_core",)
 MAX_ABS = 2e-5  # the bound benchmarks/verify_ballistics_tpu.py uses on the TPU
 DU_REL = 1e-5  # du: max abs error <= DU_REL * max |ref|
 GRAD_REL = 1e-4  # per-row gradients: max abs error <= GRAD_REL * max |ref|
 BATCH, CHAINS, AUDIO_LEN = 4, 17, 2**17
+BLOCK_LEN, SAMPLE_RATE = 4096, 44100
 
 
 class SmokeFailure(RuntimeError):
@@ -273,6 +285,40 @@ def check_case(label, case, stats, absent=None, timed=False):
                 kernel_ms=f"{stats[name]['ms']:.3f}", plain_ms=f"{stats[name]['plain_ms']:.1f}")
 
 
+def check_walk(label, u, zi, at, rt, stats, timed=False):
+    """Hold kernel #7 against its plain version, and the walk split in
+    two halves (the second from the first's last sample) against one
+    walk, bit for bit.  With ``timed``, the plain version's one run and
+    the kernel over 5 runs after a warm-up are timed."""
+    name = "ballistics_core"
+    y = bal.ballistics_core(u, zi, at, rt)
+    if timed:
+        stats[name]["plain_ms"], ref = device_ms(lambda: bal.ballistics_plain(u, zi, at, rt), reps=1)
+    else:
+        ref = bal.ballistics_plain(u, zi, at, rt)
+    half = u.shape[1] // 2
+    first = bal.ballistics_core(u[:, :half], zi, at, rt)
+    second = bal.ballistics_core(u[:, half:], first[:, -1], at, rt)
+    torch.cuda.synchronize()
+    err = max_err(y, ref)
+    check(err < MAX_ABS, f"{name} {label}: max abs err {err} >= {MAX_ABS}")
+    check(torch.equal(torch.cat([first, second], dim=1), y),
+          f"{name} {label}: the walk split at {half} differs from one walk")
+    stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+    say("kernels", case=f"{name} {label}", err=f"{err:.3g}", split_at=half, state_carry="exact")
+    if timed:
+        bal.ballistics_core(u, zi, at, rt)  # warm-up
+        stats[name]["ms"] = device_ms(lambda: bal.ballistics_core(u, zi, at, rt), reps=5)[0]
+        say("kernels", kernel=name, shape=tuple(u.shape), kernel_ms=f"{stats[name]['ms']:.3f}",
+            plain_ms=f"{stats[name]['plain_ms']:.1f}")
+
+
+def walk_args(gen, n, length):
+    """(u, zi, at, rt) on the card for kernel #7."""
+    at, rt = gain_consts(gen, n, "compressor")[:2]
+    return energy(gen, n, length), torch.rand(n, generator=gen, device="cuda"), at, rt
+
+
 def db(err, ref):
     return 20.0 * torch.log10(torch.linalg.norm(err) / torch.linalg.norm(ref)).item()
 
@@ -311,10 +357,63 @@ def profile_run(fn, out_dir, name, card):
         idle_share=f"{max(0.0, 1.0 - busy_ms / ms):.3f}", table=table, card=repr(card))
 
 
+def stream_phase(args, smi, stats):
+    """Phase 9: the console streamed in blocks, against its one-shot render."""
+    console = bench_console(CHAINS, seed=0, device="cuda")
+    streamer = StreamRenderer(console.fused_processors, console.plan, console.params,
+                              block_len=BLOCK_LEN)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    x = console_input((CHAINS, 2, AUDIO_LEN), g, "cuda")
+    x_blocks = list(x.split(BLOCK_LEN, dim=-1))
+    state = streamer.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bal.reset_launch_counts()
+    outs, block_ms, wall_ms = [], [], []
+    with torch.inference_mode():
+        for xb in x_blocks:
+            t0 = time.perf_counter()
+            ms, (y, state) = device_ms(lambda xb=xb, state=state: streamer(xb, state), reps=1)
+            wall_ms.append(1e3 * (time.perf_counter() - t0))
+            block_ms.append(ms)
+            check(y.shape == (1, 2, BLOCK_LEN), f"stream block shape {tuple(y.shape)}")
+            outs.append(y)
+    launches = bal.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    for name, count in launches.items():
+        if name in STREAM_KERNELS:
+            check(count > 0, f"{name} was not launched on the stream path")
+            stats[name]["launches"] = count
+        else:
+            check(count == 0, f"{name} was launched on the stream path")
+    streamed = torch.cat(outs, dim=-1)
+    check(bool(torch.isfinite(streamed).all()), "non-finite streamed output")
+    wall = statistics.median(wall_ms[1:])
+    block_s = BLOCK_LEN / SAMPLE_RATE
+    say("stream", blocks=len(outs), block_len=BLOCK_LEN,
+        block_ms=[round(t, 3) for t in block_ms], host_wall_ms=[round(t, 3) for t in wall_ms],
+        warm_median_ms=f"{statistics.median(block_ms[1:]):.3f}", warm_median_wall_ms=f"{wall:.3f}",
+        real_time_factor=f"{1e3 * block_s / wall:.2f}", peak_mem_gib=f"{peak_gb:.3f}",
+        launches=launches, card=repr(smi))
+
+    with torch.inference_mode():
+        full = make_render_fn(console.fused_processors, console.plan)(x, console.params)[0]
+        many, _ = streamer.step_many(torch.stack(x_blocks[:4]), streamer.init_state())
+    peak_db = 20.0 * torch.log10((streamed - full).abs().max() / full.abs().max()).item()
+    check(peak_db <= -60.0, f"stream vs one-shot render at {peak_db:.1f} dB (max-abs/peak) > -60 dB")
+    for k, (a, b) in enumerate(zip(outs, many)):
+        check(torch.allclose(b, a, rtol=2e-5, atol=2e-6), f"step_many block {k} != single step")
+    say("stream", vs_one_shot_db=f"{peak_db:.1f}", step_many_k=len(many), step_many="equal")
+    if args.profile:
+        with torch.inference_mode():
+            profile_run(lambda: streamer(x_blocks[-1], state), args.profile, "stream_block", smi)
+
+
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--profile", metavar="DIR",
-                        help="profile one more warm request and step; write their tables to DIR")
+                        help="profile one more warm request, step and stream block; write their"
+                             " tables to DIR")
     args = parser.parse_args()
     t_start = time.perf_counter()
 
@@ -351,6 +450,19 @@ def main():
             check_case(label, case, stats, absent)
         for case in console_cases(gen):
             check_case(f"console {tuple(case.u.shape)}", case, stats, timed=True)
+        # #7 at the stream's row counts (17 chain and 2 bus compressors)
+        # and more, at a block, a ragged block and a call shorter than its
+        # 8-tile ring; timed at the stream's call
+        for n in (17, 2, 37, 68):
+            for length in (BLOCK_LEN, BLOCK_LEN + 13, 200):
+                check_walk(f"N={n} L={length}", *walk_args(gen, n, length), stats)
+        check_walk(f"stream call ({CHAINS}, {BLOCK_LEN})", *walk_args(gen, CHAINS, BLOCK_LEN),
+                   stats, timed=True)
+        big = walk_args(gen, BATCH * CHAINS, AUDIO_LEN)
+        bal.ballistics_core(*big)  # warm-up
+        big_ms = device_ms(lambda: bal.ballistics_core(*big), reps=5)[0]
+        say("kernels", kernel="ballistics_core", shape=tuple(big[0].shape), kernel_ms=f"{big_ms:.3f}")
+        del big
 
     # 4. exactness of the exact IIR cascade on the card
     exact_db = exactness_check_db(device="cuda")
@@ -490,12 +602,15 @@ def main():
     check(bool(torch.isfinite(outs["cuda"]).all()), "non-finite card output")
     check(card_db <= -60.0, f"card vs CPU at {card_db:.1f} dB > -60 dB")
 
+    # 9. stream the full-width console block by block
+    stream_phase(args, smi, stats)
+
     say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": stats[name]["launches"], "max_abs_err": stats[name]["max_abs_err"],
          "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"]}
-        for name, (source, replaces) in KERNELS.items()
+        for name, source, replaces in [(n, *v) for n, v in KERNELS.items()] + [LAYOUT_ROW]
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

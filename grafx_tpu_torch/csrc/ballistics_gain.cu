@@ -2,14 +2,19 @@
 // (sm_90a).  Built with nvcc into a shared library with a plain C
 // interface and loaded through ctypes (grafx_tpu_torch/ops/_cuda.py).
 //
-// Replaces four Pallas TPU kernels of grafx_tpu/ops/ballistics_tpu.py:
+// Replaces five Pallas TPU kernels of grafx_tpu/ops/ballistics_tpu.py:
 //   * grafx_gain_fwd           <- _fwd_gain_only_kernel      (ballistics_tpu.py:587)
 //   * grafx_gain_pair_fwd      <- _fwd_gain_pair_only_kernel (ballistics_tpu.py:826)
 //   * grafx_gain_fwd_res       <- _fwd_gain_kernel           (ballistics_tpu.py:449)
 //   * grafx_gain_pair_fwd_res  <- _fwd_gain_pair_kernel      (ballistics_tpu.py:747)
+//   * grafx_ballistics_fwd     <- _kernel                    (ballistics_tpu.py:35)
+// and the natural-layout experiment of benchmarks/ballistics_layout_ab.py
+// (_kernel_nat, :36), which computes the same function as _kernel.
 // The *_res versions also write the residuals the adjoints
 // (ballistics_grad.cu) need: d[n] = x[n] - y[n-1] of each walk and its
-// final state y[L-1].
+// final state y[L-1].  grafx_ballistics_fwd is the walk alone, from a
+// per-row initial state: the envelope smoother a streamed compressor
+// calls once per block, carrying y[L-1] into the next call.
 //
 // What is computed (per row, sequentially over time):
 //   y[n]  = (u[n] > y[n-1]) ? (1-at) y[n-1] + at u[n] : (1-rt) y[n-1] + rt u[n]
@@ -40,7 +45,10 @@
 //     of each step with nothing to hide its latency.
 // The pair is walk a -> knee a (also writes ga^2 u) -> walk b -> knee b
 // (times ga).  The envelopes go through device memory: 8 B per sample and
-// pass, well below what bounds the walk.
+// pass, well below what bounds the walk.  The plain walk
+// (grafx_ballistics_fwd) is walk_kernel alone; a streamed console calls
+// it on 17 and 2 rows x 4096 samples a block, 128 tiles on one warp each,
+// so there the cost of moving each tile and the launch set its time.
 
 #include "ballistics.cuh"
 
@@ -185,6 +193,18 @@ int gain_pair_fwd(const float* u, float* gain, float* scratch, float* d_a, float
   return (int)knee(kind_b, gain, b + 2 * n, scratch, nullptr, nullptr, n, len, s);
 }
 
+// The plain walk: y from the per-row initial states zi.
+int ballistics_fwd(const float* u, float* y, const float* consts, int n, long long len,
+                   int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (bad_shape(n, len, 0)) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || len <= 0) return 0;
+  const float* c = consts;
+  return (int)walk(u, y, nullptr, nullptr, c, 0.0f, c + n, c + 2 * n, n, len,
+                   static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace
 
 extern "C" {
@@ -223,6 +243,12 @@ int grafx_gain_pair_fwd_res(const float* u, float* gain, float* scratch, float* 
                             void* stream) {
   return gain_pair_fwd(u, gain, scratch, d_a, d_b, v_last, u_last, consts, n, len,
                        kind_a, kind_b, init_a, init_b, device, stream);
+}
+
+// u and y (n, len); consts (3, n) with rows zi, at, rt.
+int grafx_ballistics_fwd(const float* u, float* y, const float* consts, int n,
+                         long long len, int device, void* stream) {
+  return ballistics_fwd(u, y, consts, n, len, device, stream);
 }
 
 }  // extern "C"

@@ -41,6 +41,8 @@ _SOURCES = {
         "grafx_gain_pair_fwd": [_p] * 4 + [_i, _ll, _i, _i, _f, _f, _i, _p],
         # u, gain, scratch, d_a, d_b, v_last, u_last, consts, then as above
         "grafx_gain_pair_fwd_res": [_p] * 8 + [_i, _ll, _i, _i, _f, _f, _i, _p],
+        # u, y, consts, n, len, device, stream
+        "grafx_ballistics_fwd": [_p, _p, _p, _i, _ll, _i, _p],
     },
     "ballistics_grad.cu": {
         # u, d, ylast, gg, consts, du, grads, partials, n, len, kind, device, stream

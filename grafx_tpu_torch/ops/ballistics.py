@@ -1,8 +1,9 @@
-"""Fused ballistics smoothing + quadratic-knee gain, with gradients.
+"""Ballistics smoothing, alone and fused with a quadratic-knee gain.
 
-The port of :func:`grafx_tpu.ops.ballistics.ballistics_gain_core` and
-:func:`~grafx_tpu.ops.ballistics.ballistics_gain_pair_core` and their
-``custom_vjp``s.  Six kernels, each with two implementations of one
+The port of :func:`grafx_tpu.ops.ballistics.ballistics_core` (forward
+only), :func:`~grafx_tpu.ops.ballistics.ballistics_gain_core` and
+:func:`~grafx_tpu.ops.ballistics.ballistics_gain_pair_core` with their
+``custom_vjp``s.  Seven kernels, each with two implementations of one
 contract:
 
 * a plain PyTorch version (``*_plain``): loops over time, vectorized
@@ -24,13 +25,16 @@ wrapper                                replaces (grafx_tpu/ops/ballistics_tpu.py
 :func:`ballistics_gain_pair_bwd`       ``_bwd_gain_pair_kernel``
 :func:`ballistics_gain_fwd`            ``_fwd_gain_kernel``
 :func:`ballistics_gain_bwd`            ``_bwd_gain_kernel``
+:func:`ballistics_core`                ``_kernel`` (no grad)
 =====================================  ==================================
 
-The two public cores dispatch as the JAX ones do: with grad enabled and
+The two gain cores dispatch as the JAX ones do: with grad enabled and
 any input requiring grad they run a ``torch.autograd.Function`` whose
 forward saves the JAX residuals (``d = u - y[n-1]`` and the final state)
 and whose backward is the adjoint kernel; otherwise the primal-only
-kernel.
+kernel.  :func:`ballistics_core` has no gradient yet: its adjoint needs
+``_fwd_d_kernel`` and ``_bwd_fused_kernel``, and it raises rather than
+let autograd run through the plain loop on the CPU only.
 
 The recursion, with per-row smoothing factors ``at`` (attack) and ``rt``
 (release), is the select form
@@ -171,6 +175,11 @@ def _knee_adjoint(base, y, x, f, fp, cf, hk, kind):
         _tile_sum(base * f),
         _tile_sum(base * cf * _knee_fhk(x, hk[:, None], kind)),
     )
+
+
+def ballistics_plain(u, zi, at, rt):
+    """Plain version of :func:`ballistics_core` (any device)."""
+    return _walk(u, zi, at, rt)
 
 
 def ballistics_gain_plain(u, zi, at, rt, th, cf, hk, kind="compressor"):
@@ -480,6 +489,40 @@ def ballistics_gain_pair_bwd(
     return (du, *grads.unbind(0))
 
 
+def ballistics_core(u, zi, at, rt):
+    """The attack/release smoother alone, from per-row initial states
+    (replaces ``_kernel``).  Streaming carries ``y[:, -1]`` into the next
+    call's ``zi``; split calls equal one call bit for bit.
+
+    Forward only: with grad enabled and an input that requires grad it
+    raises, until the adjoint kernels ``_fwd_d_kernel`` and
+    ``_bwd_fused_kernel`` are ported behind an ``autograd.Function``.
+
+    Args:
+        u: ``(N, L)`` input envelopes.
+        zi, at, rt: ``(N,)`` initial states and attack / release factors.
+
+    Returns:
+        ``(N, L)`` smoothed envelopes.
+    """
+    name = "ballistics_core"
+    if torch.is_grad_enabled() and any(a.requires_grad for a in (u, zi, at, rt)):
+        raise NotImplementedError(
+            f"{name}: no gradient yet; it needs the ballistics adjoint kernels"
+            " (_fwd_d_kernel, _bwd_fused_kernel of grafx_tpu/ops/ballistics_tpu.py),"
+            " which are not ported (ROADMAP.md, queue 2 #8/#9)."
+        )
+    if _device(u, name) == "cpu":
+        return ballistics_plain(u, zi, at, rt)
+    (u,) = _rows(name, u)
+    consts = _consts(name, u, zi, at, rt)
+    y = torch.empty_like(u)
+    _run(name, "grafx_ballistics_fwd", u, u.data_ptr(), y.data_ptr(), consts.data_ptr(),
+         u.shape[0], u.shape[1])
+    ballistics_core.launches += 1
+    return y
+
+
 KERNEL_WRAPPERS = (
     ballistics_gain_pair_core,
     ballistics_gain_core,
@@ -487,6 +530,7 @@ KERNEL_WRAPPERS = (
     ballistics_gain_pair_bwd,
     ballistics_gain_fwd,
     ballistics_gain_bwd,
+    ballistics_core,
 )
 for _w in KERNEL_WRAPPERS:
     _w.launches = 0

@@ -12,6 +12,9 @@ numerics rationale (eigenbasis coordinates, compensated discriminant)
 is documented at the JAX counterparts of each function.  Gradients run
 through torch autograd, except the cross-block state propagation, which
 carries the JAX package's hand-written adjoint (:class:`_PropagateStates`).
+The exact one-pole smoother (:func:`onepole_exact`) is the first-order
+case with a scalar state.  Both carry their state across calls for
+block-wise streaming (``state_in``/``return_state``).
 
 Exact to float32: every contraction must run in full float32.  On a GPU
 that means no TF32 (``torch.backends.cuda.matmul.allow_tf32`` False);
@@ -299,25 +302,49 @@ def _propagate_states(s_in, A):
     return _PropagateStates.apply(s_in, A)
 
 
-def _split_blocks(x, T):
+def _split_blocks(x, T, return_state=False):
     N, L = x.shape
     num_blocks = -(-L // T)
     pad = num_blocks * T - L
+    if return_state and pad:
+        # zero-padding a partial final block would evolve the carried
+        # state past sample L
+        raise ValueError(
+            f"return_state requires the signal length ({L}) to be a"
+            f" multiple of the block size ({T})."
+        )
     xp = F.pad(x, (0, pad)) if pad else x
     return xp.reshape(N, num_blocks, T), num_blocks
 
 
-def _biquad_block_stage_apply(x, kernels, T, toeplitz=None):
-    """One exact biquad on prebuilt :func:`_stage_eigen_kernels` kernels."""
+def _carry_states(s_in, A, state_in):
+    """``(s_after, s_enter)``: the state after and entering each block
+    for per-block injections ``s_in (N, NB, S)``, transition ``A (N, S,
+    S)`` and an optional incoming state ``state_in (N, S)`` (streaming;
+    zero otherwise)."""
+    if state_in is not None:
+        s0 = s_in[:, :1] + torch.einsum("nij,nj->ni", A, state_in)[:, None]
+        s_in = torch.cat([s0, s_in[:, 1:]], dim=1)
+    s_after = _propagate_states(s_in, A)
+    first = torch.zeros_like(s_after[:, :1]) if state_in is None else state_in[:, None]
+    return s_after, torch.cat([first, s_after[:, :-1]], dim=1)
+
+
+def _biquad_block_stage_apply(x, kernels, T, toeplitz=None, state_in=None, return_state=False):
+    """One exact biquad on prebuilt :func:`_stage_eigen_kernels` kernels.
+
+    ``state_in``/``return_state``: the ``(N, 2)`` eigenbasis state carried
+    across calls (streaming); ``return_state`` requires ``L % T == 0``.
+    """
     h, K_out, K_in, M = kernels
     N, L = x.shape
-    xb, num_blocks = _split_blocks(x, T)
+    xb, num_blocks = _split_blocks(x, T, return_state)
     y_zs = _zero_state_response(xb, h, toeplitz)
     s_in = torch.einsum("nbt,nst->nbs", xb, K_in)  # (N, NB, 2)
-    s_after = _propagate_states(s_in, M)
-    s_enter = torch.cat([torch.zeros_like(s_after[:, :1]), s_after[:, :-1]], dim=1)
+    s_after, s_enter = _carry_states(s_in, M, state_in)
     y_is = torch.einsum("nbs,nst->nbt", s_enter, K_out)
-    return (y_zs + y_is).reshape(N, num_blocks * T)[:, :L]
+    y = (y_zs + y_is).reshape(N, num_blocks * T)[:, :L]
+    return (y, s_after[:, -1]) if return_state else y
 
 
 def _cascade_kernels_doubling(b, a, T):
@@ -393,20 +420,23 @@ def _cascade_kernels_doubling(b, a, T):
     return H_cas, W[:, :S], V[:, :S], A_blk[:, :S, :S]
 
 
-def _biquad_block_cascade_apply(x, kernels, T, toeplitz=None):
+def _biquad_block_cascade_apply(x, kernels, T, toeplitz=None, state_in=None,
+                                return_state=False):
     """Single-pass blocked cascade on prebuilt
     :func:`_cascade_kernels_doubling` kernels: (1) zero-state response,
     (2) per-block state injection, (3) cross-block propagation, (4)
-    initial-state responses."""
+    initial-state responses.  ``state_in``/``return_state`` thread the
+    ``(N, S)`` eigenbasis state across calls (streaming); ``return_state``
+    requires ``L % T == 0``."""
     H_cas, W, V, A_blk = kernels
     N, L = x.shape
-    xb, num_blocks = _split_blocks(x, T)
+    xb, num_blocks = _split_blocks(x, T, return_state)
     y_zs = _zero_state_response(xb, H_cas, toeplitz)
     s_in = torch.einsum("nbt,nst->nbs", xb, W)  # (N, NB, S)
-    s_after = _propagate_states(s_in, A_blk)
-    s_enter = torch.cat([torch.zeros_like(s_after[:, :1]), s_after[:, :-1]], dim=1)
+    s_after, s_enter = _carry_states(s_in, A_blk, state_in)
     y_is = torch.einsum("nbs,nst->nbt", s_enter, V)
-    return (y_zs + y_is).reshape(N, num_blocks * T)[:, :L]
+    y = (y_zs + y_is).reshape(N, num_blocks * T)[:, :L]
+    return (y, s_after[:, -1]) if return_state else y
 
 
 def _biquad_block_cascade(x, b, a, T):
@@ -461,20 +491,92 @@ def biquad_exact_build(Bs, As, block_size: int = 128):
     return cache
 
 
-def biquad_exact_apply(x, cache, block_size: int = 128):
+def biquad_exact_apply(x, cache, block_size: int = 128, state_in=None, return_state=False):
     """Apply kernels from :func:`biquad_exact_build` to ``(N, L)``
-    signals (exact for any ``L``)."""
+    signals (exact for any ``L``).
+
+    ``state_in``/``return_state`` carry the filter state across calls for
+    block-wise streaming (``return_state`` requires ``L`` to be a multiple
+    of ``block_size``).  The state is ``(N, 2 K)`` for the single-pass
+    cascade, ``(N, K, 2)`` for the per-stage path;
+    :func:`biquad_exact_zero_state` builds the initial zeros.
+    """
     _require_full_fp32(x)
     T = block_size
     toep = cache.get("Toep")
     if "H" in cache:
         return _biquad_block_cascade_apply(
-            x, (cache["H"], cache["W"], cache["V"], cache["A"]), T, toeplitz=toep
+            x, (cache["H"], cache["W"], cache["V"], cache["A"]), T, toeplitz=toep,
+            state_in=state_in, return_state=return_state,
         )
     y = x
+    states_out = []
     for k in range(cache["h"].shape[1]):
         kernels = tuple(cache[n][:, k] for n in ("h", "K_out", "K_in", "M"))
-        y = _biquad_block_stage_apply(
-            y, kernels, T, toeplitz=None if toep is None else toep[:, k]
+        out = _biquad_block_stage_apply(
+            y, kernels, T, toeplitz=None if toep is None else toep[:, k],
+            state_in=None if state_in is None else state_in[:, k],
+            return_state=return_state,
         )
-    return y
+        if return_state:
+            y, s_k = out
+            states_out.append(s_k)
+        else:
+            y = out
+    return (y, torch.stack(states_out, dim=1)) if return_state else y
+
+
+def biquad_exact_zero_state(cache, num_signals):
+    """Zero initial state in ``cache``'s layout for streaming with
+    :func:`biquad_exact_apply`."""
+    if "H" in cache:
+        w = cache["W"]
+        return w.new_zeros((num_signals, w.shape[-2]))
+    h = cache["h"]
+    return h.new_zeros((num_signals, h.shape[1], 2))
+
+
+def onepole_exact(x, alpha, block_size: int = 1024, state_in=None, return_state=False):
+    """Exact one-pole smoother ``y[n] = alpha y[n-1] + (1 - alpha) x[n]``,
+    blocked like :func:`biquad_exact` with a scalar state whose powers
+    are in closed form.
+
+    Args:
+        x: ``(N, L)``.
+        alpha: ``(N,)`` in ``(0, 1)``.
+        block_size: block length; clamped to ``next_pow2(L)``.
+        state_in: optional ``(N,)`` previous output sample ``y[-1]``
+            (streaming continuation; zero otherwise).
+        return_state: also return ``y[:, -1]``, the state the next call
+            continues from.
+    """
+    _require_full_fp32(x)
+    N, L = x.shape
+    T = min(block_size, next_pow2(L))
+    xb, num_blocks = _split_blocks(x, T)
+
+    log_alpha = torch.log(alpha)[:, None]  # (N, 1)
+    n = torch.arange(T, dtype=x.dtype, device=x.device)[None, :]
+    powers = torch.exp(log_alpha * n)  # alpha^n, (N, T)
+    alpha_T = torch.exp(log_alpha[:, 0] * T)  # (N,)
+    h = (1.0 - alpha)[:, None] * powers
+    y_zs = fft_convolve(xb, h[:, None, :], mode="causal", pad_mode="pow2")
+
+    # the state is y at the end of the previous block:
+    # s_in[k] = sum_i alpha^(T-1-i) (1 - alpha) x[k, i]
+    s_in = torch.einsum("nbt,nt->nb", xb, torch.flip(h, dims=[-1]))
+    if state_in is not None:
+        s_in = torch.cat([s_in[:, :1] + (alpha_T * state_in)[:, None], s_in[:, 1:]], dim=1)
+    # scalar prefix doubling: s[k] = alpha^T s[k-1] + s_in[k]
+    s_after, P, shift = s_in, alpha_T, 1
+    while shift < num_blocks:
+        shifted = F.pad(s_after, (shift, 0))[:, :num_blocks]
+        s_after = s_after + P[:, None] * shifted
+        P = P * P
+        shift *= 2
+    first = torch.zeros_like(s_after[:, :1]) if state_in is None else state_in[:, None]
+    s_enter = torch.cat([first, s_after[:, :-1]], dim=1)
+
+    y = y_zs + powers[:, None, :] * alpha[:, None, None] * s_enter[..., None]
+    y = y.reshape(N, num_blocks * T)[:, :L]
+    return (y, y[:, -1]) if return_state else y

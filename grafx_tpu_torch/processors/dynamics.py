@@ -8,8 +8,13 @@ one-pole energy smoother, the gain runs as one fused smoother + knee op
 kernel on the card, its plain version on the CPU.  A one-pole smoother
 is the ``at == rt == 1 - alpha`` case of that recursion with initial
 state 0, and its trailing relu is a no-op on nonnegative energy.  Other
-configurations compose the smoother with the knee math; their
-smoothers are not ported yet.
+configurations compose the smoother (:mod:`~grafx_tpu_torch.processors.
+core.envelope`) with the knee math; of those, only a ballistics smoother
+under gradient still raises (its adjoint kernels are not ported).
+
+Streaming (``stream_init`` / ``stream_step``) always composes, as
+``grafx_tpu`` does: the fused kernels do not return the final envelope a
+stream carries into its next block.
 """
 
 import torch
@@ -135,6 +140,51 @@ class Compressor(nn.Module):
                 return torch.exp(self.gain_smoother_module(log_gain, z_alpha=z_alpha_post))
             return self.gain_smoother_module(torch.exp(log_gain), z_alpha=z_alpha_post)
         return torch.exp(log_gain)
+
+    # -- streaming -----------------------------------------------------
+
+    def stream_init(self, num_channels, block_len, **params):
+        """Streaming contract (render/streaming.py): carry the energy
+        (and optional gain) smoother states across blocks."""
+        del num_channels, block_len
+        n, device = params["log_threshold"].shape[0], params["log_threshold"].device
+        state = {
+            "energy": None if self.energy_smoother_module is None
+            else self.energy_smoother_module.stream_zero_state(n, device),
+            "gain": None if self.gain_smoother_module is None
+            else self.gain_smoother_module.stream_zero_state(n, device),
+        }
+        return state, dict(params)
+
+    def stream_step(self, x, state, cache):
+        energy = torch.mean(torch.square(x), dim=-2)
+        gain, state = self.gain_stream_from_energy(energy, state, cache)
+        return gain[:, None, :] * x, state
+
+    def gain_stream_from_energy(self, energy, state, cache):
+        """Streaming counterpart of :meth:`gain_from_energy`: one block of
+        ``(N, block)`` input energy -> ``(gain, new state)``."""
+        e_state, g_state = state["energy"], state["gain"]
+        if self.energy_smoother_module is not None:
+            energy, e_state = self.energy_smoother_module.stream(
+                energy, e_state, z_alpha=cache.get("z_alpha_pre")
+            )
+        log_energy = torch.log(energy + 1e-5)
+        log_gain = self.compute_gain(
+            log_energy, cache["log_threshold"] - 6.0, cache["log_ratio"], cache.get("log_knee")
+        )
+        if self.gain_smoother_module is None:
+            gain = torch.exp(log_gain)
+        elif self.gain_smooth_in_log:
+            smoothed, g_state = self.gain_smoother_module.stream(
+                log_gain, g_state, z_alpha=cache.get("z_alpha_post")
+            )
+            gain = torch.exp(smoothed)
+        else:
+            gain, g_state = self.gain_smoother_module.stream(
+                torch.exp(log_gain), g_state, z_alpha=cache.get("z_alpha_post")
+            )
+        return gain, {"energy": e_state, "gain": g_state}
 
     def compute_gain(self, log_energy, log_threshold, log_ratio, log_knee):
         match self.knee:

@@ -13,11 +13,28 @@ from grafx_tpu_torch.processors.filter import (
     HighShelf,
     LowShelf,
     PeakingFilter,
-    _IIRFusionMixin,
+    _IIRStreamMixin,
 )
 
 
-class ParametricEqualizer(_IIRFusionMixin, nn.Module):
+class _EqualizerStreamMixin(_IIRStreamMixin):
+    """Streaming of the equalizers: their ``precompute`` cache is the
+    stream cache, and midside channel handling wraps the filter."""
+
+    def stream_init(self, num_channels, block_len, **params):
+        """Streaming contract (render/streaming.py): build the biquad
+        kernels once, carry the filter state across blocks."""
+        cache = self.precompute(**params)
+        return self.biquad.stream_zero_state(cache, num_channels, block_len), cache
+
+    def stream_step(self, x, state, cache):
+        if self.processor_channel == "midside":
+            y, state = self.biquad.stream(lr_to_ms(x), state, cache)
+            return ms_to_lr(y), state
+        return self.biquad.stream(x, state, cache)
+
+
+class ParametricEqualizer(_EqualizerStreamMixin, nn.Module):
     """Cascade of K biquads: low-shelf + peaks + high-shelf (or all
     peaks) (reference: eq.py:217-336)."""
 
@@ -85,7 +102,7 @@ class ParametricEqualizer(_IIRFusionMixin, nn.Module):
         return {k: size for k in ["w0", "q_inv", "log_gain"]}
 
 
-class GraphicEqualizer(_IIRFusionMixin, nn.Module):
+class GraphicEqualizer(_EqualizerStreamMixin, nn.Module):
     """24-band bark / 31-band third-octave graphic EQ
     (reference: eq.py:339-436)."""
 

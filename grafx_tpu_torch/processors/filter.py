@@ -3,8 +3,8 @@
 The port of the part of :mod:`grafx_tpu.processors.filter` that the
 equalizers use: the gain-equipped RBJ-cookbook filters
 (reference: src/grafx/processors/filter.py:559-754) and the LTI-fusion
-capability of biquad processors.  Every filter reduces to elementwise
-coefficient math followed by the exact
+and streaming capabilities of biquad processors.  Every filter reduces
+to elementwise coefficient math followed by the exact
 :class:`~grafx_tpu_torch.processors.core.iir.IIRFilter`.
 """
 
@@ -19,10 +19,24 @@ PI = math.pi
 ALPHA_SCALE = 0.5
 
 
-class _IIRFusionMixin:
-    """LTI-fusion capability (render/fuse.py) for processors that reduce
-    to ``compute_coefficients(**params) -> (Bs, As, post_gain)`` followed
-    by the exact IIR backend."""
+class _IIRStreamMixin:
+    """Streaming and LTI-fusion contracts for processors that reduce to
+    ``compute_coefficients(**params) -> (Bs, As, post_gain)`` followed by
+    the exact IIR backend: build the kernels once at stream start and
+    carry the filter state across blocks (render/streaming.py); expose the
+    coefficients as a fusion capability (render/fuse.py)."""
+
+    def stream_init(self, num_channels, block_len, **params):
+        Bs, As, gain = self.compute_coefficients(**params)
+        cache = self.biquad.precompute(Bs, As)
+        state = self.biquad.stream_zero_state(cache, num_channels, block_len)
+        return state, {"iir": cache, "gain": gain}
+
+    def stream_step(self, x, state, cache):
+        y, state = self.biquad.stream(x, state, cache["iir"])
+        if cache["gain"] is not None:
+            y = cache["gain"][..., None] * y
+        return y, state
 
     @property
     def lti_kind(self):
@@ -40,7 +54,7 @@ class _IIRFusionMixin:
         return self.compute_coefficients(**params)
 
 
-class BaseParametricEqualizerFilter(_IIRFusionMixin, nn.Module):
+class BaseParametricEqualizerFilter(_IIRStreamMixin, nn.Module):
     """Gain-equipped cookbook biquad base (reference: filter.py:559-616)."""
 
     def __init__(self, num_filters=1, **backend_kwargs):

@@ -7,7 +7,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from grafx_tpu_torch.ops.fftconv import FIRConvolution
+from grafx_tpu_torch.ops.fftconv import FIRConvolution, conv_stream_apply, conv_stream_init
 from grafx_tpu_torch.ops.stft import hann_window, istft
 from grafx_tpu_torch.processors.core.midside import lr_to_ms, ms_to_lr
 from grafx_tpu_torch.processors.core.utils import normalize_impulse
@@ -116,6 +116,35 @@ class STFTMaskedNoiseReverb(nn.Module):
         if self.processor_channel == "pseudo_midside":
             ir = ms_to_lr(ir)
         return normalize_impulse(ir), 0, None
+
+    # -- streaming -----------------------------------------------------
+
+    def stream_init(self, num_channels, block_len, noise_key=None, **params):
+        """Streaming contract: build the IR once and stream its causal
+        convolution (a partitioned frequency-domain delay line for long
+        IRs, an overlap-add tail for short ones; ops/fftconv.py
+        conv_stream_init).  The noise is the fixed one: a per-stream
+        ``noise_key`` raises until rng threading is ported."""
+        if noise_key is not None:
+            raise NotImplementedError(
+                "a per-stream reverb noise_key needs rng threading, which is"
+                " not ported yet (ROADMAP.md, queue 1)."
+            )
+        ir = self.compute_ir(
+            params["init_log_magnitude"],
+            params["delta_log_magnitude"],
+            params.get("gain_env_log_magnitude"),
+        )
+        if self.processor_channel == "pseudo_midside":
+            ir = ms_to_lr(ir)
+        state, conv = conv_stream_init(normalize_impulse(ir), num_channels, block_len)
+        return state, {"conv": conv, "ms": self.processor_channel == "midside"}
+
+    def stream_step(self, x, state, cache):
+        if cache["ms"]:
+            y, state = conv_stream_apply(lr_to_ms(x), state, cache["conv"])
+            return ms_to_lr(y), state
+        return conv_stream_apply(x, state, cache["conv"])
 
     def compute_stft_mask(
         self, init_log_magnitude, delta_log_magnitude, gain_env_log_magnitude=None

@@ -1,4 +1,5 @@
-"""Render engine: scheduling, plan compilation, fusion and the executor."""
+"""Render engine: scheduling, plan compilation, fusion, the executor and
+the streaming renderer."""
 
 from grafx_tpu_torch.render.fuse import (
     FusedBiquadChain,
@@ -9,11 +10,13 @@ from grafx_tpu_torch.render.fuse import (
 from grafx_tpu_torch.render.graph import make_render_fn, render_grafx
 from grafx_tpu_torch.render.order import compute_render_order, reorder_for_fast_render
 from grafx_tpu_torch.render.prepare import RenderData, prepare_render
+from grafx_tpu_torch.render.streaming import StreamRenderer
 
 __all__ = [
     "FusedBiquadChain",
     "FusedDynamicsChain",
     "RenderData",
+    "StreamRenderer",
     "compute_render_order",
     "fuse_parameters",
     "fuse_serial_lti",

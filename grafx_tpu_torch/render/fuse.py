@@ -6,7 +6,8 @@ the rationale and measurements live there).
   section stacks (:class:`FusedBiquadChain`).
 * **Dynamics** — compressors / gates share one channel energy and thread
   gain products (:class:`FusedDynamicsChain`); a gate -> compressor pair
-  runs both recursions in one walk over time.
+  runs both recursions in one walk over time (streamed, the members'
+  gains compose, each carrying its smoother state).
 * **FIR** — FIR nodes are classified, but the composed-IR chain is not
   ported yet: fusing a FIR run raises.
 
@@ -95,15 +96,32 @@ class FusedBiquadChain(_FusedChain):
             cache["post_gain"] = gain
         return cache
 
+    @staticmethod
+    def _split(cache):
+        return {k: v for k, v in cache.items() if k != "post_gain"}, cache.get("post_gain")
+
     def forward(self, input_signals, _cache=None, **nested_params):
         if _cache is None:
             _cache = self.precompute(**nested_params)
-        iir_cache = {k: v for k, v in _cache.items() if k != "post_gain"}
+        iir_cache, gain = self._split(_cache)
         y = self.biquad(input_signals, cache=iir_cache)
-        gain = _cache.get("post_gain")
         if gain is not None:
             y = gain[..., None] * y
         return y
+
+    # -- streaming -----------------------------------------------------
+
+    def stream_init(self, num_channels, block_len, **nested_params):
+        cache = self.precompute(**nested_params)
+        iir_cache, _ = self._split(cache)
+        return self.biquad.stream_zero_state(iir_cache, num_channels, block_len), cache
+
+    def stream_step(self, x, state, cache):
+        iir_cache, gain = self._split(cache)
+        y, state = self.biquad.stream(x, state, iir_cache)
+        if gain is not None:
+            y = gain[..., None] * y
+        return y, state
 
 
 class FusedDynamicsChain(_FusedChain):
@@ -160,15 +178,50 @@ class FusedDynamicsChain(_FusedChain):
                 (a["init"], b["init"]),
             )
             return gain[:, None, :] * input_signals
-        absent = nested_params.get("_absent")
+        gain = self._gain_product(
+            energy, nested_params.get("_absent"),
+            lambda name, proc, e: proc.gain_from_energy(e, **nested_params[name]),
+        )
+        return gain[:, None, :] * input_signals
+
+    def _gain_product(self, energy, absent, member_gain):
+        """The composed path: member ``i`` gets the energy times the squared
+        product of the gains before it, ``member_gain(name, proc, e_i)``
+        returns its gain, and an absent member's gain is 1."""
         gain = None
         for idx, (name, proc) in enumerate(self.members):
             e_i = energy if gain is None else torch.square(gain) * energy
-            g_i = proc.gain_from_energy(e_i, **nested_params[name])
+            g_i = member_gain(name, proc, e_i)
             if absent is not None:
                 g_i = torch.where(absent[..., idx : idx + 1] > 0.5, 1.0, g_i)
             gain = g_i if gain is None else gain * g_i
-        return gain[:, None, :] * input_signals
+        return gain
+
+    # -- streaming -----------------------------------------------------
+
+    def stream_init(self, num_channels, block_len, **nested_params):
+        """Streaming contract: carry every member's smoother state; a
+        block threads the gain products as ``forward``'s composed path
+        does (the pair walk does not return its final envelopes)."""
+        states, caches = {}, {}
+        for name, proc in self.members:
+            states[name], caches[name] = proc.stream_init(
+                num_channels, block_len, **nested_params[name]
+            )
+        if "_absent" in nested_params:
+            caches["_absent"] = nested_params["_absent"]
+        return states, caches
+
+    def stream_step(self, x, state, cache):
+        new_state = {}
+
+        def member_gain(name, proc, e):
+            g, new_state[name] = proc.gain_stream_from_energy(e, state[name], cache[name])
+            return g
+
+        energy = torch.mean(torch.square(x), dim=-2)
+        gain = self._gain_product(energy, cache.get("_absent"), member_gain)
+        return gain[:, None, :] * x, new_state
 
     def parameter_size(self):
         sizes = super().parameter_size()
