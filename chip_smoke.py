@@ -1,5 +1,6 @@
 """Serve, train and stream the bench.py mixing console on one NVIDIA GPU
-through grafx_tpu_torch, and check every hand-written kernel on the way.
+through grafx_tpu_torch, serve and train it with FactorizedCompressor as
+its compressor, and check every hand-written kernel on the way.
 
 Run from the root of the repository, on a machine with the card:
 
@@ -8,12 +9,17 @@ Run from the root of the repository, on a machine with the card:
 Phases (each prints one line or more; any failure exits non-zero
 before the result line):
 
-1. device: the card's name and power limit, TF32 switched off;
+1. device: the card's name, power limit and maximum SM clock, TF32
+   switched off;
 2. build: the CUDA kernels compiled from ``grafx_tpu_torch/csrc``;
-3. kernels: each of the seven kernels against its plain PyTorch version
+3. kernels: each of the ten kernels against its plain PyTorch version
    on the card, at small shapes and at the shapes the console gives it,
-   with their times (the plain ballistics walk #7 also split in two,
-   carrying its state, against one walk);
+   with their times beside their bounds (the plain ballistics walk #7
+   also split in two, carrying its state, against one walk; #2, #5 and
+   #6 also at the factorized console's gate members, 68 x 2^17; the plain
+   smoother's forward with residuals #8, its adjoint #9 and the reverse
+   scan #10 at N = 2, 8, 17, 68 and L = 64, 128, 200, 4096, 4109, timed
+   at the factorized console's frame calls and at 68 x 2^17);
 4. exactness: the exact IIR cascade against scipy float64;
 5. serve: three requests of (4, 17, 2, 2^17) through the fused console,
    with every kernel's launch count (the primal kernels #1/#2 only);
@@ -29,17 +35,26 @@ before the result line):
    4096, with device and host ms per block, the real-time factor, peak
    memory and every kernel's launch count (#7 only), the streamed output
    against the one-shot render on the card, and ``step_many`` (4 blocks)
-   against single steps.
+   against single steps;
+10. factorized: the console with ``FactorizedCompressor(frame_len=1024)``
+    as its compressor at (4, 17, 2, 2^17): one served request (launches:
+    #2 once, #7 twice, nothing else) and three gradient steps as in phase
+    6 (launches per step: #5 and #6 once, #8 and #9 twice, nothing else);
+11. factorized grad card vs CPU: that step's loss and every parameter
+    gradient at batch 1, L = 2^14, on the card and on the CPU.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is ``{"kernels": [...]}``: per kernel its
+errors, times, launches on its path and per run of each path, and its
+bound (bytes over 3.35 TB/s or operations over 67 TFLOP/s); the last
+line is ``{"ok": true, "device": {...}}``.
 
 ``--profile DIR`` adds, after phase 5, one more warm request, after phase
-6, one more warm step and, after phase 9, one more warm block under
-``torch.profiler``: each prints its device ms (CUDA events), host wall
-ms, busy device ms and the card's idle share, and writes its per-op
-table to ``DIR/profile_request.txt``, ``DIR/profile_step.txt`` and
-``DIR/profile_stream_block.txt``.
+6, one more warm step, after phase 9, one more warm block and, after
+phase 10, one more warm factorized step under ``torch.profiler``: each
+prints its device ms (CUDA events), host wall ms, busy device ms and the
+card's idle share, and writes its per-op table to
+``DIR/profile_request.txt``, ``DIR/profile_step.txt``,
+``DIR/profile_stream_block.txt`` and ``DIR/profile_step_factorized.txt``.
 """
 
 import argparse
@@ -54,9 +69,11 @@ import numpy as np
 import torch
 
 from grafx_tpu_torch.models import bench_console, bench_trainer
+from grafx_tpu_torch.models.console import bench_processors
 from grafx_tpu_torch.ops import _cuda
 from grafx_tpu_torch.ops import ballistics as bal
 from grafx_tpu_torch.ops.iir import exactness_check_db
+from grafx_tpu_torch.processors import FactorizedCompressor
 from grafx_tpu_torch.render import StreamRenderer, make_render_fn
 from grafx_tpu_torch.utils import tree_items
 
@@ -71,18 +88,47 @@ KERNELS = {
     "ballistics_gain_fwd": (GAIN_SRC, "grafx_tpu/ops/ballistics_tpu.py:449"),
     "ballistics_gain_bwd": (GRAD_SRC, "grafx_tpu/ops/ballistics_tpu.py:496"),
     "ballistics_core": (GAIN_SRC, "grafx_tpu/ops/ballistics_tpu.py:35"),
+    "ballistics_fwd": (GAIN_SRC, "grafx_tpu/ops/ballistics_tpu.py:73"),
+    "ballistics_bwd": (GRAD_SRC, "grafx_tpu/ops/ballistics_tpu.py:111"),
+    "reverse_scan": (GRAD_SRC, "grafx_tpu/ops/ballistics_tpu.py:178"),
 }
+NO_PATH = {"reverse_scan": "no caller in grafx_tpu/ or in the port"}
 # the natural-layout experiment computes #7's function: the same kernel replaces it
 LAYOUT_ROW = ("ballistics_core", GAIN_SRC, "benchmarks/ballistics_layout_ab.py:36")
 SERVE_KERNELS = ("ballistics_gain_pair_core", "ballistics_gain_core")
 TRAIN_KERNELS = ("ballistics_gain_pair_fwd", "ballistics_gain_pair_bwd",
                  "ballistics_gain_fwd", "ballistics_gain_bwd")
 STREAM_KERNELS = ("ballistics_core",)
+# launches per run of the factorized console's paths, and nothing else
+FACTORIZED_REQUEST = {"ballistics_gain_core": 1, "ballistics_core": 2}
+FACTORIZED_STEP = {"ballistics_gain_fwd": 1, "ballistics_gain_bwd": 1,
+                   "ballistics_fwd": 2, "ballistics_bwd": 2}
 MAX_ABS = 2e-5  # the bound benchmarks/verify_ballistics_tpu.py uses on the TPU
 DU_REL = 1e-5  # du: max abs error <= DU_REL * max |ref|
 GRAD_REL = 1e-4  # per-row gradients: max abs error <= GRAD_REL * max |ref|
 BATCH, CHAINS, AUDIO_LEN = 4, 17, 2**17
 BLOCK_LEN, SAMPLE_RATE = 4096, 44100
+FRAME_LEN = 1024  # FactorizedCompressor's documented frame (BASELINE.md, "documented fast path")
+# The card's published peaks (H100 SXM, 700 W): device memory and float32
+# outside the tensor cores; the kernels do no matrix products.
+MEM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
+# Per kernel: (arrays of N x L float32 moved, per-row float32 values moved,
+# operations a sample).  The bytes count each input once and each output
+# once.  Operations count the formula's float operations (log and exp one
+# each): a forward walk 5 (two FMAs, a compare, a select), its residual 1,
+# a knee gain 12, a reverse walk step 7, a knee adjoint 20.
+KERNEL_WORK = {
+    "ballistics_gain_pair_core": (2, 10, 37),
+    "ballistics_gain_core": (2, 6, 17),
+    "ballistics_gain_pair_fwd": (4, 12, 39),
+    "ballistics_gain_pair_bwd": (5, 22, 86),
+    "ballistics_gain_fwd": (3, 7, 18),
+    "ballistics_gain_bwd": (4, 12, 40),
+    "ballistics_core": (2, 3, 5),
+    "ballistics_fwd": (3, 3, 6),
+    "ballistics_bwd": (3, 5, 7),
+    "reverse_scan": (3, 0, 2),
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -139,6 +185,36 @@ def device_ms(fn, reps):
 
 def max_err(got, ref):
     return (got - ref).abs().max().item()
+
+
+def bound(name, n, length):
+    """``(bound_ms, bound_by)`` of one call on ``(n, length)`` rows: the
+    larger of its bytes over the memory rate and its operations over the
+    float32 rate."""
+    arrays, per_row, ops = KERNEL_WORK[name]
+    bytes_ms = 1e3 * 4 * (arrays * n * length + per_row * n) / MEM_BYTES_PER_S
+    ops_ms = 1e3 * ops * n * length / F32_OPS_PER_S
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def read_launches(path, runs, stats, kernels, exact=None):
+    """Check the launch counts of ``runs`` runs of a path: every wrapper in
+    ``kernels`` launched (``exact``: so many times a run), every other
+    none.  A kernel's ``launches`` is the count of the first path that
+    runs it, its main path; ``per_run`` keeps every path's."""
+    launches = bal.launch_counts()
+    for name, count in launches.items():
+        if name in kernels:
+            check(count > 0, f"{name} was not launched on the {path} path")
+            if exact is not None:
+                check(count == runs * exact[name],
+                      f"{name} launched {count} times in {runs} runs of the {path} path,"
+                      f" not {exact[name]} a run")
+            stats[name].setdefault("launches", count)
+        else:
+            check(count == 0, f"{name} was launched on the {path} path")
+        stats[name]["per_run"][path] = count / runs
+    return launches
 
 
 class KernelCase:
@@ -203,20 +279,29 @@ def kernel_cases(gen, length=2**13):
 
 
 def console_cases(gen):
-    """The console's two calls: the 17 gate -> compressor composites at
-    batch 4 (68 rows; 11 of every 17 gates absent) and the two bus
-    compressors at batch 4 (8 rows), over 2^17 samples."""
+    """The gain kernels' calls at full width, over 2^17 samples, as
+    ``(case, path)``: the exact console's 17 gate -> compressor composites
+    at batch 4 (68 rows; 11 of every 17 gates absent) and its two bus
+    compressors (8 rows), whose times are the kernels' rows (``path``
+    None); and the factorized console's gate members (68 rows of the
+    one-pole gate from 0; an absent gate's gain is selected to 1 after
+    the kernel, so every row keeps its cf), an extra shape of #2/#5/#6."""
     n = BATCH * CHAINS
     absent = (torch.arange(n, device="cuda") % CHAINS) % 3 != 0
     u = energy(gen, n, AUDIO_LEN)
     c = gain_consts(gen, n, "noisegate", onepole=True, absent=absent) + gain_consts(gen, n, "compressor")
     gg = torch.randn(n, AUDIO_LEN, generator=gen, device="cuda")
     pair = KernelCase(True, u, c, ("noisegate", "compressor"), (0.0, 1.0), gg)
+    u3 = energy(gen, n, AUDIO_LEN)
+    c3 = [torch.zeros(n, device="cuda")] + gain_consts(gen, n, "noisegate", onepole=True)
+    gg3 = torch.randn(n, AUDIO_LEN, generator=gen, device="cuda")
+    gate = KernelCase(False, u3, c3, "noisegate", None, gg3)
     n = BATCH * 2
     u2 = energy(gen, n, AUDIO_LEN)
     c2 = [torch.ones(n, device="cuda")] + gain_consts(gen, n, "compressor")
     gg2 = torch.randn(n, AUDIO_LEN, generator=gen, device="cuda")
-    return [pair, KernelCase(False, u2, c2, "compressor", None, gg2)]
+    return [(pair, None), (KernelCase(False, u2, c2, "compressor", None, gg2), None),
+            (gate, "factorized gate member")]
 
 
 def grad_names(case):
@@ -225,17 +310,18 @@ def grad_names(case):
     return ["dzi", "dat", "drt", "dth", "dcf", "dhk"]
 
 
-def check_case(label, case, stats, absent=None, timed=False):
+def check_case(label, case, stats, absent=None, timed=False, path=None):
     """Hold the primal kernel, the forward and the adjoint against their
     plain versions.  With ``timed``, each plain version's one run is
-    timed, then each kernel over 5 runs after a warm-up."""
+    timed, then each kernel over 5 runs after a warm-up: the times of the
+    kernels' rows, or with ``path`` an extra shape of them on that path."""
     prim_name, fwd_name, bwd_name = case.names
+    plain_ms = {}
 
     def plain(name, fn):
         if not timed:
             return fn()
-        ms, out = device_ms(fn, reps=1)
-        stats[name]["plain_ms"] = ms
+        plain_ms[name], out = device_ms(fn, reps=1)
         return out
 
     prim, fwd = case.primal(), case.forward()
@@ -277,12 +363,19 @@ def check_case(label, case, stats, absent=None, timed=False):
     say("kernels", case=label, primal_err=f"{err:.3g}", fwd_err=f"{ferr:.3g}",
         du_err=f"{du_err:.3g}", du_scale=f"{du_scale:.3g}", grad_rel_err=f"{rel:.3g}")
     if timed:
+        shape = tuple(case.u.shape)
         for name, kern in ((prim_name, case.primal), (fwd_name, case.forward),
                            (bwd_name, lambda: case.backward(fwd))):
             kern()  # warm-up
-            stats[name]["ms"] = device_ms(kern, reps=5)[0]
-            say("kernels", kernel=name, shape=tuple(case.u.shape),
-                kernel_ms=f"{stats[name]['ms']:.3f}", plain_ms=f"{stats[name]['plain_ms']:.1f}")
+            ms = device_ms(kern, reps=5)[0]
+            if path is None:
+                stats[name].update(ms=ms, plain_ms=plain_ms[name], shape=shape)
+            else:
+                stats[name]["more"].append({"path": path, "shape": list(shape), "ms": ms,
+                                            "plain_ms": plain_ms[name],
+                                            "bound_ms": bound(name, *shape)[0]})
+            say("kernels", kernel=name, shape=shape, **({"path": repr(path)} if path else {}),
+                kernel_ms=f"{ms:.3f}", plain_ms=f"{plain_ms[name]:.1f}")
 
 
 def check_walk(label, u, zi, at, rt, stats, timed=False):
@@ -309,6 +402,7 @@ def check_walk(label, u, zi, at, rt, stats, timed=False):
     if timed:
         bal.ballistics_core(u, zi, at, rt)  # warm-up
         stats[name]["ms"] = device_ms(lambda: bal.ballistics_core(u, zi, at, rt), reps=5)[0]
+        stats[name]["shape"] = tuple(u.shape)
         say("kernels", kernel=name, shape=tuple(u.shape), kernel_ms=f"{stats[name]['ms']:.3f}",
             plain_ms=f"{stats[name]['plain_ms']:.1f}")
 
@@ -319,8 +413,118 @@ def walk_args(gen, n, length):
     return energy(gen, n, length), torch.rand(n, generator=gen, device="cuda"), at, rt
 
 
+def smoother_case(gen, n, length):
+    """(u, zi, at, rt, g, a) on the card for #8-#10: the walk's inputs, an
+    output cotangent and the reverse scan's coefficients in [0.1, 0.99)."""
+    g = torch.randn(n, length, generator=gen, device="cuda")
+    a = 0.1 + 0.89 * torch.rand(n, length, generator=gen, device="cuda")
+    return (*walk_args(gen, n, length), g, a)
+
+
+def smoother_calls(case):
+    """{name: (kernel call, plain call)} of #8, #9 (on #8's residual) and
+    #10."""
+    u, zi, at, rt, g, a = case
+    _, d = bal.ballistics_fwd(u, zi, at, rt)
+    return {
+        "ballistics_fwd": (lambda: bal.ballistics_fwd(u, zi, at, rt),
+                           lambda: bal.ballistics_fwd_plain(u, zi, at, rt)),
+        "ballistics_bwd": (lambda: bal.ballistics_bwd(d, g, at, rt),
+                           lambda: bal.ballistics_bwd_plain(d, g, at, rt)),
+        "reverse_scan": (lambda: bal.reverse_scan(a, g), lambda: bal.reverse_scan_plain(a, g)),
+    }
+
+
+def check_smoother(label, case, stats):
+    """Hold #8 (y, d), #9 (du; dzi, dat, drt) and #10 (gh) against their
+    plain versions on one case; #8's walk is #7's bit for bit."""
+    calls = smoother_calls(case)
+    got = {name: kern() for name, (kern, _) in calls.items()}
+    ref = {name: plain() for name, (_, plain) in calls.items()}
+    walk = bal.ballistics_core(*case[:4])
+    torch.cuda.synchronize()
+    y, d = got["ballistics_fwd"]
+    check(torch.equal(y, walk), f"ballistics_fwd {label}: y differs from ballistics_core's walk")
+    errs = {}
+    ferr = max(max_err(a, b) for a, b in zip(got["ballistics_fwd"], ref["ballistics_fwd"]))
+    check(ferr < MAX_ABS, f"ballistics_fwd {label}: y/d max abs err {ferr} >= {MAX_ABS}")
+    errs["ballistics_fwd"] = ferr
+    du, du_ref = got["ballistics_bwd"][0], ref["ballistics_bwd"][0]
+    du_err, du_scale = max_err(du, du_ref), du_ref.abs().max().item()
+    check(du_err <= DU_REL * du_scale, f"ballistics_bwd {label}: du err {du_err} > {DU_REL} x {du_scale}")
+    errs["ballistics_bwd"], rel = du_err, 0.0
+    for name, v, r in zip(("dzi", "dat", "drt"), got["ballistics_bwd"][1:], ref["ballistics_bwd"][1:]):
+        e, scale = max_err(v, r), r.abs().max().item()
+        check(e <= GRAD_REL * scale, f"ballistics_bwd {label} {name}: err {e} > {GRAD_REL} x {scale}")
+        errs["ballistics_bwd"] = max(errs["ballistics_bwd"], e)
+        rel = max(rel, e / scale if scale > 0 else 0.0)
+    gh, gh_ref = got["reverse_scan"], ref["reverse_scan"]
+    gh_err, gh_scale = max_err(gh, gh_ref), gh_ref.abs().max().item()
+    check(gh_err <= DU_REL * gh_scale, f"reverse_scan {label}: gh err {gh_err} > {DU_REL} x {gh_scale}")
+    errs["reverse_scan"] = gh_err
+    for name, e in errs.items():
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], e)
+    say("kernels", case=f"smoother {label}", fwd_err=f"{ferr:.3g}", du_err=f"{du_err:.3g}",
+        du_scale=f"{du_scale:.3g}", grad_rel_err=f"{rel:.3g}", gh_err=f"{gh_err:.3g}",
+        gh_scale=f"{gh_scale:.3g}")
+
+
+def time_smoother(case, stats, plain, main):
+    """Time #8-#10 on one case: each kernel over 5 calls after a warm-up
+    (and its busy device time under the profiler) and, with ``plain``,
+    each plain version's one call.  ``main``: the times of the kernel's
+    row, else an extra shape of it."""
+    shape = tuple(case[0].shape)
+    for name, (kern, ref) in smoother_calls(case).items():
+        kern()  # warm-up
+        ms = device_ms(kern, reps=5)[0]
+        busy = device_busy_ms(kern, reps=5)
+        plain_ms = device_ms(ref, reps=1)[0] if plain else None
+        bound_ms, bound_by = bound(name, *shape)
+        if main:
+            stats[name].update(ms=ms, plain_ms=plain_ms, shape=shape, device_busy_ms=busy)
+        else:
+            stats[name]["more"].append({"shape": list(shape), "ms": ms, "device_busy_ms": busy,
+                                        "plain_ms": plain_ms, "bound_ms": bound_ms})
+        say("kernels", kernel=name, shape=shape, kernel_ms=f"{ms:.4f}", device_busy_ms=f"{busy:.4f}",
+            plain_ms="not timed" if plain_ms is None else f"{plain_ms:.1f}",
+            bound_ms=f"{bound_ms:.3g}", bound_by=bound_by)
+
+
 def db(err, ref):
     return 20.0 * torch.log10(torch.linalg.norm(err) / torch.linalg.norm(ref)).item()
+
+
+def busy_ms(prof):
+    """``(ms, ops)``: the union of the profiled device ops' intervals and
+    their number."""
+    spans = sorted(
+        (e.time_range.start, e.time_range.end)
+        for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    )
+    check(spans, "the profiler recorded no device op")
+    busy_us, (start, end) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > end:
+            busy_us, start, end = busy_us + end - start, s, e
+        else:
+            end = max(end, e)
+    return (busy_us + end - start) / 1e3, len(spans)
+
+
+def device_busy_ms(fn, reps):
+    """Busy device ms per call of ``fn``, over ``reps`` calls under
+    torch.profiler: the card's own time for a call whose CUDA-event time
+    is the host's (a short call waits on its wrapper's Python)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return busy_ms(prof)[0] / reps
 
 
 def profile_run(fn, out_dir, name, card):
@@ -334,27 +538,15 @@ def profile_run(fn, out_dir, name, card):
         t0 = time.perf_counter()
         ms, _ = device_ms(fn, reps=1)
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    spans = sorted(
-        (e.time_range.start, e.time_range.end)
-        for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    )
-    check(spans, "the profiler recorded no device op")
-    busy_us, (start, end) = 0.0, spans[0]
-    for s, e in spans[1:]:
-        if s > end:
-            busy_us, start, end = busy_us + end - start, s, e
-        else:
-            end = max(end, e)
-    busy_ms = (busy_us + end - start) / 1e3
+    busy, ops = busy_ms(prof)
     os.makedirs(out_dir, exist_ok=True)
     table = os.path.join(out_dir, f"profile_{name}.txt")
     with open(table, "w") as f:
         f.write(f"{card}\n")
         f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60))
     say("profile", run=name, device_ms=f"{ms:.3f}", host_wall_ms=f"{wall_ms:.3f}",
-        device_busy_ms=f"{busy_ms:.3f}", device_ops=len(spans),
-        idle_share=f"{max(0.0, 1.0 - busy_ms / ms):.3f}", table=table, card=repr(card))
+        device_busy_ms=f"{busy:.3f}", device_ops=ops,
+        idle_share=f"{max(0.0, 1.0 - busy / ms):.3f}", table=table, card=repr(card))
 
 
 def stream_phase(args, smi, stats):
@@ -378,14 +570,8 @@ def stream_phase(args, smi, stats):
             block_ms.append(ms)
             check(y.shape == (1, 2, BLOCK_LEN), f"stream block shape {tuple(y.shape)}")
             outs.append(y)
-    launches = bal.launch_counts()
+    launches = read_launches("stream_block", len(x_blocks), stats, STREAM_KERNELS)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    for name, count in launches.items():
-        if name in STREAM_KERNELS:
-            check(count > 0, f"{name} was not launched on the stream path")
-            stats[name]["launches"] = count
-        else:
-            check(count == 0, f"{name} was launched on the stream path")
     streamed = torch.cat(outs, dim=-1)
     check(bool(torch.isfinite(streamed).all()), "non-finite streamed output")
     wall = statistics.median(wall_ms[1:])
@@ -409,11 +595,153 @@ def stream_phase(args, smi, stats):
             profile_run(lambda: streamer(x_blocks[-1], state), args.profile, "stream_block", smi)
 
 
+def train_steps(trainer, x, target, steps=3, nonzero=lambda leaf: True):
+    """``steps`` gradient steps, each timed by CUDA events; every trainable
+    leaf gets a finite gradient, nonzero where ``nonzero(leaf path)``,
+    every ``_absent`` mask stays frozen, and every other leaf moves or
+    each of its SGD steps was below float32 resolution.  Returns the
+    fields of the phase's line."""
+    leaves = tree_items(trainer.params)
+    start = {k: p.detach().clone() for k, p in leaves}
+    lr = trainer.optimizer.param_groups[0]["lr"]
+    largest_step = {k: torch.zeros_like(p) for k, p in leaves if p.requires_grad}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bal.reset_launch_counts()
+    step_ms, step_losses, zero_grad = [], [], set()
+    for _ in range(steps):
+        ms, (_, audio) = device_ms(lambda: trainer.step(x, target), reps=1)
+        step_ms.append(ms)
+        step_losses.append(audio.item())
+        for k, p in leaves:
+            if p.requires_grad:
+                check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+                      f"no finite gradient reached {k}")
+                if not bool((p.grad != 0).any()):
+                    check(not nonzero(k), f"no nonzero gradient reached {k}")
+                    zero_grad.add(k)
+                largest_step[k] = torch.maximum(largest_step[k], lr * p.grad.abs())
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    check(all(np.isfinite(step_losses)), f"non-finite losses {step_losses}")
+    moved, frozen, below_ulp = 0, 0, []
+    for k, p in leaves:
+        same = torch.equal(p.detach(), start[k])
+        if k.endswith("_absent"):
+            check(same and not p.requires_grad, f"the absent mask {k} changed or trains")
+            frozen += 1
+        elif not same:
+            moved += 1
+        else:
+            # a leaf may keep its value only where every SGD step was
+            # below float32 resolution (half an ulp, within 2x) of it
+            resolution = 0.5 * torch.finfo(torch.float32).eps * p.detach().abs()
+            check(bool((largest_step[k] <= resolution).all()),
+                  f"the trainable leaf {k} did not change, with steps above float32 resolution")
+            below_ulp.append(k)
+    return dict(steps=len(step_ms), step_ms=[round(t, 3) for t in step_ms],
+                warm_median_ms=f"{statistics.median(step_ms[1:]):.3f}", peak_mem_gib=f"{peak_gb:.2f}",
+                losses=[f"{v:.6f}" for v in step_losses], leaves_moved=moved,
+                leaves_below_float32_step=below_ulp, absent_unchanged=frozen,
+                **({"zero_gradient_leaves": sorted(zero_grad)} if zero_grad else {}))
+
+
+def grad_card_vs_cpu(phase, make_processors):
+    """The trainer's loss and every parameter gradient at batch 1, L =
+    2^14, on the card against the port's CPU path: loss and concatenated
+    gradient <= -60 dB, each nonzero leaf <= -40 dB, zero leaves zero."""
+    g = torch.Generator().manual_seed(4)
+    x = console_input((1, CHAINS, 2, 2**14), g, "cpu")
+    target = torch.randn(1, 1, 2, 2**14, generator=g)
+    losses, grads = {}, {}
+    for device in ("cuda", "cpu"):
+        tr = bench_trainer(CHAINS, seed=5, device=device, processors=make_processors())
+        total, audio = tr.loss(x.to(device), target.to(device))
+        total.backward()
+        losses[device] = audio.detach().cpu().double()
+        grads[device] = {k: torch.zeros(p.shape) if p.grad is None else p.grad.cpu()
+                         for k, p in tree_items(tr.params)}
+    loss_db = db(losses["cuda"] - losses["cpu"], losses["cpu"])
+    cat = {d: torch.cat([v.ravel() for v in grads[d].values()]) for d in grads}
+    grad_db = db(cat["cuda"] - cat["cpu"], cat["cpu"])
+    check(bool(torch.isfinite(cat["cuda"]).all()), f"{phase}: non-finite card gradient")
+    check(loss_db <= -60.0, f"{phase}: loss card vs CPU at {loss_db:.1f} dB > -60 dB")
+    check(grad_db <= -60.0, f"{phase}: gradient card vs CPU at {grad_db:.1f} dB > -60 dB")
+    worst, worst_leaf, zero_leaves = -1e9, None, 0
+    for k, ref in grads["cpu"].items():
+        got = grads["cuda"][k]
+        if bool((ref != 0).any()):
+            leaf_db = db(got - ref, ref)
+            check(leaf_db <= -40.0, f"{phase}: gradient of {k} card vs CPU at {leaf_db:.1f} dB > -40 dB")
+            if leaf_db > worst:
+                worst, worst_leaf = leaf_db, k
+        else:
+            check(bool((got == 0).all()), f"{phase}: gradient of {k} is zero on the CPU, not on the card")
+            zero_leaves += 1
+    say(phase, loss_db=f"{loss_db:.1f}", grad_db=f"{grad_db:.1f}",
+        worst_leaf_db=f"{worst:.1f}", worst_leaf=worst_leaf, zero_leaves=zero_leaves,
+        leaves=len(grads["cpu"]))
+
+
+def factorized_processors():
+    """The bench.py console's processors with the documented factorized
+    compressor in place of its compressors."""
+    return {**bench_processors(), "compressor": FactorizedCompressor(frame_len=FRAME_LEN)}
+
+
+def factorized_phase(args, smi, stats):
+    """Phase 10: serve the factorized console once and take three of its
+    gradient steps at full width, with the exact launch counts."""
+    console = bench_console(CHAINS, seed=0, device="cuda", processors=factorized_processors())
+    render = make_render_fn(console.fused_processors, console.plan)
+    x = torch.randn(BATCH, CHAINS, 2, AUDIO_LEN, generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda")
+    torch.cuda.synchronize()
+    bal.reset_launch_counts()
+    with torch.inference_mode():
+        ms, (y, _, _) = device_ms(lambda: render(x, console.params), reps=1)
+    check(y.shape == (BATCH, 1, 2, AUDIO_LEN), f"factorized output shape {tuple(y.shape)}")
+    check(bool(torch.isfinite(y).all()), "non-finite factorized output")
+    launches = read_launches("factorized_request", 1, stats, FACTORIZED_REQUEST, FACTORIZED_REQUEST)
+    say("factorized", run="request", frame_len=FRAME_LEN, request_ms=f"{ms:.3f}",
+        launches=launches, card=repr(smi))
+    del console, render, x, y
+
+    trainer = bench_trainer(CHAINS, seed=0, device="cuda", processors=factorized_processors())
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = console_input((BATCH, CHAINS, 2, AUDIO_LEN), g, "cuda")
+    target = torch.randn(BATCH, 1, 2, AUDIO_LEN, generator=g, device="cuda")
+    # the frame means smooth away the short dips that reach a knee, so a
+    # knee may get no gradient; every smoothing coefficient must (#6, #9)
+    fields = train_steps(trainer, x, target, nonzero=lambda leaf: leaf.endswith("z_alpha_pre"))
+    launches = read_launches("factorized_step", fields["steps"], stats, FACTORIZED_STEP,
+                             FACTORIZED_STEP)
+    say("factorized", run="train", **fields, launches=launches, card=repr(smi))
+    if args.profile:
+        profile_run(lambda: trainer.step(x, target), args.profile, "step_factorized", smi)
+
+
+def kernel_row(name, source, replaces, stats):
+    """The kernel's entry of the ``{"kernels": [...]}`` line."""
+    s = stats[name]
+    bound_ms, bound_by = bound(name, *s["shape"])
+    row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+           "launches": s.get("launches", 0), "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+           "plain_ms": s["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": None, "shape": list(s["shape"]), "launches_per_run": s["per_run"]}
+    if "device_busy_ms" in s:
+        row["device_busy_ms"] = s["device_busy_ms"]
+    if s["more"]:
+        row["more_shapes"] = s["more"]
+    if name in NO_PATH:
+        row["path"] = NO_PATH[name]
+    return row
+
+
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--profile", metavar="DIR",
-                        help="profile one more warm request, step and stream block; write their"
-                             " tables to DIR")
+                        help="profile one more warm request, step, stream block and factorized"
+                             " step; write their tables to DIR")
     args = parser.parse_args()
     t_start = time.perf_counter()
 
@@ -427,11 +755,15 @@ def main():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.split()[0])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
     say("device", name=repr(kind), count=torch.cuda.device_count(), torch=torch.__version__,
-        cuda=torch.version.cuda,
+        cuda=torch.version.cuda, max_sm_clock_mhz=clock_mhz,
         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
 
@@ -444,12 +776,13 @@ def main():
 
     # 3. kernels against their plain versions on the card
     gen = torch.Generator(device="cuda").manual_seed(0)
-    stats = {name: {"max_abs_err": 0.0} for name in KERNELS}
+    stats = {name: {"max_abs_err": 0.0, "per_run": {}, "more": []} for name in KERNELS}
     with torch.inference_mode():
         for label, case, absent in kernel_cases(gen):
             check_case(label, case, stats, absent)
-        for case in console_cases(gen):
-            check_case(f"console {tuple(case.u.shape)}", case, stats, timed=True)
+        for case, path in console_cases(gen):
+            check_case(f"console {tuple(case.u.shape)}" + (f" {path}" if path else ""), case,
+                       stats, timed=True, path=path)
         # #7 at the stream's row counts (17 chain and 2 bus compressors)
         # and more, at a block, a ragged block and a call shorter than its
         # 8-tile ring; timed at the stream's call
@@ -461,8 +794,22 @@ def main():
         big = walk_args(gen, BATCH * CHAINS, AUDIO_LEN)
         bal.ballistics_core(*big)  # warm-up
         big_ms = device_ms(lambda: bal.ballistics_core(*big), reps=5)[0]
+        stats["ballistics_core"]["more"].append(
+            {"shape": list(big[0].shape), "ms": big_ms, "plain_ms": None,
+             "bound_ms": bound("ballistics_core", *big[0].shape)[0]})
         say("kernels", kernel="ballistics_core", shape=tuple(big[0].shape), kernel_ms=f"{big_ms:.3f}")
         del big
+        # #8-#10 at small and ragged shapes (the frame calls' 128 included),
+        # then timed at the factorized console's frame calls (68 gate ->
+        # compressor chains and 8 bus compressors x 128 frames) and at 68 x 2^17
+        for n in (2, 8, 17, 68):
+            for length in (64, 128, 200, BLOCK_LEN, BLOCK_LEN + 13):
+                check_smoother(f"N={n} L={length}", smoother_case(gen, n, length), stats)
+        frames = AUDIO_LEN // FRAME_LEN
+        time_smoother(smoother_case(gen, BATCH * CHAINS, frames), stats, plain=True, main=True)
+        time_smoother(smoother_case(gen, BATCH * 2, frames), stats, plain=True, main=False)
+        time_smoother(smoother_case(gen, BATCH * CHAINS, AUDIO_LEN), stats, plain=False, main=False)
+    del case  # the last console case, so that it counts in no later phase's peak memory
 
     # 4. exactness of the exact IIR cascade on the card
     exact_db = exactness_check_db(device="cuda")
@@ -486,14 +833,8 @@ def main():
             check(y.shape == (BATCH, 1, 2, AUDIO_LEN), f"output shape {tuple(y.shape)}")
             check(bool(torch.isfinite(y).all()), "non-finite output")
             request_ms.append(ms)
-    launches = bal.launch_counts()
+    launches = read_launches("request", len(requests), stats, SERVE_KERNELS)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    for name, count in launches.items():
-        if name in SERVE_KERNELS:
-            check(count > 0, f"{name} was not launched on the serving path")
-            stats[name]["launches"] = count
-        else:
-            check(count == 0, f"{name} was launched on the serving path")
     say("serve", requests=len(request_ms), request_ms=[round(t, 3) for t in request_ms],
         median_ms=f"{statistics.median(request_ms):.3f}", peak_mem_gib=f"{peak_gb:.2f}",
         launches=launches, card=repr(smi))
@@ -507,88 +848,15 @@ def main():
     g = torch.Generator(device="cuda").manual_seed(7)
     x = console_input((BATCH, CHAINS, 2, AUDIO_LEN), g, "cuda")
     target = torch.randn(BATCH, 1, 2, AUDIO_LEN, generator=g, device="cuda")
-    leaves = tree_items(trainer.params)
-    start = {k: p.detach().clone() for k, p in leaves}
-    lr = trainer.optimizer.param_groups[0]["lr"]
-    largest_step = {k: torch.zeros_like(p) for k, p in leaves if p.requires_grad}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    bal.reset_launch_counts()
-    step_ms, step_losses = [], []
-    for _ in range(3):
-        ms, (_, audio) = device_ms(lambda: trainer.step(x, target), reps=1)
-        step_ms.append(ms)
-        step_losses.append(audio.item())
-        for k, p in leaves:
-            if p.requires_grad:
-                check(p.grad is not None and bool(torch.isfinite(p.grad).all())
-                      and bool((p.grad != 0).any()), f"no finite nonzero gradient reached {k}")
-                largest_step[k] = torch.maximum(largest_step[k], lr * p.grad.abs())
-    launches = bal.launch_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    check(all(np.isfinite(step_losses)), f"non-finite losses {step_losses}")
-    for name, count in launches.items():
-        if name in TRAIN_KERNELS:
-            check(count > 0, f"{name} was not launched on the training path")
-            stats[name]["launches"] = count
-        else:
-            check(count == 0, f"{name} (no-grad) was launched on the training path")
-    moved, frozen, below_ulp = 0, 0, []
-    for k, p in leaves:
-        same = torch.equal(p.detach(), start[k])
-        if k.endswith("_absent"):
-            check(same and not p.requires_grad, f"the absent mask {k} changed or trains")
-            frozen += 1
-        elif not same:
-            moved += 1
-        else:
-            # a leaf may keep its value only where every SGD step was
-            # below float32 resolution (half an ulp, within 2x) of it
-            resolution = 0.5 * torch.finfo(torch.float32).eps * p.detach().abs()
-            check(bool((largest_step[k] <= resolution).all()),
-                  f"the trainable leaf {k} did not change, with steps above float32 resolution")
-            below_ulp.append(k)
-    say("train", steps=len(step_ms), step_ms=[round(t, 3) for t in step_ms],
-        warm_median_ms=f"{statistics.median(step_ms[1:]):.3f}", peak_mem_gib=f"{peak_gb:.2f}",
-        losses=[f"{v:.6f}" for v in step_losses], leaves_moved=moved,
-        leaves_below_float32_step=below_ulp, absent_unchanged=frozen,
-        launches=launches, card=repr(smi))
+    fields = train_steps(trainer, x, target)
+    launches = read_launches("step", fields["steps"], stats, TRAIN_KERNELS)
+    say("train", **fields, launches=launches, card=repr(smi))
     if args.profile:
         profile_run(lambda: trainer.step(x, target), args.profile, "step", smi)
     del trainer, x, target
 
     # 7. the card's loss and gradients against the port's CPU path
-    g = torch.Generator().manual_seed(4)
-    x = console_input((1, CHAINS, 2, 2**14), g, "cpu")
-    target = torch.randn(1, 1, 2, 2**14, generator=g)
-    losses, grads = {}, {}
-    for device in ("cuda", "cpu"):
-        tr = bench_trainer(CHAINS, seed=5, device=device)
-        total, audio = tr.loss(x.to(device), target.to(device))
-        total.backward()
-        losses[device] = audio.detach().cpu().double()
-        grads[device] = {k: torch.zeros(p.shape) if p.grad is None else p.grad.cpu()
-                         for k, p in tree_items(tr.params)}
-    loss_db = db(losses["cuda"] - losses["cpu"], losses["cpu"])
-    cat = {d: torch.cat([v.ravel() for v in grads[d].values()]) for d in grads}
-    grad_db = db(cat["cuda"] - cat["cpu"], cat["cpu"])
-    check(bool(torch.isfinite(cat["cuda"]).all()), "non-finite card gradient")
-    check(loss_db <= -60.0, f"loss card vs CPU at {loss_db:.1f} dB > -60 dB")
-    check(grad_db <= -60.0, f"gradient card vs CPU at {grad_db:.1f} dB > -60 dB")
-    worst, worst_leaf, zero_leaves = -1e9, None, 0
-    for k, ref in grads["cpu"].items():
-        got = grads["cuda"][k]
-        if bool((ref != 0).any()):
-            leaf_db = db(got - ref, ref)
-            check(leaf_db <= -40.0, f"gradient of {k} card vs CPU at {leaf_db:.1f} dB > -40 dB")
-            if leaf_db > worst:
-                worst, worst_leaf = leaf_db, k
-        else:
-            check(bool((got == 0).all()), f"gradient of {k} is zero on the CPU, not on the card")
-            zero_leaves += 1
-    say("grad_card_vs_cpu", loss_db=f"{loss_db:.1f}", grad_db=f"{grad_db:.1f}",
-        worst_leaf_db=f"{worst:.1f}", worst_leaf=worst_leaf, zero_leaves=zero_leaves,
-        leaves=len(grads["cpu"]))
+    grad_card_vs_cpu("grad_card_vs_cpu", bench_processors)
 
     # 8. the served console, card against the port's CPU path
     x = torch.from_numpy(np.random.default_rng(4).standard_normal((1, CHAINS, 2, 2**14)).astype(np.float32))
@@ -605,11 +873,17 @@ def main():
     # 9. stream the full-width console block by block
     stream_phase(args, smi, stats)
 
+    # 10. serve and train the console with the factorized compressor
+    factorized_phase(args, smi, stats)
+
+    # 11. its step's loss and gradients, card against the port's CPU path
+    grad_card_vs_cpu("factorized_grad_card_vs_cpu", factorized_processors)
+
+    for name in KERNELS:
+        check(name in NO_PATH or "launches" in stats[name], f"{name} ran on no path")
     say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": stats[name]["launches"], "max_abs_err": stats[name]["max_abs_err"],
-         "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"]}
+        kernel_row(name, source, replaces, stats)
         for name, source, replaces in [(n, *v) for n, v in KERNELS.items()] + [LAYOUT_ROW]
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,19 +2,23 @@
 // (sm_90a).  Built with nvcc into a shared library with a plain C
 // interface and loaded through ctypes (grafx_tpu_torch/ops/_cuda.py).
 //
-// Replaces five Pallas TPU kernels of grafx_tpu/ops/ballistics_tpu.py:
+// Replaces six Pallas TPU kernels of grafx_tpu/ops/ballistics_tpu.py:
 //   * grafx_gain_fwd           <- _fwd_gain_only_kernel      (ballistics_tpu.py:587)
 //   * grafx_gain_pair_fwd      <- _fwd_gain_pair_only_kernel (ballistics_tpu.py:826)
 //   * grafx_gain_fwd_res       <- _fwd_gain_kernel           (ballistics_tpu.py:449)
 //   * grafx_gain_pair_fwd_res  <- _fwd_gain_pair_kernel      (ballistics_tpu.py:747)
-//   * grafx_ballistics_fwd     <- _kernel                    (ballistics_tpu.py:35)
+//   * grafx_ballistics_fwd     <- _kernel                    (ballistics_tpu.py:35),
+//                                 and with d set <- _fwd_d_kernel (ballistics_tpu.py:73)
 // and the natural-layout experiment of benchmarks/ballistics_layout_ab.py
 // (_kernel_nat, :36), which computes the same function as _kernel.
 // The *_res versions also write the residuals the adjoints
-// (ballistics_grad.cu) need: d[n] = x[n] - y[n-1] of each walk and its
-// final state y[L-1].  grafx_ballistics_fwd is the walk alone, from a
-// per-row initial state: the envelope smoother a streamed compressor
-// calls once per block, carrying y[L-1] into the next call.
+// (ballistics_grad.cu) need: d[n] = x[n] - y[n-1] of each walk and, for
+// the gains, its final state y[L-1].  grafx_ballistics_fwd is the walk
+// alone, from a per-row initial state: the envelope smoother a streamed
+// compressor calls once per block, carrying y[L-1] into the next call.
+// Given d, grafx_ballistics_fwd also writes the residual: the forward
+// of the plain smoother under gradient (a FactorizedCompressor walks its
+// 1024-sample frames with it: 128 frames, 4 tiles, per 2^17 samples).
 //
 // What is computed (per row, sequentially over time):
 //   y[n]  = (u[n] > y[n-1]) ? (1-at) y[n-1] + at u[n] : (1-rt) y[n-1] + rt u[n]
@@ -48,7 +52,12 @@
 // pass, well below what bounds the walk.  The plain walk
 // (grafx_ballistics_fwd) is walk_kernel alone; a streamed console calls
 // it on 17 and 2 rows x 4096 samples a block, 128 tiles on one warp each,
-// so there the cost of moving each tile and the launch set its time.
+// so there the cost of moving each tile and the launch set its time.  The
+// walk with residuals (grafx_ballistics_fwd given d) is walk_kernel<true>
+// alone: 12 B per sample against the same issue-bound tile walk, so it
+// costs what the gain forwards' walks cost; on a factorized compressor's
+// 4-tile frame sequences the 8-deep ring is primed with empty commit
+// groups and the launch sets the time.
 
 #include "ballistics.cuh"
 
@@ -62,7 +71,7 @@ constexpr int kKneeThreads = 256;
 // y = the ballistics walk over x from zi (or init where zi is null), with
 // per-row smoothing at, rt.  y may be x: tile k is read before it is
 // written, and the ring only reads ahead.  With RES, also d[n] = x[n] -
-// y[n-1] and last = y[L-1].
+// y[n-1] and, where last is not null, last = y[L-1].
 template <bool RES>
 __global__ void __launch_bounds__(kTile)
 walk_kernel(const float* x, float* y, float* __restrict__ d, float* __restrict__ last,
@@ -114,7 +123,7 @@ walk_kernel(const float* x, float* y, float* __restrict__ d, float* __restrict__
     if (k + kStages < tiles) fetch_tile(t, x, row0, rows, len, t0 + kStages * kTile, lane);
     __pipeline_commit();
   }
-  if (RES && live) last[row] = s;
+  if (RES && live && last != nullptr) last[row] = s;
 }
 
 // y = mul * knee(y) in place (mul may be null).  Where e is not null,
@@ -141,7 +150,7 @@ cudaError_t knee(int kind, float* y, const float* c, const float* mul,
   return cudaGetLastError();
 }
 
-// d and last both null: the primal walk; both set: with residuals.
+// d null: the primal walk; d set: with residuals (last may be null).
 cudaError_t walk(const float* x, float* y, float* d, float* last, const float* zi,
                  float init, const float* at, const float* rt, int n, long long len,
                  cudaStream_t s) {
@@ -193,15 +202,16 @@ int gain_pair_fwd(const float* u, float* gain, float* scratch, float* d_a, float
   return (int)knee(kind_b, gain, b + 2 * n, scratch, nullptr, nullptr, n, len, s);
 }
 
-// The plain walk: y from the per-row initial states zi.
-int ballistics_fwd(const float* u, float* y, const float* consts, int n, long long len,
-                   int device, void* stream) {
+// The plain walk: y from the per-row initial states zi; where d is not
+// null, also its residual d[n] = u[n] - y[n-1] (y[-1] = zi).
+int ballistics_fwd(const float* u, float* y, float* d, const float* consts, int n,
+                   long long len, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (bad_shape(n, len, 0)) return (int)cudaErrorInvalidValue;
   if (n <= 0 || len <= 0) return 0;
   const float* c = consts;
-  return (int)walk(u, y, nullptr, nullptr, c, 0.0f, c + n, c + 2 * n, n, len,
+  return (int)walk(u, y, d, nullptr, c, 0.0f, c + n, c + 2 * n, n, len,
                    static_cast<cudaStream_t>(stream));
 }
 
@@ -245,10 +255,10 @@ int grafx_gain_pair_fwd_res(const float* u, float* gain, float* scratch, float* 
                        kind_a, kind_b, init_a, init_b, device, stream);
 }
 
-// u and y (n, len); consts (3, n) with rows zi, at, rt.
-int grafx_ballistics_fwd(const float* u, float* y, const float* consts, int n,
+// u, y and d (n, len), d may be null; consts (3, n) with rows zi, at, rt.
+int grafx_ballistics_fwd(const float* u, float* y, float* d, const float* consts, int n,
                          long long len, int device, void* stream) {
-  return ballistics_fwd(u, y, consts, n, len, device, stream);
+  return ballistics_fwd(u, y, d, consts, n, len, device, stream);
 }
 
 }  // extern "C"

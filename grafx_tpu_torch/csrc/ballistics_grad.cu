@@ -1,10 +1,13 @@
-// Adjoints of the fused ballistics-smoother + quadratic-knee gain, for
-// Hopper (sm_90a).  Built with nvcc into a shared library with a plain C
-// interface and loaded through ctypes (grafx_tpu_torch/ops/_cuda.py).
+// Adjoints of the ballistics smoother, alone and fused with the
+// quadratic-knee gain, for Hopper (sm_90a).  Built with nvcc into a
+// shared library with a plain C interface and loaded through ctypes
+// (grafx_tpu_torch/ops/_cuda.py).
 //
-// Replaces two Pallas TPU kernels of grafx_tpu/ops/ballistics_tpu.py:
+// Replaces four Pallas TPU kernels of grafx_tpu/ops/ballistics_tpu.py:
 //   * grafx_gain_bwd       <- _bwd_gain_kernel       (ballistics_tpu.py:496)
 //   * grafx_gain_pair_bwd  <- _bwd_gain_pair_kernel  (ballistics_tpu.py:892)
+//   * grafx_ballistics_bwd <- _bwd_fused_kernel      (ballistics_tpu.py:111)
+//   * grafx_reverse_scan   <- _bwd_kernel            (ballistics_tpu.py:178)
 //
 // Inputs are the residuals of the forwards in ballistics_gain.cu: per
 // walk d[n] = x[n] - y[n-1] and the final state y[L-1].  The envelope is
@@ -37,6 +40,17 @@
 // each row's partials with a block tree.  Splitting the linear reverse
 // walk over time chunks (it is a linear recurrence, unlike the forward)
 // is the next step.
+//
+// The plain smoother's adjoint (grafx_ballistics_bwd) is rwalk_kernel fed
+// the raw output cotangent g, then reduce_kernel: exactly
+// _bwd_fused_kernel's du, dat, drt and dzi from the forward's residual d.
+// Its bytes are 12 per sample (d and g in, du out); like the gain
+// adjoints it is bound by the lone warp's tile issue, and on the 4-tile
+// frame sequences of a factorized compressor by its two launches.
+// grafx_reverse_scan is the general first-order reverse recurrence
+// gh[n] = g[n] + a[n] gh[n+1] (gh[L] = 0) with the coefficient at n itself,
+// not at n + 1 as the ballistics adjoint carries it: rscan_kernel, the
+// same ring staging tiles of a and g, one FMA a sample on the chain.
 
 #include "ballistics.cuh"
 
@@ -142,6 +156,54 @@ rwalk_kernel(const float* g, const float* __restrict__ d, float* out,
     __pipeline_commit();
   }
   if (dzi != nullptr && live) dzi[row] = omc * gh;
+}
+
+// gh[n] = g[n] + a[n] gh[n+1] over each row, from gh[L] = 0 (gh may be g).
+// The same ring as rwalk_kernel; samples past L are zeros, so the state
+// entering the last real sample is exactly 0.
+__global__ void __launch_bounds__(kTile)
+rscan_kernel(const float* a, const float* g, float* gh, int n, long long len) {
+  __shared__ Tile aring[kRStages];
+  __shared__ Tile gring[kRStages];
+  const int lane = threadIdx.x;
+  const int row0 = blockIdx.x * kTile;
+  const int rows = min(kTile, n - row0);
+  float s = 0.0f;
+
+  const long long tiles = (len + kTile - 1) / kTile;
+#pragma unroll
+  for (int k = 0; k < kRStages; ++k) {
+    if (k < tiles) {
+      const long long t0 = (tiles - 1 - k) * kTile;
+      fetch_tile(aring[k], a, row0, rows, len, t0, lane);
+      fetch_tile(gring[k], g, row0, rows, len, t0, lane);
+    }
+    __pipeline_commit();
+  }
+  for (long long k = 0; k < tiles; ++k) {
+    Tile& ta = aring[k % kRStages];
+    Tile& tg = gring[k % kRStages];
+    const long long tile = tiles - 1 - k;
+    const long long t0 = tile * kTile;
+    __pipeline_wait_prior(kRStages - 1);
+    __syncwarp();
+#pragma unroll
+    for (int j = kTile - 1; j >= 0; --j) {
+      s = fmaf(ta[lane][j], s, tg[lane][j]);
+      tg[lane][j] = s;
+    }
+    __syncwarp();
+    if (t0 + lane < len) {
+      for (int i = 0; i < rows; ++i) gh[(row0 + i) * len + t0 + lane] = tg[i][lane];
+    }
+    __syncwarp();
+    if (k + kRStages < tiles) {
+      const long long tn = (tile - kRStages) * kTile;
+      fetch_tile(ta, a, row0, rows, len, tn, lane);
+      fetch_tile(tg, g, row0, rows, len, tn, lane);
+    }
+    __pipeline_commit();
+  }
 }
 
 // Single member, elementwise: g = the envelope cotangent (into g), and the
@@ -363,6 +425,37 @@ int grafx_gain_pair_bwd(const float* u, const float* d_a, const float* d_b,
       du, dec, size);
   if ((err = cudaGetLastError())) return (int)err;
   return (int)reduce(partials, grads, 10, n, tiles, s);
+}
+
+// The plain smoother's adjoint.  d, g and du (n, len); consts (2, n) with
+// rows at, rt; grads (3, n), written with rows dzi, dat, drt; partials
+// (2, n, ceil(len / 32)) scratch.
+int grafx_ballistics_bwd(const float* d, const float* g, const float* consts, float* du,
+                         float* grads, float* partials, int n, long long len, int device,
+                         void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (bad_shape(n, len, 0)) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || len <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long tiles = (len + kTile - 1) / kTile;
+  const long long pn = (long long)n * tiles;
+  if ((err = rwalk(g, d, du, consts, consts + n, partials, partials + pn, grads, n, len, s))) {
+    return (int)err;
+  }
+  return (int)reduce(partials, grads + n, 2, n, tiles, s);
+}
+
+// gh[n] = g[n] + a[n] gh[n+1], gh[L] = 0; a, g and gh (n, len).
+int grafx_reverse_scan(const float* a, const float* g, float* gh, int n, long long len,
+                       int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (bad_shape(n, len, 0)) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || len <= 0) return 0;
+  rscan_kernel<<<(n + kTile - 1) / kTile, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, g, gh, n, len);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,11 +1,16 @@
 """The ~100-node mixing console of ``bench.py``, ready to serve
-(:func:`bench_console`) and to train (:func:`bench_trainer`).
+(:func:`bench_console`) and to train (:func:`bench_trainer`), on the
+card unless ``device="cpu"`` is asked for.
 
 ``bench.py`` imports JAX, so its graph and processors are copied here
 (``bench.py:53-95,122-130``).  The serving parameters are made on the
 UNFUSED graph and migrated with :func:`fuse_parameters`, so the chains
 that have no gate keep their padded gate absent (``bench.py`` draws its
 parameters on the fused graph, which makes every padded gate present).
+Both entry points take another processor set of the same types; the
+documented swap is ``{**bench_processors(), "compressor":
+FactorizedCompressor(frame_len=1024)}`` (BASELINE.md, "documented fast
+path").
 """
 
 from dataclasses import dataclass
@@ -30,7 +35,7 @@ from grafx_tpu_torch.render import (
     prepare_render,
     reorder_for_fast_render,
 )
-from grafx_tpu_torch.utils import create_empty_parameters, tree_to
+from grafx_tpu_torch.utils import check_device, create_empty_parameters, tree_to
 
 
 def bench_graph(num_chains=17):
@@ -105,16 +110,17 @@ class Console:
     num_chains: int
 
 
-def bench_trainer(num_chains=17, seed=0, device="cpu"):
+def bench_trainer(num_chains=17, seed=0, device="cuda", processors=None):
     """The gradient step ``bench.py`` times (``bench.py:188-197``) as a
     :class:`GraphParameterOptimizer`: the console fused with
     ``"pad-auto"``, MSE loss, SGD with lr 1e-3, and parameters drawn from
     ``seed`` on the unfused graph and migrated (so the padded gates stay
-    absent, and frozen).  ``bench_trainer(c, s).params`` equal
+    absent, and frozen).  ``processors`` defaults to
+    :func:`bench_processors`.  ``bench_trainer(c, s).params`` equal
     ``bench_console(c, s).params``."""
     return GraphParameterOptimizer(
         bench_graph(num_chains),
-        bench_processors(),
+        bench_processors() if processors is None else processors,
         loss_fn=mse_loss,
         optimizer=lambda params: torch.optim.SGD(params, lr=1e-3),
         generator=torch.Generator().manual_seed(seed),
@@ -123,13 +129,15 @@ def bench_trainer(num_chains=17, seed=0, device="cpu"):
     )
 
 
-def bench_console(num_chains=17, seed=0, device="cpu"):
+def bench_console(num_chains=17, seed=0, device="cuda", processors=None):
     """Build the ``bench.py`` console, fused as ``bench.py`` fuses it
     (``kinds=("fir", "iir", "dynamics")``, ``dynamics_pad="auto"``), with
     random serving parameters drawn from ``seed`` by
-    ``create_empty_parameters`` and everything on ``device``."""
+    ``create_empty_parameters`` and everything on ``device``.
+    ``processors`` defaults to :func:`bench_processors`."""
+    device = check_device(device)
     G = bench_graph(num_chains)
-    processors = bench_processors()
+    processors = bench_processors() if processors is None else processors
     G_fused, processors_fused = fuse_serial_lti(
         G, processors, kinds=("fir", "iir", "dynamics"), dynamics_pad="auto"
     )

@@ -21,7 +21,7 @@ from grafx_tpu_torch.render import (
     prepare_render,
     reorder_for_fast_render,
 )
-from grafx_tpu_torch.utils import create_empty_parameters, tree_leaves, tree_map
+from grafx_tpu_torch.utils import check_device, create_empty_parameters, tree_leaves, tree_map
 
 
 def _adam(params):
@@ -57,7 +57,9 @@ class GraphParameterOptimizer:
             :func:`~grafx_tpu_torch.render.fuse_parameters`, so padded
             members start absent with zero rows (drawing them on the fused
             graph would make every padded member present and train it).
-        device: where the parameters, the processors and the step live.
+        device: where the parameters, the processors and the step live
+            (default the card; ``"cpu"`` must be asked for, and ``"cuda"``
+            without a card raises).
     """
 
     def __init__(
@@ -71,8 +73,9 @@ class GraphParameterOptimizer:
         method="beam",
         generator=None,
         fuse=False,
-        device="cpu",
+        device="cuda",
     ):
+        device = check_device(device)
         G_unfused = processors_unfused = None
         if fuse:
             G_unfused, processors_unfused = G, processors

@@ -41,8 +41,8 @@ _SOURCES = {
         "grafx_gain_pair_fwd": [_p] * 4 + [_i, _ll, _i, _i, _f, _f, _i, _p],
         # u, gain, scratch, d_a, d_b, v_last, u_last, consts, then as above
         "grafx_gain_pair_fwd_res": [_p] * 8 + [_i, _ll, _i, _i, _f, _f, _i, _p],
-        # u, y, consts, n, len, device, stream
-        "grafx_ballistics_fwd": [_p, _p, _p, _i, _ll, _i, _p],
+        # u, y, d (null: no residual), consts, n, len, device, stream
+        "grafx_ballistics_fwd": [_p] * 4 + [_i, _ll, _i, _p],
     },
     "ballistics_grad.cu": {
         # u, d, ylast, gg, consts, du, grads, partials, n, len, kind, device, stream
@@ -50,6 +50,10 @@ _SOURCES = {
         # u, d_a, d_b, lasts, gg, consts, du, scratch, grads, partials, n, len,
         # kind_a, kind_b, device, stream
         "grafx_gain_pair_bwd": [_p] * 10 + [_i, _ll, _i, _i, _i, _p],
+        # d, g, consts, du, grads, partials, n, len, device, stream
+        "grafx_ballistics_bwd": [_p] * 6 + [_i, _ll, _i, _p],
+        # a, g, gh, n, len, device, stream
+        "grafx_reverse_scan": [_p] * 3 + [_i, _ll, _i, _p],
     },
 }
 

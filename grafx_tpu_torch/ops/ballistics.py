@@ -1,10 +1,10 @@
 """Ballistics smoothing, alone and fused with a quadratic-knee gain.
 
-The port of :func:`grafx_tpu.ops.ballistics.ballistics_core` (forward
-only), :func:`~grafx_tpu.ops.ballistics.ballistics_gain_core` and
+The port of :func:`grafx_tpu.ops.ballistics.ballistics_core`,
+:func:`~grafx_tpu.ops.ballistics.ballistics_gain_core` and
 :func:`~grafx_tpu.ops.ballistics.ballistics_gain_pair_core` with their
-``custom_vjp``s.  Seven kernels, each with two implementations of one
-contract:
+``custom_vjp``s, and of the reverse scan ``reverse_scan_pallas``.  Ten
+kernels, each with two implementations of one contract:
 
 * a plain PyTorch version (``*_plain``): loops over time, vectorized
   over rows.  The wrapper uses it for CPU tensors; it is also the
@@ -26,15 +26,17 @@ wrapper                                replaces (grafx_tpu/ops/ballistics_tpu.py
 :func:`ballistics_gain_fwd`            ``_fwd_gain_kernel``
 :func:`ballistics_gain_bwd`            ``_bwd_gain_kernel``
 :func:`ballistics_core`                ``_kernel`` (no grad)
+:func:`ballistics_fwd`                 ``_fwd_d_kernel``
+:func:`ballistics_bwd`                 ``_bwd_fused_kernel``
+:func:`reverse_scan`                   ``_bwd_kernel``
 =====================================  ==================================
 
-The two gain cores dispatch as the JAX ones do: with grad enabled and
-any input requiring grad they run a ``torch.autograd.Function`` whose
-forward saves the JAX residuals (``d = u - y[n-1]`` and the final state)
-and whose backward is the adjoint kernel; otherwise the primal-only
-kernel.  :func:`ballistics_core` has no gradient yet: its adjoint needs
-``_fwd_d_kernel`` and ``_bwd_fused_kernel``, and it raises rather than
-let autograd run through the plain loop on the CPU only.
+The three cores dispatch as the JAX ones do: with grad enabled and any
+input requiring grad they run a ``torch.autograd.Function`` whose
+forward saves the JAX residuals (``d = u - y[n-1]``, and for the gains
+the final state) and whose backward is the adjoint kernel; otherwise
+the primal-only kernel.  :func:`reverse_scan` has no caller in the
+package, as ``reverse_scan_pallas`` has none in ``grafx_tpu``.
 
 The recursion, with per-row smoothing factors ``at`` (attack) and ``rt``
 (release), is the select form
@@ -180,6 +182,28 @@ def _knee_adjoint(base, y, x, f, fp, cf, hk, kind):
 def ballistics_plain(u, zi, at, rt):
     """Plain version of :func:`ballistics_core` (any device)."""
     return _walk(u, zi, at, rt)
+
+
+def ballistics_fwd_plain(u, zi, at, rt):
+    """Plain version of :func:`ballistics_fwd` (any device)."""
+    y = _walk(u, zi, at, rt)
+    return y, _residual(u, y, zi)
+
+
+def ballistics_bwd_plain(d, g, at, rt):
+    """Plain version of :func:`ballistics_bwd` (any device)."""
+    du, dat, drt, dzi = _reverse_walk(g, d, at, rt)
+    return du, dzi, dat, drt
+
+
+def reverse_scan_plain(a, g):
+    """Plain version of :func:`reverse_scan` (any device)."""
+    gh = torch.empty_like(g)
+    st = torch.zeros_like(g[:, 0])
+    for n in range(g.shape[1] - 1, -1, -1):
+        st = torch.addcmul(g[:, n], a[:, n], st)
+        gh[:, n] = st
+    return gh
 
 
 def ballistics_gain_plain(u, zi, at, rt, th, cf, hk, kind="compressor"):
@@ -490,13 +514,13 @@ def ballistics_gain_pair_bwd(
 
 
 def ballistics_core(u, zi, at, rt):
-    """The attack/release smoother alone, from per-row initial states
-    (replaces ``_kernel``).  Streaming carries ``y[:, -1]`` into the next
-    call's ``zi``; split calls equal one call bit for bit.
+    """The attack/release smoother alone, from per-row initial states.
+    Streaming carries ``y[:, -1]`` into the next call's ``zi``; split
+    calls equal one call bit for bit.
 
-    Forward only: with grad enabled and an input that requires grad it
-    raises, until the adjoint kernels ``_fwd_d_kernel`` and
-    ``_bwd_fused_kernel`` are ported behind an ``autograd.Function``.
+    Differentiable in every argument.  Without grad it launches the
+    primal walk (replaces ``_kernel``); with grad it runs
+    :func:`ballistics_fwd` and, backward, :func:`ballistics_bwd`.
 
     Args:
         u: ``(N, L)`` input envelopes.
@@ -505,22 +529,82 @@ def ballistics_core(u, zi, at, rt):
     Returns:
         ``(N, L)`` smoothed envelopes.
     """
-    name = "ballistics_core"
     if torch.is_grad_enabled() and any(a.requires_grad for a in (u, zi, at, rt)):
-        raise NotImplementedError(
-            f"{name}: no gradient yet; it needs the ballistics adjoint kernels"
-            " (_fwd_d_kernel, _bwd_fused_kernel of grafx_tpu/ops/ballistics_tpu.py),"
-            " which are not ported (ROADMAP.md, queue 2 #8/#9)."
-        )
+        return _Ballistics.apply(u, zi, at, rt)
+    name = "ballistics_core"
     if _device(u, name) == "cpu":
         return ballistics_plain(u, zi, at, rt)
     (u,) = _rows(name, u)
     consts = _consts(name, u, zi, at, rt)
     y = torch.empty_like(u)
-    _run(name, "grafx_ballistics_fwd", u, u.data_ptr(), y.data_ptr(), consts.data_ptr(),
-         u.shape[0], u.shape[1])
+    _run(name, "grafx_ballistics_fwd", u, u.data_ptr(), y.data_ptr(), None,
+         consts.data_ptr(), u.shape[0], u.shape[1])
     ballistics_core.launches += 1
     return y
+
+
+def ballistics_fwd(u, zi, at, rt):
+    """The walk plus the adjoint's residual (replaces ``_fwd_d_kernel``).
+
+    Returns:
+        ``(y, d)``: ``(N, L)`` smoothed envelopes and ``d = u - y[n-1]``
+        (``y[-1] = zi``), which holds the attack/release decisions
+        (``d > 0``) and the factor of the coefficients' gradients.
+    """
+    name = "ballistics_fwd"
+    if _device(u, name) == "cpu":
+        return ballistics_fwd_plain(u, zi, at, rt)
+    (u,) = _rows(name, u)
+    consts = _consts(name, u, zi, at, rt)
+    y, d = torch.empty_like(u), torch.empty_like(u)
+    _run(name, "grafx_ballistics_fwd", u, u.data_ptr(), y.data_ptr(), d.data_ptr(),
+         consts.data_ptr(), u.shape[0], u.shape[1])
+    ballistics_fwd.launches += 1
+    return y, d
+
+
+def ballistics_bwd(d, g, at, rt):
+    """Adjoint of :func:`ballistics_fwd` for the output cotangent ``g``
+    (replaces ``_bwd_fused_kernel``): with ``c = at`` where ``d > 0``
+    else ``rt`` and ``gh[n] = g[n] + (1 - c[n+1]) gh[n+1]``,
+    ``du = c gh``, ``dat`` / ``drt`` the sums of ``d gh`` over attack /
+    release samples and ``dzi = (1 - c[0]) gh[0]``.
+
+    Returns:
+        ``(du, dzi, dat, drt)``: ``du`` ``(N, L)``, the rest ``(N,)``.
+    """
+    name = "ballistics_bwd"
+    if _device(d, name) == "cpu":
+        return ballistics_bwd_plain(d, g, at, rt)
+    d, g = _rows(name, d, g)
+    consts = _consts(name, d, at, rt)
+    n = d.shape[0]
+    du = torch.empty_like(d)
+    grads = d.new_empty(3, n)
+    partials = d.new_empty(2, n, _tiles(d))
+    _run(name, "grafx_ballistics_bwd", d, d.data_ptr(), g.data_ptr(), consts.data_ptr(),
+         du.data_ptr(), grads.data_ptr(), partials.data_ptr(), n, d.shape[1])
+    ballistics_bwd.launches += 1
+    return (du, *grads.unbind(0))
+
+
+def reverse_scan(a, g):
+    """The first-order reverse recurrence ``gh[n] = g[n] + a[n] gh[n+1]``
+    with ``gh[L] = 0`` over ``(N, L)`` rows (replaces ``_bwd_kernel``, the
+    kernel of ``grafx_tpu.ops.ballistics_tpu.reverse_scan_pallas``).
+
+    Returns:
+        ``(N, L)`` ``gh``.
+    """
+    name = "reverse_scan"
+    if _device(a, name) == "cpu":
+        return reverse_scan_plain(a, g)
+    a, g = _rows(name, a, g)
+    gh = torch.empty_like(g)
+    _run(name, "grafx_reverse_scan", a, a.data_ptr(), g.data_ptr(), gh.data_ptr(),
+         a.shape[0], a.shape[1])
+    reverse_scan.launches += 1
+    return gh
 
 
 KERNEL_WRAPPERS = (
@@ -531,6 +615,9 @@ KERNEL_WRAPPERS = (
     ballistics_gain_fwd,
     ballistics_gain_bwd,
     ballistics_core,
+    ballistics_fwd,
+    ballistics_bwd,
+    reverse_scan,
 )
 for _w in KERNEL_WRAPPERS:
     _w.launches = 0
@@ -593,3 +680,21 @@ class _GainPair(torch.autograd.Function):
             u, d_a, d_b, v_last, u_last, gg, *consts, kinds=ctx.kinds
         )
         return (*grads, None, None)
+
+
+class _Ballistics(torch.autograd.Function):
+    """:func:`ballistics_core` with the ``custom_vjp`` of
+    ``grafx_tpu.ops.ballistics.ballistics_core``: the forward saves only
+    ``d`` (with ``at`` and ``rt``), neither ``u`` nor ``y``."""
+
+    @staticmethod
+    def forward(ctx, u, zi, at, rt):
+        y, d = ballistics_fwd(u, zi, at, rt)
+        ctx.save_for_backward(d, at, rt)
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        d, at, rt = ctx.saved_tensors
+        return ballistics_bwd(d, g, at, rt)

@@ -1,6 +1,15 @@
-"""Audio processors of the serving slice (``nn.Module``s on tensors)."""
+"""Audio processors of the ported slices (``nn.Module``s on tensors)."""
 
-from grafx_tpu_torch.processors.dynamics import Compressor, NoiseGate
+from grafx_tpu_torch.processors.dynamics import (
+    ApproxCompressor,
+    ApproxNoiseGate,
+    BallisticsEnvelopeFollower,
+    BaseEnvelopeFollower,
+    Compressor,
+    FactorizedCompressor,
+    IIREnvelopeFollower,
+    NoiseGate,
+)
 from grafx_tpu_torch.processors.eq import GraphicEqualizer, ParametricEqualizer
 from grafx_tpu_torch.processors.filter import (
     BaseParametricEqualizerFilter,
@@ -13,10 +22,16 @@ from grafx_tpu_torch.processors.reverb import STFTMaskedNoiseReverb
 from grafx_tpu_torch.processors.stereo import StereoGain
 
 __all__ = [
+    "ApproxCompressor",
+    "ApproxNoiseGate",
+    "BallisticsEnvelopeFollower",
+    "BaseEnvelopeFollower",
     "BaseParametricEqualizerFilter",
     "Compressor",
+    "FactorizedCompressor",
     "GraphicEqualizer",
     "HighShelf",
+    "IIREnvelopeFollower",
     "LowShelf",
     "NoiseGate",
     "ParametricEqualizer",

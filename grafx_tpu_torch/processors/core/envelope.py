@@ -1,16 +1,16 @@
 """Envelope smoothers: truncated one-pole IIR and attack/release ballistics.
 
 The port of :mod:`grafx_tpu.processors.core.envelope`.  Both smoothers run
-forward and stream block by block (``stream_zero_state`` / ``stream``):
-the ballistics recursion through
-:func:`grafx_tpu_torch.ops.ballistics.ballistics_core` (a CUDA kernel on
-the card, its plain version on the CPU), the one-pole through the exact
+forward, differentiate and stream block by block (``stream_zero_state``
+/ ``stream``): the ballistics recursion through
+:func:`grafx_tpu_torch.ops.ballistics.ballistics_core` (CUDA kernels on
+the card, their plain versions on the CPU; under autograd the walk with
+residuals and its adjoint kernel), the one-pole through the exact
 blocked :func:`~grafx_tpu_torch.ops.iir.onepole_exact` or the truncated
-impulse response.  Only the gradient of the stand-alone ballistics
-recursion is missing: it waits for the adjoint kernels (ROADMAP.md,
-queue 2 #8/#9).  On the serving and training paths the compressor and
-gate gains run as the fused smoother + knee kernels instead (see
-``Compressor.gain_from_energy`` and ``render.fuse.FusedDynamicsChain``).
+impulse response.  Where a compressor or gate can, its gain runs as the
+fused smoother + knee kernels instead (see
+``Compressor.gain_from_energy`` and ``render.fuse.FusedDynamicsChain``);
+a ``FactorizedCompressor`` smooths its frames with :class:`Ballistics`.
 """
 
 import torch

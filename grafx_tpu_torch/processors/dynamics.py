@@ -1,6 +1,6 @@
-"""Compressor and noise gate (the port of :class:`grafx_tpu.processors.
-dynamics.Compressor` and :class:`~grafx_tpu.processors.dynamics.NoiseGate`;
-reference: src/grafx/processors/dynamics.py:213-721).
+"""Dynamics processors: compressors, noise gates and envelope followers
+(the port of :mod:`grafx_tpu.processors.dynamics`; reference:
+src/grafx/processors/dynamics.py:8-784).
 
 With a quadratic knee, no gain smoother and a ballistics or exact
 one-pole energy smoother, the gain runs as one fused smoother + knee op
@@ -9,8 +9,10 @@ kernel on the card, its plain version on the CPU.  A one-pole smoother
 is the ``at == rt == 1 - alpha`` case of that recursion with initial
 state 0, and its trailing relu is a no-op on nonnegative energy.  Other
 configurations compose the smoother (:mod:`~grafx_tpu_torch.processors.
-core.envelope`) with the knee math; of those, only a ballistics smoother
-under gradient still raises (its adjoint kernels are not ported).
+core.envelope`) with the knee math, forward and under gradient; so does
+:class:`FactorizedCompressor`, whose frame smoother runs the plain
+ballistics walk (:func:`~grafx_tpu_torch.ops.ballistics.ballistics_core`)
+over frame means.
 
 Streaming (``stream_init`` / ``stream_step``) always composes, as
 ``grafx_tpu`` does: the fused kernels do not return the final envelope a
@@ -275,3 +277,165 @@ class NoiseGate(Compressor):
         one_minus_ratio = -torch.exp(log_ratio)
         knee = torch.exp(log_knee)
         return one_minus_ratio * F.softplus(knee * (log_threshold - log_energy)) / knee
+
+
+class _FrameSmoother(nn.Module):
+    """The envelope smoother of :class:`FactorizedCompressor`: the energy
+    is mean-pooled into frames of ``frame_len`` (the last one zero-padded
+    on the right), smoothed by :class:`Ballistics` from ``zi = 1``, and
+    interpolated back to the sample rate.  Sample ``j`` of a frame sits
+    between two frame centres, so the upsampling is a lerp between the
+    previous / current / next frame values with a fixed weight pattern
+    per offset, flat at the edges, and no gather."""
+
+    def __init__(self, frame_len):
+        super().__init__()
+        self.frame_len = frame_len
+        self.ballistics = Ballistics()
+
+    def forward(self, energy, z_alpha):
+        batch, length = energy.shape
+        frame = self.frame_len
+        e = F.pad(energy, (0, -length % frame))
+        s = self.ballistics(e.reshape(batch, -1, frame).mean(-1), z_alpha=z_alpha)
+        s_prev = torch.cat([s[:, :1], s[:, :-1]], dim=1)
+        s_next = torch.cat([s[:, 1:], s[:, -1:]], dim=1)
+        w = (torch.arange(frame, dtype=s.dtype, device=s.device) + 0.5) / frame
+        first = w < 0.5
+        frac = torch.where(first, w + 0.5, w - 0.5)
+        a = torch.where(first, s_prev[..., None], s[..., None])
+        b = torch.where(first, s[..., None], s_next[..., None])
+        up = a * (1.0 - frac) + b * frac  # (batch, frames, frame)
+        return up.reshape(batch, -1)[:, :length]
+
+
+class FactorizedCompressor(Compressor):
+    """Compressor with frame-factorized ballistics smoothing
+    (:class:`grafx_tpu.processors.dynamics.FactorizedCompressor`; the
+    reference ships a constructor-only stub, dynamics.py:724-739).
+
+    The attack/release recursion runs over the ``ceil(L / frame_len)``
+    frame means instead of the ``L`` samples, and the smoothed envelope is
+    interpolated back to the sample rate: a small envelope lag for a
+    ``frame_len``-times shorter serial walk.  Its smoother is not a
+    per-sample walk, so the gain never takes the fused smoother + knee op
+    (``fused_recursion`` is ``None``); it has no compact stream state.
+    Its parameters are the ballistics :class:`Compressor`'s.
+    """
+
+    def __init__(self, frame_len=1024, gain_smoother=None, gain_smooth_in_log=False,
+                 knee="quadratic", iir_len=16384):
+        super().__init__(
+            energy_smoother="ballistics",
+            gain_smoother=gain_smoother,
+            gain_smooth_in_log=gain_smooth_in_log,
+            knee=knee,
+            iir_len=iir_len,
+        )
+        self.frame_len = frame_len
+        self.energy_smoother_module = _FrameSmoother(frame_len)
+
+    def stream_init(self, num_channels, block_len, **params):
+        raise NotImplementedError(
+            "FactorizedCompressor has no compact per-sample state"
+            " (frame-factorized smoothing); stream with"
+            " Compressor(energy_smoother='ballistics') instead."
+        )
+
+
+class ApproxCompressor(nn.Module):
+    """Deprecated v0.5 compressor: IIR envelope + quadratic knee
+    (reference: dynamics.py:8-120)."""
+
+    def __init__(self, iir_len=16384):
+        super().__init__()
+        self.env_follower = IIREnvelopeFollower(iir_len=iir_len)
+
+    def forward(self, input_signals, z_alpha, log_threshold, log_ratio, log_knee=None):
+        log_energy = self.env_follower(input_signals, z_alpha)
+        log_gain = Compressor.gain_quad_knee(log_energy, log_threshold - 6.0, log_ratio, log_knee)
+        return torch.exp(log_gain)[:, None, :] * input_signals
+
+    def parameter_size(self):
+        return {"z_alpha": 1, "log_threshold": 1, "log_ratio": 1, "log_knee": 1}
+
+
+class ApproxNoiseGate(nn.Module):
+    """Deprecated v0.5 noise gate (reference: dynamics.py:123-210)."""
+
+    def __init__(self, freq_sample_n=16384):
+        super().__init__()
+        self.env_follower = IIREnvelopeFollower(iir_len=freq_sample_n)
+
+    def forward(self, input_signals, z_alpha, log_threshold, log_ratio, log_knee):
+        log_energy = self.env_follower(input_signals, z_alpha)
+        return self.compute_gain(log_energy, log_threshold - 6.0, log_ratio, log_knee) * input_signals
+
+    @staticmethod
+    def compute_gain(log_energy, log_threshold, log_ratio, log_knee):
+        ratio = torch.exp(log_ratio)
+        knee = torch.exp(log_knee)
+        below = ratio * (log_energy - log_threshold) + log_threshold
+        above = log_energy
+        middle = log_energy + (1.0 - ratio) * torch.square(
+            log_energy - log_threshold - knee / 2.0
+        ) / 2.0 / (knee + 1e-3)
+        out = torch.where(
+            log_energy < log_threshold - knee / 2.0,
+            below,
+            torch.where(log_energy > log_threshold + knee / 2.0, above, middle),
+        )
+        return torch.exp(out - log_energy)[:, None, :]
+
+    def parameter_size(self):
+        return {"z_alpha": 1, "log_threshold": 1, "log_ratio": 1, "log_knee": 1}
+
+
+class BaseEnvelopeFollower(nn.Module):
+    """Loudness detect (energy / amplitude / rms) -> smooth -> log
+    (reference: dynamics.py:742-770)."""
+
+    def __init__(self, smoother, detect_with="energy"):
+        super().__init__()
+        self.detect_with = detect_with
+        self.smoother = smoother
+        self.eps = 1e-7
+
+    def forward(self, signal, *args, **kwargs):
+        match self.detect_with:
+            case "energy":
+                loudness = torch.mean(torch.square(signal), dim=-2)
+            case "amplitude":
+                loudness = torch.mean(torch.abs(signal), dim=-2)
+            case "rms_channel":
+                loudness = torch.sqrt(self.eps + torch.mean(torch.square(signal), dim=-2))
+            case _:
+                raise ValueError(f"Unknown detect_with: {self.detect_with}")
+        return torch.log(self.smoother(loudness, *args, **kwargs) + 1e-5)
+
+    def parameter_size(self):
+        # one coefficient for the one-pole smoother, two for ballistics (as
+        # grafx_tpu resolves the reference's missing smoother method)
+        return {"z_alpha": 2 if isinstance(self.smoother, Ballistics) else 1}
+
+
+class IIREnvelopeFollower(BaseEnvelopeFollower):
+    """Envelope follower with truncated one-pole smoothing
+    (reference: dynamics.py:773-779)."""
+
+    def __init__(self, detect_with="energy", iir_len=16384):
+        super().__init__(TruncatedOnePoleIIRFilter(iir_len=iir_len), detect_with=detect_with)
+
+    def forward(self, signal, z_alpha):
+        return super().forward(signal, z_alpha=z_alpha)
+
+
+class BallisticsEnvelopeFollower(BaseEnvelopeFollower):
+    """Envelope follower with ballistics smoothing
+    (reference: dynamics.py:782-784)."""
+
+    def __init__(self, detect_with="energy"):
+        super().__init__(Ballistics(), detect_with=detect_with)
+
+    def forward(self, signal, z_alpha):
+        return super().forward(signal, z_alpha=z_alpha)

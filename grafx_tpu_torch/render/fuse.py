@@ -133,7 +133,10 @@ class FusedDynamicsChain(_FusedChain):
     A 2-member run whose members smooth with ballistics or the exact
     one-pole, with quadratic knees and no gain smoothing, runs as ONE
     walk over time (:func:`~grafx_tpu_torch.ops.ballistics.
-    ballistics_gain_pair_core`); other runs compose the members' gains.
+    ballistics_gain_pair_core`); other runs compose the members' gains
+    (each member's ``gain_from_energy``: a ``FactorizedCompressor``
+    member has no per-sample walk, so a gate before it runs its own fused
+    gain op and the compressor its frame smoother).
 
     Padding (``fuse_serial_lti(dynamics_pad=...)``): the per-node
     ``_absent`` parameter ``(N, k)`` (> 0.5 = absent) marks a missing

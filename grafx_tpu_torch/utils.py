@@ -118,6 +118,19 @@ def tree_leaves(tree):
     return [leaf for _, leaf in tree_items(tree)]
 
 
+def check_device(device):
+    """``torch.device(device)``, raising where a CUDA device is asked for
+    and torch sees none: the entry points default to the card and never
+    fall back to the CPU on their own."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} asked for, but torch sees no CUDA device;"
+            " pass device='cpu' to run on the CPU"
+        )
+    return device
+
+
 def tree_to(tree, device):
     """Move every tensor of a nested dict to ``device``."""
     return tree_map(lambda t: t.to(device), tree)

@@ -1,22 +1,29 @@
-"""The plain versions of the six gain kernels against the Pallas kernels
-they replace, run as tests/ops/test_ballistics_pallas.py runs them
-(time-major padded layout, small chunk, interpret mode), and the
-autograd Functions around the training kernels."""
+"""The plain versions of the gain kernels (#1-#6), of the plain
+smoother's forward with residuals and adjoint (#8, #9) and of the
+reverse scan (#10) against the Pallas kernels they replace, run as
+tests/ops/test_ballistics_pallas.py runs them (time-major padded layout,
+small chunk, interpret mode), and the autograd Functions around the
+training kernels."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from grafx_tpu.ops.ballistics import ballistics_core as j_ballistics_core
 from grafx_tpu.ops.ballistics_tpu import (
     LANES,
+    backward_fused_pallas_tm,
     backward_gain_pair_pallas_tm,
     backward_gain_pallas_tm,
     expand_lanes,
     forward_gain_only_pallas_tm,
     forward_gain_pair_pallas_tm,
     forward_gain_pallas_tm,
+    forward_pallas_tm_d,
     pad_time_major,
+    reverse_scan_pallas_tm,
 )
 from grafx_tpu_torch.ops import _cuda
 from grafx_tpu_torch.ops import ballistics as bal
@@ -324,6 +331,137 @@ def test_training_wrappers_refuse_other_devices():
         lambda: bal.ballistics_gain_bwd(u, u, c, u, *[c] * 5),
         lambda: bal.ballistics_gain_pair_fwd(u, *[c] * 10),
         lambda: bal.ballistics_gain_pair_bwd(u, u, u, c, c, u, *[c] * 10),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()
+
+
+# ---------------------------------------------------------------------------
+# The plain smoother under gradient (#8, #9) and the reverse scan (#10)
+# ---------------------------------------------------------------------------
+
+WALK_SHAPES = [(3, 200), (5, 64), (130, 96)]  # tests/ops/test_ballistics_pallas.py:52
+RTOL_Y, ATOL_Y = 1e-5, 1e-6  # y: tests/ops/test_ballistics_pallas.py:57-58
+RTOL_D, ATOL_D = 1e-4, 1e-5  # d, du, dzi: :63, :97, :105
+RTOL_C, ATOL_C = 1e-3, 1e-4  # dat, drt: :99-103
+
+
+def _walk_setup(N, L, seed):
+    """(u, zi, at, rt) as tests/ops/test_ballistics_pallas.py:_setup draws
+    them."""
+    rng = np.random.RandomState(seed)
+    u = np.abs(rng.randn(N, L)).astype(np.float32)
+    zi = np.abs(rng.randn(N)).astype(np.float32)
+    at = rng.uniform(0.05, 0.9, N).astype(np.float32)
+    rt = rng.uniform(0.01, 0.3, N).astype(np.float32)
+    return u, zi, at, rt
+
+
+def _walk_pallas(u, zi, at, rt):
+    """``(y_t, d_t)`` of ``forward_pallas_tm_d`` in its padded layout."""
+    return forward_pallas_tm_d(
+        pad_time_major(jnp.asarray(u), CHUNK), _lanes(zi), _lanes(at), _lanes(rt),
+        chunk=CHUNK, interpret=True,
+    )
+
+
+@pytest.mark.parametrize("N, L", WALK_SHAPES)
+def test_ballistics_fwd_plain_matches_pallas(N, L):
+    """#8: the walk and its residual ``d = u - y[n-1]`` against
+    forward_pallas_tm_d; ``y`` is the primal walk's, bit for bit."""
+    args = _walk_setup(N, L, N)
+    yt, dt = _walk_pallas(*args)
+    before = bal.launch_counts()
+    y, d = bal.ballistics_fwd(*_t(args))
+    assert bal.launch_counts() == before  # CPU tensors: plain version
+    _close(y, yt[:L, :N].T, RTOL_Y, ATOL_Y, "y")
+    _close(d, dt[:L, :N].T, RTOL_D, ATOL_D, "d")
+    np.testing.assert_array_equal(y.numpy(), bal.ballistics_plain(*_t(args)).numpy())
+
+
+@pytest.mark.parametrize("N, L", WALK_SHAPES)
+def test_ballistics_bwd_plain_matches_pallas(N, L):
+    """#9: ``du``, ``dzi``, ``dat`` and ``drt`` against
+    backward_fused_pallas_tm from the same residual and cotangent."""
+    u, zi, at, rt = _walk_setup(N, L, N + 7)
+    g = np.random.RandomState(N + 11).randn(N, L).astype(np.float32)
+    _, dt = _walk_pallas(u, zi, at, rt)
+    du_t, dat, drt, dzi = backward_fused_pallas_tm(
+        dt, pad_time_major(jnp.asarray(g), CHUNK), _lanes(at), _lanes(rt),
+        chunk=CHUNK, interpret=True,
+    )
+    d = np.asarray(dt[:L, :N].T)
+    before = bal.launch_counts()
+    got = bal.ballistics_bwd(*_t([d, g, at, rt]))
+    assert bal.launch_counts() == before
+    assert got[0].shape == (N, L) and all(v.shape == (N,) for v in got[1:])
+    _close(got[0], du_t[:L, :N].T, RTOL_D, ATOL_D, "du")
+    _close(got[1], _pick(dzi, N), RTOL_D, ATOL_D, "dzi")
+    _close(got[2], _pick(dat, N), RTOL_C, ATOL_C, "dat")
+    _close(got[3], _pick(drt, N), RTOL_C, ATOL_C, "drt")
+
+
+@pytest.mark.parametrize("N, L", WALK_SHAPES)
+def test_reverse_scan_plain_matches_pallas(N, L):
+    """#10: ``gh[n] = g[n] + a[n] gh[n+1]`` against reverse_scan_pallas_tm
+    (the time pad at the end zeroed in ``a`` and ``g``, as
+    reverse_scan_pallas pads); the bound of the adjoint walk's ``du``."""
+    rng = np.random.RandomState(N + L)
+    a = rng.uniform(0.1, 0.99, (N, L)).astype(np.float32)
+    g = rng.randn(N, L).astype(np.float32)
+    ref = reverse_scan_pallas_tm(
+        pad_time_major(jnp.asarray(a), CHUNK), pad_time_major(jnp.asarray(g), CHUNK),
+        chunk=CHUNK, interpret=True,
+    )
+    before = bal.reverse_scan.launches
+    got = bal.reverse_scan(*_t([a, g]))
+    assert bal.reverse_scan.launches == before
+    assert got.shape == (N, L)
+    _close(got, ref[:L, :N].T, RTOL_D, ATOL_D, "gh")
+    # the coefficient at n, not at n + 1: gh[L-1] = g[L-1] and
+    # gh[L-2] = g[L-2] + a[L-2] g[L-1]
+    np.testing.assert_array_equal(got[:, -1].numpy(), g[:, -1])
+    np.testing.assert_allclose(
+        got[:, -2].numpy(), g[:, -2] + a[:, -2] * g[:, -1], rtol=1e-6, atol=1e-7
+    )
+
+
+@pytest.mark.parametrize("N, L", [(3, 200), (5, 64)])
+def test_ballistics_core_gradient_matches_jax_and_autograd(N, L):
+    """ballistics_core under autograd (the Function around #8/#9) against
+    jax.vjp of grafx_tpu's ballistics_core and against torch autograd
+    through the plain walk, in u, zi, at and rt."""
+    args = _walk_setup(N, L, N + 3)
+    g = np.random.RandomState(N + 5).randn(N, L).astype(np.float32)
+    y_j, vjp = jax.vjp(j_ballistics_core, *(jnp.asarray(a) for a in args))
+    ref_j = vjp(jnp.asarray(g))
+    leaves = [torch.tensor(a, requires_grad=True) for a in args]
+    before = bal.launch_counts()
+    y = bal.ballistics_core(*leaves)
+    got = torch.autograd.grad((y * torch.tensor(g)).sum(), leaves)
+    assert bal.launch_counts() == before
+    _close(y.detach(), y_j, RTOL_Y, ATOL_Y, "y")
+    for name, v, r, (rtol, atol) in zip(
+        ("du", "dzi", "dat", "drt"), got, ref_j,
+        [(RTOL_D, ATOL_D)] * 2 + [(RTOL_C, ATOL_C)] * 2,
+    ):
+        _close(v, r, rtol, atol, name)
+    leaves = [torch.tensor(a, requires_grad=True) for a in args]
+    y_plain = bal.ballistics_plain(*leaves)
+    ref = torch.autograd.grad((y_plain * torch.tensor(g)).sum(), leaves)
+    np.testing.assert_array_equal(y.detach().numpy(), y_plain.detach().numpy())
+    for i, (v, r) in enumerate(zip(got, ref)):
+        _close(v, r, RTOL_PAIR, ATOL_PAIR, str(i))
+
+
+def test_smoother_wrappers_refuse_other_devices():
+    u = torch.empty(2, 8, device="meta")
+    c = torch.empty(2, device="meta")
+    calls = [
+        lambda: bal.ballistics_fwd(u, c, c, c),
+        lambda: bal.ballistics_bwd(u, u, c, c),
+        lambda: bal.reverse_scan(u, u),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="unsupported device"):

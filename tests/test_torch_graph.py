@@ -53,7 +53,7 @@ def graph_summary(G):
 
 @pytest.mark.parametrize("num_chains", [17, 6])
 def test_bench_console_graph_matches_bench(num_chains, monkeypatch):
-    c = bench_console(num_chains)
+    c = bench_console(num_chains, device="cpu")
     assert graph_summary(c.graph) == graph_summary(jax_graph(num_chains, monkeypatch))
 
 
@@ -61,7 +61,7 @@ def test_bench_console_graph_matches_bench(num_chains, monkeypatch):
 @pytest.mark.parametrize("num_chains", [17, 6])
 def test_render_data_matches(num_chains, fused, monkeypatch):
     Gj = jax_graph(num_chains, monkeypatch)
-    G = bench_console(num_chains).graph
+    G = bench_console(num_chains, device="cpu").graph
     if fused:
         Gj, _ = j_fuse(Gj, jax_processors(), **FUSE)
         G, _ = fuse_serial_lti(G, bench_processors(), **FUSE)
@@ -85,7 +85,7 @@ def test_fuse_parameters_maps_rows_identically(num_chains, monkeypatch):
         np.asarray, j_fuse_parameters(params_j, Gj, Gj2, procs_j2, use_native=False)
     )
 
-    c = bench_console(num_chains)
+    c = bench_console(num_chains, device="cpu")
     params = parameters_from_numpy(jax.tree.map(np.asarray, params_j))
     got = fuse_parameters(params, c.graph, c.fused_graph, c.fused_processors)
     got = jax.tree.map(lambda t: t.numpy(), got)

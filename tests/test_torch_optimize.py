@@ -30,7 +30,7 @@ def test_sgd_trajectory_matches_grafx_tpu(monkeypatch):
         bench.build_mix_graph(), jax_processors(), loss_fn=jlosses.mse_loss,
         optimizer=optax.sgd(1e-3), fuse="pad-auto", key=jax.random.PRNGKey(3),
     )
-    trainer = bench_trainer(NUM_CHAINS)
+    trainer = bench_trainer(NUM_CHAINS, device="cpu")
     start = dict(tree_items(jax.tree.map(np.asarray, opt_j.params)))
     with torch.no_grad():
         for k, p in tree_items(trainer.params):
@@ -48,7 +48,7 @@ def test_sgd_trajectory_matches_grafx_tpu(monkeypatch):
 def test_adam_leaves_frozen_and_absent_leaves_bitwise_unchanged():
     trainer = GraphParameterOptimizer(
         bench_graph(3), bench_processors(), loss_fn=losses.mse_loss,
-        trainable={"gain": False, "reverb": False}, fuse="pad-auto",
+        trainable={"gain": False, "reverb": False}, fuse="pad-auto", device="cpu",
     )
     assert isinstance(trainer.optimizer, torch.optim.Adam)
     before = {k: p.detach().clone() for k, p in tree_items(trainer.params)}
@@ -74,10 +74,10 @@ def test_adam_leaves_frozen_and_absent_leaves_bitwise_unchanged():
 def test_trainable_tree_and_unknown_types():
     G, procs = bench_graph(2), bench_processors()
     with pytest.raises(ValueError, match="unknown processor types"):
-        GraphParameterOptimizer(G, procs, trainable={"nope": False})
-    first = GraphParameterOptimizer(G, procs, fuse=True)
+        GraphParameterOptimizer(G, procs, trainable={"nope": False}, device="cpu")
+    first = GraphParameterOptimizer(G, procs, fuse=True, device="cpu")
     spec = tree_map(lambda p: p.shape[-1] == 1, first.params)
-    trainer = GraphParameterOptimizer(G, procs, trainable=spec, fuse=True)
+    trainer = GraphParameterOptimizer(G, procs, trainable=spec, fuse=True, device="cpu")
     for (k, p), (_, m) in zip(tree_items(trainer.params), tree_items(spec)):
         assert p.requires_grad == (m and not k.endswith("_absent")), k
     assert sum(p.numel() for p in trainer.optimizer.param_groups[0]["params"]) == sum(
@@ -90,11 +90,15 @@ def test_fuse_options_draw_parameters_on_the_unfused_graph(fuse):
     """Every fuse option renders the same console from the same draw; the
     padded members start absent."""
     G, procs = bench_graph(4), bench_processors()
-    trainer = GraphParameterOptimizer(G, procs, fuse=fuse, generator=torch.Generator().manual_seed(2))
+    trainer = GraphParameterOptimizer(
+        G, procs, fuse=fuse, generator=torch.Generator().manual_seed(2), device="cpu"
+    )
     x = torch.tensor(console_input(np.random.default_rng(0), (1, 4, 2, 2**11)))
     y = trainer.render_current(x)
     assert not y.requires_grad
-    ref = GraphParameterOptimizer(G, procs, generator=torch.Generator().manual_seed(2))
+    ref = GraphParameterOptimizer(
+        G, procs, generator=torch.Generator().manual_seed(2), device="cpu"
+    )
     np.testing.assert_allclose(y.numpy(), ref.render_current(x).numpy(), rtol=1e-4, atol=1e-6)
     if fuse in ("pad", "pad-auto"):
         absent = [p for k, p in tree_items(trainer.params) if k.endswith("_absent")]
@@ -102,7 +106,9 @@ def test_fuse_options_draw_parameters_on_the_unfused_graph(fuse):
 
 
 def test_default_loss_caches_the_target_spectrograms():
-    trainer = GraphParameterOptimizer(bench_graph(2), bench_processors(), fuse="pad-auto")
+    trainer = GraphParameterOptimizer(
+        bench_graph(2), bench_processors(), fuse="pad-auto", device="cpu"
+    )
     rng = np.random.default_rng(2)
     x = torch.tensor(console_input(rng, (1, 2, 2, 2**12)))
     target = torch.tensor(rng.standard_normal((1, 1, 2, 2**12)).astype(np.float32))
@@ -116,10 +122,27 @@ def test_default_loss_caches_the_target_spectrograms():
 
 
 def test_bench_trainer_starts_from_the_serving_parameters():
-    trainer, console = bench_trainer(3, seed=4), bench_console(3, seed=4)
+    trainer = bench_trainer(3, seed=4, device="cpu")
+    console = bench_console(3, seed=4, device="cpu")
     got, ref = dict(tree_items(trainer.params)), dict(tree_items(console.params))
     assert got.keys() == ref.keys()
     for k in ref:
         assert torch.equal(got[k].detach(), ref[k]), k
     assert isinstance(trainer.optimizer, torch.optim.SGD)
     assert trainer.optimizer.param_groups[0]["lr"] == 1e-3
+
+
+@pytest.mark.parametrize(
+    "entry_point",
+    [
+        lambda: bench_console(2),
+        lambda: bench_trainer(2),
+        lambda: GraphParameterOptimizer(bench_graph(2), bench_processors()),
+    ],
+)
+def test_entry_points_default_to_the_card(entry_point, monkeypatch):
+    """Without ``device`` the entry points ask for the card and raise where
+    torch sees none, instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry_point()

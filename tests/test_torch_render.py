@@ -50,7 +50,7 @@ def slice_outputs():
     params_j2 = j_fuse_parameters(params_j, Gj, Gj2, procs_j2, use_native=False)
     y_fused = jax_render(Gj2, procs_j2, params_j2, x)
 
-    c = bench_console(NUM_CHAINS)
+    c = bench_console(NUM_CHAINS, device="cpu")
     params = fuse_parameters(
         parameters_from_numpy(jax.tree.map(np.asarray, params_j)),
         c.graph, c.fused_graph, c.fused_processors,
@@ -78,7 +78,7 @@ def test_signal_buffer_only_on_request(slice_outputs):
     buf = slice_outputs["buf"]
     assert buf.shape == (BATCH, plan.num_buffers, 2, L)
     np.testing.assert_array_equal(buf[:, -1:], slice_outputs["y"])
-    c = bench_console(2)
+    c = bench_console(2, device="cpu")
     x = torch.zeros(1, 2, 2, 256)
     with torch.inference_mode():
         assert make_render_fn(c.fused_processors, c.plan)(x, c.params)[2] is None

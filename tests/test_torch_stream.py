@@ -159,16 +159,25 @@ def test_ballistics_state_carry_is_exact(n, split):
     np.testing.assert_array_equal(torch.cat([first, second], 1).numpy(), whole.numpy())
 
 
-def test_ballistics_core_refuses_grad():
-    """(g) No adjoint kernels yet: with grad, kernel #7's wrapper raises
-    instead of letting autograd run through the plain loop."""
+def test_ballistics_core_streams_without_grad_and_differentiates():
+    """(g) The streamed smoother runs under ``no_grad`` (the primal walk,
+    #7) and the same calls differentiate (the walk with residuals and its
+    adjoint, #8/#9, here their plain versions): the output is the same
+    walk bit for bit, and a gradient flows to ``z_alpha``."""
     u, zi, at, rt = (torch.tensor(a) for a in _walk_inputs(2, 64, 4))
-    with pytest.raises(NotImplementedError, match="_fwd_d_kernel"):
-        bal.ballistics_core(u, zi, at.requires_grad_(), rt)
+    smoother, z_alpha = Ballistics(), torch.zeros(2, 2, requires_grad=True)
     with torch.no_grad():
-        bal.ballistics_core(u, zi, at, rt)
-    with pytest.raises(NotImplementedError, match="_bwd_fused_kernel"):
-        Ballistics()(u, torch.zeros(2, 2, requires_grad=True))
+        first, state = smoother.stream(u[:, :32], smoother.stream_zero_state(2), z_alpha)
+        second, _ = smoother.stream(u[:, 32:], state, z_alpha)
+    whole = smoother(u, z_alpha)
+    assert whole.requires_grad
+    np.testing.assert_array_equal(torch.cat([first, second], 1).numpy(), whole.detach().numpy())
+    whole.sum().backward()
+    assert z_alpha.grad is not None and bool(torch.isfinite(z_alpha.grad).all())
+    assert bool((z_alpha.grad != 0).all())
+    at_ = at.clone().requires_grad_()
+    bal.ballistics_core(u, zi, at_, rt).sum().backward()
+    assert bool((at_.grad != 0).all())
 
 
 def test_ballistics_core_refuses_other_devices():
@@ -436,7 +445,7 @@ def console():
     x = np.random.default_rng(2).standard_normal((4, 2, L)).astype(np.float32)
     _, ref = _jax_stream(Gj2, procs_j2, params_j2, x)
 
-    c = bench_console(4)
+    c = bench_console(4, device="cpu")
     params = fuse_parameters(
         parameters_from_numpy(jax.tree.map(np.asarray, params_j)),
         c.graph, c.fused_graph, c.fused_processors,

@@ -21,6 +21,7 @@ from grafx_tpu.render import prepare_render as j_prepare
 from grafx_tpu.render import reorder_for_fast_render as j_reorder
 from grafx_tpu.utils import create_empty_parameters as j_create_params
 from grafx_tpu_torch.models import bench_console, bench_trainer
+from grafx_tpu_torch.models.console import bench_processors
 from grafx_tpu_torch.ops import ballistics as bal
 from grafx_tpu_torch.ops import iir, losses
 from grafx_tpu_torch.render import fuse_parameters
@@ -28,10 +29,12 @@ from grafx_tpu_torch.utils import parameters_from_numpy, tree_items, tree_map
 from test_torch_graph import FUSE, jax_processors
 
 NUM_CHAINS, BATCH, L = 6, 2, 2**12
-PLAIN_VERSIONS = (
-    "ballistics_gain_plain", "ballistics_gain_pair_plain",
-    "ballistics_gain_fwd_plain", "ballistics_gain_bwd_plain",
-    "ballistics_gain_pair_fwd_plain", "ballistics_gain_pair_bwd_plain",
+PLAIN_VERSIONS = tuple(
+    f"{core}_plain" for core in (
+        "ballistics_gain", "ballistics_gain_pair", "ballistics_gain_fwd", "ballistics_gain_bwd",
+        "ballistics_gain_pair_fwd", "ballistics_gain_pair_bwd", "ballistics", "ballistics_fwd",
+        "ballistics_bwd", "reverse_scan",
+    )
 )
 
 
@@ -59,51 +62,57 @@ def absent_rows(params):
     return rows
 
 
-@pytest.fixture(scope="module")
-def step_grads():
-    """Loss and gradients of the bench.py step from both packages."""
+def count_calls(monkeypatch, module, names):
+    """Count the calls of ``module.<name>`` for each name; returns the
+    live ``{name: calls}`` dict."""
+    calls = {}
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    for name in names:
+        monkeypatch.setattr(module, name, counted(name, getattr(module, name)))
+    return calls
+
+
+def both_steps(procs_j, make_processors, key, seed):
+    """The bench.py step at NUM_CHAINS x BATCH x L by both packages, from
+    grafx_tpu's parameters drawn with ``key`` on the unfused graph and
+    migrated to the port: the loss and gradients of jax.value_and_grad
+    and of the port's trainer (``make_processors()`` for its console),
+    with the plain versions the port's step called."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(bench, "NUM_CHAINS", NUM_CHAINS)
         Gj = bench.build_mix_graph()
-    procs_j = jax_processors()
-    params_j = j_create_params(procs_j, Gj, std=0.1, key=jax.random.PRNGKey(7))
+    params_j = j_create_params(procs_j, Gj, std=0.1, key=key)
     Gj2, procs_j2 = j_fuse(Gj, procs_j, **FUSE)
     params_j2 = j_fuse_parameters(params_j, Gj, Gj2, procs_j2, use_native=False)
     render_j = j_make_render_fn(
         procs_j2, j_prepare(j_reorder(j_convert(Gj2), method="beam", use_native=False))
     )
-    rng = np.random.default_rng(21)
+    rng = np.random.default_rng(seed)
     x = console_input(rng, (BATCH, NUM_CHAINS, 2, L))
     target = rng.standard_normal((BATCH, 1, 2, L)).astype(np.float32)
 
     def loss_j(p):
         return jnp.mean((render_j(x, p)[0] - target) ** 2)
 
-    value_j, grads_j = jax.jit(jax.value_and_grad(loss_j))(params_j2)
+    value_j, grads_j = jax.value_and_grad(loss_j)(params_j2)  # eager: one call
 
-    c = bench_console(NUM_CHAINS)
+    c = bench_console(NUM_CHAINS, device="cpu", processors=make_processors())
     migrated = fuse_parameters(
         parameters_from_numpy(jax.tree.map(np.asarray, params_j)),
         c.graph, c.fused_graph, c.fused_processors,
     )
-    trainer = bench_trainer(NUM_CHAINS)
+    trainer = bench_trainer(NUM_CHAINS, device="cpu", processors=make_processors())
     with torch.no_grad():
         tree_map(lambda p, v: p.copy_(v), trainer.params, migrated)
     bal.reset_launch_counts()
-    calls = {}
-
-    def counted(name):
-        fn = getattr(bal, name)
-
-        def wrapper(*args, **kwargs):
-            calls[name] = calls.get(name, 0) + 1
-            return fn(*args, **kwargs)
-
-        return wrapper
-
     with pytest.MonkeyPatch.context() as mp:
-        for name in PLAIN_VERSIONS:
-            mp.setattr(bal, name, counted(name))
+        calls = count_calls(mp, bal, PLAIN_VERSIONS)
         total, audio = trainer.loss(torch.tensor(x), torch.tensor(target))
         total.backward()
     launches = bal.launch_counts()
@@ -114,8 +123,16 @@ def step_grads():
         grads=dict(tree_items(grads)),
         grads_j=dict(tree_items(jax.tree.map(np.asarray, grads_j))),
         absent=absent_rows(jax.tree.map(np.asarray, params_j2)),
-        launches=launches, calls=calls, trainer=trainer,
+        params=dict(tree_items(migrated)),
+        params_j=dict(tree_items(jax.tree.map(np.asarray, params_j2))),
+        launches=launches, calls=calls, trainer=trainer, console=c, x=x,
     )
+
+
+@pytest.fixture(scope="module")
+def step_grads():
+    """Loss and gradients of the bench.py step from both packages."""
+    return both_steps(jax_processors(), bench_processors, jax.random.PRNGKey(7), 21)
 
 
 def test_step_loss_matches_grafx_tpu(step_grads):
