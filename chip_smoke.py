@@ -19,7 +19,12 @@ before the result line):
    #6 also at the factorized console's gate members, 68 x 2^17; the plain
    smoother's forward with residuals #8, its adjoint #9 and the reverse
    scan #10 at N = 2, 8, 17, 68 and L = 64, 128, 200, 4096, 4109, timed
-   at the factorized console's frame calls and at 68 x 2^17);
+   at the factorized console's frame calls and at 68 x 2^17, #9 also
+   checked there). The adjoints' chunked reverse walk: each line of #4,
+   #6 and #9 prints its chunk length and count; #4 (68 rows) and #6 (8
+   rows) are also held at forced chunk lengths (one tile, 256, the whole
+   row, their own pick) on L = 4109 and 2^17 + 13, and timed at their
+   console shapes over chunk lengths 64-1024 (``chunk_sweep``);
 4. exactness: the exact IIR cascade against scipy float64;
 5. serve: three requests of (4, 17, 2, 2^17) through the fused console,
    with every kernel's launch count (the primal kernels #1/#2 only);
@@ -58,6 +63,7 @@ card's idle share, and writes its per-op table to
 """
 
 import argparse
+import functools
 import json
 import os
 import statistics
@@ -103,6 +109,10 @@ STREAM_KERNELS = ("ballistics_core",)
 FACTORIZED_REQUEST = {"ballistics_gain_core": 1, "ballistics_core": 2}
 FACTORIZED_STEP = {"ballistics_gain_fwd": 1, "ballistics_gain_bwd": 1,
                    "ballistics_fwd": 2, "ballistics_bwd": 2}
+# chunk lengths forced on the reverse walk: one tile, 256, the whole row, and
+# None, the wrapper's own pick
+FORCED_CHUNKS = (32, 256, "whole", None)
+SWEEP_CHUNKS = (64, 128, 256, 512, 1024)  # timed at the console's shapes
 MAX_ABS = 2e-5  # the bound benchmarks/verify_ballistics_tpu.py uses on the TPU
 DU_REL = 1e-5  # du: max abs error <= DU_REL * max |ref|
 GRAD_REL = 1e-4  # per-row gradients: max abs error <= GRAD_REL * max |ref|
@@ -240,13 +250,15 @@ class KernelCase:
               if self.pair else (bal.ballistics_gain_fwd_plain if plain else bal.ballistics_gain_fwd))
         return fn(self.u, *self.consts, **self._kw())
 
-    def backward(self, res, plain=False):
-        """The adjoint on the residuals ``res`` of a forward."""
+    def backward(self, res, plain=False, chunk=None):
+        """The adjoint on the residuals ``res`` of a forward (the kernel's
+        reverse walk in chunks of ``chunk`` samples, None: its own pick)."""
+        kw = self._kw(inits=False) if plain else {**self._kw(inits=False), "chunk": chunk}
         if self.pair:
             fn = bal.ballistics_gain_pair_bwd_plain if plain else bal.ballistics_gain_pair_bwd
-            return fn(self.u, *res[1:], self.gg, *self.consts, **self._kw(inits=False))
+            return fn(self.u, *res[1:], self.gg, *self.consts, **kw)
         fn = bal.ballistics_gain_bwd_plain if plain else bal.ballistics_gain_bwd
-        return fn(self.u, res[1], res[2], self.gg, *self.consts[1:], **self._kw())
+        return fn(self.u, res[1], res[2], self.gg, *self.consts[1:], **kw)
 
     @property
     def names(self):
@@ -304,6 +316,14 @@ def console_cases(gen):
             (gate, "factorized gate member")]
 
 
+def chunking(shape, chunk=None):
+    """The reverse walk's ``{"chunk": T, "chunks": C}`` for rows of
+    ``shape``."""
+    n, length = shape
+    t = bal.walk_chunk(n, length, chunk, bal.walk_slots("cuda"))
+    return {"chunk": t, "chunks": -(-length // t)}
+
+
 def grad_names(case):
     if case.pair:
         return [f"d{p}_{m}" for m in "ab" for p in ("at", "rt", "th", "cf", "hk")]
@@ -340,6 +360,42 @@ def check_case(label, case, stats, absent=None, timed=False, path=None):
     check(ferr < MAX_ABS, f"{fwd_name} {label}: gain/residual max abs err {ferr} >= {MAX_ABS}")
     stats[fwd_name]["max_abs_err"] = max(stats[fwd_name]["max_abs_err"], ferr)
 
+    du_err, du_scale, rel = check_adjoint(label, case, bwd, bwd_ref, stats, absent)
+    say("kernels", case=label, primal_err=f"{err:.3g}", fwd_err=f"{ferr:.3g}",
+        du_err=f"{du_err:.3g}", du_scale=f"{du_scale:.3g}", grad_rel_err=f"{rel:.3g}",
+        **chunking(case.u.shape))
+    if timed:
+        shape = tuple(case.u.shape)
+        for name, kern in ((prim_name, case.primal), (fwd_name, case.forward),
+                           (bwd_name, lambda: case.backward(fwd))):
+            kern()  # warm-up
+            ms = device_ms(kern, reps=5)[0]
+            more = chunking(shape) if name == bwd_name else {}
+            if path is None:
+                stats[name].update(ms=ms, plain_ms=plain_ms[name], shape=shape, **more)
+            else:
+                stats[name]["more"].append({"path": path, "shape": list(shape), "ms": ms,
+                                            "plain_ms": plain_ms[name],
+                                            "bound_ms": bound(name, *shape)[0], **more})
+            say("kernels", kernel=name, shape=shape, **({"path": repr(path)} if path else {}),
+                kernel_ms=f"{ms:.3f}", plain_ms=f"{plain_ms[name]:.1f}", **more)
+        # the chunk length against the kernel's time at this shape
+        for chunk in SWEEP_CHUNKS:
+            kern = functools.partial(case.backward, fwd, chunk=chunk)
+            kern()  # warm-up
+            ms = device_ms(kern, reps=5)[0]
+            stats[bwd_name]["chunk_sweep"].append({"shape": list(shape), "ms": ms,
+                                                   **chunking(shape, chunk)})
+            say("kernels", sweep=bwd_name, shape=shape, kernel_ms=f"{ms:.3f}",
+                **chunking(shape, chunk))
+
+
+def check_adjoint(label, case, bwd, bwd_ref, stats, absent=None):
+    """Hold the adjoint's outputs ``bwd`` against its plain version's:
+    ``du`` within DU_REL and each per-row gradient within GRAD_REL of its
+    max|ref|, and an absent member's gradients exactly 0.  Returns
+    ``(du_err, du_scale, worst gradient error over its scale)``."""
+    bwd_name = case.names[2]
     du_err, du_scale = max_err(bwd[0], bwd_ref[0]), bwd_ref[0].abs().max().item()
     check(du_err <= DU_REL * du_scale, f"{bwd_name} {label}: du err {du_err} > {DU_REL} x {du_scale}")
     rel = 0.0
@@ -360,22 +416,38 @@ def check_case(label, case, stats, absent=None, timed=False, path=None):
                     check(bool((g[rows] == 0).all()), f"{bwd_name} {label}: absent {name} != 0")
             if not case.pair:
                 check(bool((bwd[0][rows] == 0).all()), f"{bwd_name} {label}: absent du != 0")
-    say("kernels", case=label, primal_err=f"{err:.3g}", fwd_err=f"{ferr:.3g}",
-        du_err=f"{du_err:.3g}", du_scale=f"{du_scale:.3g}", grad_rel_err=f"{rel:.3g}")
-    if timed:
-        shape = tuple(case.u.shape)
-        for name, kern in ((prim_name, case.primal), (fwd_name, case.forward),
-                           (bwd_name, lambda: case.backward(fwd))):
-            kern()  # warm-up
-            ms = device_ms(kern, reps=5)[0]
-            if path is None:
-                stats[name].update(ms=ms, plain_ms=plain_ms[name], shape=shape)
+    return du_err, du_scale, rel
+
+
+def check_forced_chunks(gen, stats):
+    """#4 (68 rows) and #6 (8 rows) on ragged lengths, 4109 and 2^17 + 13,
+    with their reverse walks at forced chunk lengths (one tile, 256, the
+    whole row) and their own pick, each against the plain adjoint on the
+    kernel forward's residuals; absent members' gradients exactly 0."""
+    for length in (BLOCK_LEN + 13, AUDIO_LEN + 13):
+        for pair, n in ((True, BATCH * CHAINS), (False, BATCH * 2)):
+            u = energy(gen, n, length)
+            gg = torch.randn(n, length, generator=gen, device="cuda")
+            if pair:
+                absent = torch.arange(n, device="cuda") % 3 != 0
+                c = gain_consts(gen, n, "noisegate", onepole=True, absent=absent)
+                c += gain_consts(gen, n, "compressor")
+                case, rows = KernelCase(True, u, c, ("noisegate", "compressor"), (0.0, 1.0), gg), (absent, None)
             else:
-                stats[name]["more"].append({"path": path, "shape": list(shape), "ms": ms,
-                                            "plain_ms": plain_ms[name],
-                                            "bound_ms": bound(name, *shape)[0]})
-            say("kernels", kernel=name, shape=shape, **({"path": repr(path)} if path else {}),
-                kernel_ms=f"{ms:.3f}", plain_ms=f"{plain_ms[name]:.1f}")
+                absent = torch.arange(n, device="cuda") % 5 == 0
+                c = [torch.ones(n, device="cuda")] + gain_consts(gen, n, "compressor", absent=absent)
+                case, rows = KernelCase(False, u, c, "compressor", None, gg), (absent,)
+            fwd = case.forward()
+            ref = case.backward(fwd, plain=True)
+            for chunk in FORCED_CHUNKS:
+                forced = -(-length // 32) * 32 if chunk == "whole" else chunk
+                got = case.backward(fwd, chunk=forced)
+                torch.cuda.synchronize()
+                du_err, du_scale, rel = check_adjoint(f"forced chunk {forced}", case, got, ref,
+                                                      stats, rows)
+                say("kernels", case=f"{case.names[2]} {tuple(u.shape)} forced chunk",
+                    du_err=f"{du_err:.3g}", du_scale=f"{du_scale:.3g}", grad_rel_err=f"{rel:.3g}",
+                    **chunking(u.shape, forced))
 
 
 def check_walk(label, u, zi, at, rt, stats, timed=False):
@@ -435,6 +507,25 @@ def smoother_calls(case):
     }
 
 
+def check_smoother_bwd(label, got, ref, shape):
+    """Hold #9's ``(du, dzi, dat, drt)`` against its plain version's: du
+    within DU_REL of max|ref| (bit for bit where one chunk walks the row),
+    the rest within GRAD_REL.  Returns ``(max abs err, du_err, du_scale,
+    worst gradient error over its scale)``."""
+    du, du_ref = got[0], ref[0]
+    du_err, du_scale = max_err(du, du_ref), du_ref.abs().max().item()
+    check(du_err <= DU_REL * du_scale, f"ballistics_bwd {label}: du err {du_err} > {DU_REL} x {du_scale}")
+    if chunking(shape)["chunks"] == 1:
+        check(torch.equal(du, du_ref), f"ballistics_bwd {label}: one chunk, du differs from the plain walk's")
+    err, rel = du_err, 0.0
+    for name, v, r in zip(("dzi", "dat", "drt"), got[1:], ref[1:]):
+        e, scale = max_err(v, r), r.abs().max().item()
+        check(e <= GRAD_REL * scale, f"ballistics_bwd {label} {name}: err {e} > {GRAD_REL} x {scale}")
+        err = max(err, e)
+        rel = max(rel, e / scale if scale > 0 else 0.0)
+    return err, du_err, du_scale, rel
+
+
 def check_smoother(label, case, stats):
     """Hold #8 (y, d), #9 (du; dzi, dat, drt) and #10 (gh) against their
     plain versions on one case; #8's walk is #7's bit for bit."""
@@ -449,15 +540,8 @@ def check_smoother(label, case, stats):
     ferr = max(max_err(a, b) for a, b in zip(got["ballistics_fwd"], ref["ballistics_fwd"]))
     check(ferr < MAX_ABS, f"ballistics_fwd {label}: y/d max abs err {ferr} >= {MAX_ABS}")
     errs["ballistics_fwd"] = ferr
-    du, du_ref = got["ballistics_bwd"][0], ref["ballistics_bwd"][0]
-    du_err, du_scale = max_err(du, du_ref), du_ref.abs().max().item()
-    check(du_err <= DU_REL * du_scale, f"ballistics_bwd {label}: du err {du_err} > {DU_REL} x {du_scale}")
-    errs["ballistics_bwd"], rel = du_err, 0.0
-    for name, v, r in zip(("dzi", "dat", "drt"), got["ballistics_bwd"][1:], ref["ballistics_bwd"][1:]):
-        e, scale = max_err(v, r), r.abs().max().item()
-        check(e <= GRAD_REL * scale, f"ballistics_bwd {label} {name}: err {e} > {GRAD_REL} x {scale}")
-        errs["ballistics_bwd"] = max(errs["ballistics_bwd"], e)
-        rel = max(rel, e / scale if scale > 0 else 0.0)
+    errs["ballistics_bwd"], du_err, du_scale, rel = check_smoother_bwd(
+        label, got["ballistics_bwd"], ref["ballistics_bwd"], d.shape)
     gh, gh_ref = got["reverse_scan"], ref["reverse_scan"]
     gh_err, gh_scale = max_err(gh, gh_ref), gh_ref.abs().max().item()
     check(gh_err <= DU_REL * gh_scale, f"reverse_scan {label}: gh err {gh_err} > {DU_REL} x {gh_scale}")
@@ -466,7 +550,20 @@ def check_smoother(label, case, stats):
         stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], e)
     say("kernels", case=f"smoother {label}", fwd_err=f"{ferr:.3g}", du_err=f"{du_err:.3g}",
         du_scale=f"{du_scale:.3g}", grad_rel_err=f"{rel:.3g}", gh_err=f"{gh_err:.3g}",
-        gh_scale=f"{gh_scale:.3g}")
+        gh_scale=f"{gh_scale:.3g}", **chunking(d.shape))
+
+
+def check_smoother_bwd_at(label, case, stats):
+    """#9 alone against its plain version on #8's residual (a shape whose
+    plain #8 and #10 would take too long)."""
+    u, zi, at, rt, g, _ = case
+    _, d = bal.ballistics_fwd(u, zi, at, rt)
+    got, ref = bal.ballistics_bwd(d, g, at, rt), bal.ballistics_bwd_plain(d, g, at, rt)
+    torch.cuda.synchronize()
+    err, du_err, du_scale, rel = check_smoother_bwd(label, got, ref, d.shape)
+    stats["ballistics_bwd"]["max_abs_err"] = max(stats["ballistics_bwd"]["max_abs_err"], err)
+    say("kernels", case=f"ballistics_bwd {label}", du_err=f"{du_err:.3g}", du_scale=f"{du_scale:.3g}",
+        grad_rel_err=f"{rel:.3g}", **chunking(d.shape))
 
 
 def time_smoother(case, stats, plain, main):
@@ -481,14 +578,15 @@ def time_smoother(case, stats, plain, main):
         busy = device_busy_ms(kern, reps=5)
         plain_ms = device_ms(ref, reps=1)[0] if plain else None
         bound_ms, bound_by = bound(name, *shape)
+        more = chunking(shape) if name == "ballistics_bwd" else {}
         if main:
-            stats[name].update(ms=ms, plain_ms=plain_ms, shape=shape, device_busy_ms=busy)
+            stats[name].update(ms=ms, plain_ms=plain_ms, shape=shape, device_busy_ms=busy, **more)
         else:
             stats[name]["more"].append({"shape": list(shape), "ms": ms, "device_busy_ms": busy,
-                                        "plain_ms": plain_ms, "bound_ms": bound_ms})
+                                        "plain_ms": plain_ms, "bound_ms": bound_ms, **more})
         say("kernels", kernel=name, shape=shape, kernel_ms=f"{ms:.4f}", device_busy_ms=f"{busy:.4f}",
             plain_ms="not timed" if plain_ms is None else f"{plain_ms:.1f}",
-            bound_ms=f"{bound_ms:.3g}", bound_by=bound_by)
+            bound_ms=f"{bound_ms:.3g}", bound_by=bound_by, **more)
 
 
 def db(err, ref):
@@ -728,10 +826,13 @@ def kernel_row(name, source, replaces, stats):
            "launches": s.get("launches", 0), "max_abs_err": s["max_abs_err"], "ms": s["ms"],
            "plain_ms": s["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
            "library_ms": None, "shape": list(s["shape"]), "launches_per_run": s["per_run"]}
-    if "device_busy_ms" in s:
-        row["device_busy_ms"] = s["device_busy_ms"]
+    for key in ("device_busy_ms", "chunk", "chunks"):
+        if key in s:
+            row[key] = s[key]
     if s["more"]:
         row["more_shapes"] = s["more"]
+    if s["chunk_sweep"]:
+        row["chunk_sweep"] = s["chunk_sweep"]
     if name in NO_PATH:
         row["path"] = NO_PATH[name]
     return row
@@ -776,13 +877,16 @@ def main():
 
     # 3. kernels against their plain versions on the card
     gen = torch.Generator(device="cuda").manual_seed(0)
-    stats = {name: {"max_abs_err": 0.0, "per_run": {}, "more": []} for name in KERNELS}
+    stats = {name: {"max_abs_err": 0.0, "per_run": {}, "more": [], "chunk_sweep": []}
+             for name in KERNELS}
+    say("kernels", walk_slots=bal.walk_slots("cuda"))
     with torch.inference_mode():
         for label, case, absent in kernel_cases(gen):
             check_case(label, case, stats, absent)
         for case, path in console_cases(gen):
             check_case(f"console {tuple(case.u.shape)}" + (f" {path}" if path else ""), case,
                        stats, timed=True, path=path)
+        check_forced_chunks(gen, stats)
         # #7 at the stream's row counts (17 chain and 2 bus compressors)
         # and more, at a block, a ragged block and a call shorter than its
         # 8-tile ring; timed at the stream's call
@@ -808,7 +912,10 @@ def main():
         frames = AUDIO_LEN // FRAME_LEN
         time_smoother(smoother_case(gen, BATCH * CHAINS, frames), stats, plain=True, main=True)
         time_smoother(smoother_case(gen, BATCH * 2, frames), stats, plain=True, main=False)
-        time_smoother(smoother_case(gen, BATCH * CHAINS, AUDIO_LEN), stats, plain=False, main=False)
+        big = smoother_case(gen, BATCH * CHAINS, AUDIO_LEN)
+        check_smoother_bwd_at(f"N={BATCH * CHAINS} L={AUDIO_LEN}", big, stats)
+        time_smoother(big, stats, plain=False, main=False)
+        del big
     del case  # the last console case, so that it counts in no later phase's peak memory
 
     # 4. exactness of the exact IIR cascade on the card

@@ -24,29 +24,57 @@
 // b's adjoint first, then a's, whose gain also reaches the output through
 // ec:  base_a = gg ga gb + dec 2 ga^2 u,  du = du_walk_a + dec ga^2.
 //
-// Design and what bounds it.  Only the reverse recursion carries state.
-// It runs as rwalk_kernel, the mirror of the forward walk: one thread per
-// row, a warp staging (32 rows x 32 samples) tiles of g and d through a
-// cp.async ring in shared memory, walking tiles from the end of time to
-// the start; like the forward walk it is bound by issuing the tile copies
-// and stores of a lone warp per SM (3 warps for the console's 68 pair
-// rows, 1 for its 8 bus rows).  Everything else is elementwise over all
-// N x L samples on every SM: rebuilding the envelopes (and for the pair
-// ga, ec, u2, gb), the knee and its derivatives, the cotangents, base_a,
-// and the final du.  Per-row parameter sums over time are never one
-// running float sum: each 32-sample tile is summed (a warp-shuffle tree
-// in the elementwise kernels, the walk's own 32 steps in the reverse
-// walk), the tile partials go to device memory, and reduce_kernel sums
-// each row's partials with a block tree.  Splitting the linear reverse
-// walk over time chunks (it is a linear recurrence, unlike the forward)
-// is the next step.
+// Design and what bounds it.  Only the reverse recursion carries state,
+// and with the decisions fixed it is linear, so it is split over time
+// chunks of T samples (T a multiple of 32, picked by the wrapper from N
+// and L: ops/ballistics.py:walk_chunk).  Each (row, chunk) pair is a
+// virtual row; a warp stages (32 virtual rows x 32 samples) tiles of g
+// and d through a cp.async ring in shared memory, lane i walking virtual
+// row i's tiles from the chunk's end to its start (rwalk_kernel):
+//   1. local walk: every chunk walks from gh = 0 and keeps its gh at its
+//      first sample and the product of its carry factors (1 - c[m], m
+//      from its second sample through the next chunk's first): (2, N, C)
+//      scratch.  gh[n] = local[n] + (that product from n+1) gh entering.
+//   2. carry_kernel: one warp per row composes the chunks' affine maps
+//      gh_start = local + prod * gh_entering from the end (a warp scan
+//      over 32 chunks at a time) into the true gh entering each chunk.
+//   3. re-walk: every chunk walks again from its true entering gh with
+//      the serial walk's arithmetic, writing c gh, the per-tile d gh
+//      sums and dzi from chunk 0.  One chunk (C = 1) skips 1 and 2 and is
+//      the whole-row walk, bit for bit.
+// The split puts N x C virtual rows on the card instead of N rows (the
+// console's 68 pair rows and 8 bus rows were 3 and 1 warps on 132 SMs):
+// T is the shortest chunk, at least 64, whose virtual rows all fit at
+// once: the card's SMs x the blocks an SM holds (grafx_walk_blocks_per_sm,
+// the kernel's occupancy; on the H100 8 one-warp blocks, 25 KB of ring
+// each, on 132 SMs): T = 288 for 68 x 2^17 (969 warps), 64 for 8 x 2^17
+// (512 warps).  Rows of at most two such chunks walk whole (a factorized
+// compressor's 128-frame calls), where the two more launches would cost
+// what they save.  Lane i keeps virtual row i's offset and length in
+// registers, and a tile's copies and stores take them by shuffle, so none
+// waits on a memory read (read from shared memory, each of a tile's 32
+// copies waited on a load: 70% more device time for a one-warp whole-row
+// walk, PERF.md).  On the H100 (80GB HBM3, 700 W) the chunked walk is then
+// within 2x of its bytes at 68 x 2^17: grafx_ballistics_bwd's passes take
+// 0.090 ms busy on the card
+// against the 0.053 ms that the local walk's 8 and the re-walk's 12 bytes
+// a sample take at 3.35 TB/s; at 8 x 2^17 the launches and the carry's 64
+// warp-scan steps a row set its time (PERF.md, chip_smoke.py).
+// Everything else is elementwise over all N x L samples on every SM:
+// rebuilding the envelopes (and for the pair ga, ec, u2, gb), the knee
+// and its derivatives, the cotangents, base_a, and the final du.
+// Per-row parameter sums over time are never one running float sum: each
+// 32-sample tile is summed (a warp-shuffle tree in the elementwise
+// kernels, the walk's own 32 steps in the reverse walk; chunks start on
+// tile boundaries), the tile partials go to device memory, and
+// reduce_kernel sums each row's partials with a block tree.
 //
-// The plain smoother's adjoint (grafx_ballistics_bwd) is rwalk_kernel fed
-// the raw output cotangent g, then reduce_kernel: exactly
+// The plain smoother's adjoint (grafx_ballistics_bwd) is the same chunked
+// walk fed the raw output cotangent g, then reduce_kernel: exactly
 // _bwd_fused_kernel's du, dat, drt and dzi from the forward's residual d.
-// Its bytes are 12 per sample (d and g in, du out); like the gain
-// adjoints it is bound by the lone warp's tile issue, and on the 4-tile
-// frame sequences of a factorized compressor by its two launches.
+// Its bytes are 12 per sample (d and g in, du out); on the 4-tile frame
+// sequences of a factorized compressor it walks whole rows and is bound
+// by its two launches.
 // grafx_reverse_scan is the general first-order reverse recurrence
 // gh[n] = g[n] + a[n] gh[n+1] (gh[L] = 0) with the coefficient at n itself,
 // not at n + 1 as the ballistics adjoint carries it: rscan_kernel, the
@@ -58,13 +86,15 @@ namespace {
 
 using namespace grafx;
 
-constexpr int kRStages = 4;  // two tiles (g and d) a stage: 33 KB of ring
+constexpr int kRStages = 4;  // rscan_kernel's ring: two tiles (a and g) a stage
+constexpr int kWalkStages = 3;  // rwalk_kernel's: two tiles (g, d) a stage, 25 KB, 8 warps an SM
 constexpr int kElemThreads = 256;
+constexpr unsigned kFullWarp = 0xffffffffu;
 constexpr int kReduceThreads = 256;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFullWarp, v, o);
   return v;  // lane 0 holds the sum
 }
 
@@ -88,79 +118,163 @@ __device__ __forceinline__ void tile_partials(float* part, int n, int row,
   }
 }
 
-// out[n] = c[n] gh[n] for the reverse recursion over g (out may be g: a
-// tile is read before it is written, and the ring only reads ahead).
-// Writes each row's per-tile sums of d gh over attack / release samples
-// to part_at / part_rt [row * tiles + tile], and (1 - c[0]) gh[0] to dzi
-// where dzi is not null.  Samples past L are zeros, so gh stays 0 there.
+// Starts the copies of the (32 x 32) tiles of g and d at offset t0 of the
+// warp's 32 virtual rows: lane j copies sample t0 + j of each.  Lane i
+// holds virtual row i's first sample (base) and length (clen, 0 past the
+// last virtual row), and a shuffle hands them to every lane, so the 32
+// copies depend on no memory read and not on each other.  Samples past a
+// chunk's end are zeros.
+__device__ __forceinline__ void fetch_chunk_tiles(Tile& tg, Tile& td, const float* g,
+                                                  const float* d, long long base, int clen,
+                                                  int t0, int lane) {
+#pragma unroll
+  for (int i = 0; i < kTile; ++i) {
+    const long long b = __shfl_sync(kFullWarp, base, i) + t0 + lane;
+    if (t0 + lane < __shfl_sync(kFullWarp, clen, i)) {
+      __pipeline_memcpy_async(&tg[i][lane], g + b, sizeof(float));
+      __pipeline_memcpy_async(&td[i][lane], d + b, sizeof(float));
+    } else {
+      tg[i][lane] = 0.0f;
+      td[i][lane] = 0.0f;
+    }
+  }
+}
+
+// The reverse recursion over the chunks of `chunk` samples of each row,
+// one lane per (row, chunk) virtual row v = row * chunks + chunk, each
+// walk entering its chunk with the factor 1 - c of the next chunk's first
+// sample (0 after the last chunk).  carry is (2, n, chunks).
+//   kLocal: walks from gh = 0; writes carry[0][v] = gh at the chunk's
+//     first sample and carry[1][v] = the product of its carry factors.
+//   else: walks from gh = carry[0][v] (0 where chunks == 1; carry may then
+//     be null) and writes out[n] = c[n] gh[n] (out may be g: a tile is
+//     read before it is written, and the ring only reads ahead in its own
+//     chunk), each row's per-tile sums of d gh over attack / release
+//     samples to part_at / part_rt [row * tiles + tile], and (1 - c[0])
+//     gh[0] to dzi where dzi is not null.
+// Samples past L are zeros, so gh stays 0 there.
+template <bool kLocal>
 __global__ void __launch_bounds__(kTile)
 rwalk_kernel(const float* g, const float* __restrict__ d, float* out,
              const float* __restrict__ at_, const float* __restrict__ rt_,
              float* __restrict__ part_at, float* __restrict__ part_rt,
-             float* __restrict__ dzi, int n, long long len) {
-  __shared__ Tile gring[kRStages];
-  __shared__ Tile dring[kRStages];
+             float* __restrict__ dzi, float* __restrict__ carry, int n, long long len,
+             int chunk, long long chunks) {
+  __shared__ Tile gring[kWalkStages];
+  __shared__ Tile dring[kWalkStages];
   const int lane = threadIdx.x;
-  const int row0 = blockIdx.x * kTile;
-  const int rows = min(kTile, n - row0);
-  const int row = row0 + lane;
-  const bool live = lane < rows;
+  const long long vrows = (long long)n * chunks;
+  const long long v = (long long)blockIdx.x * kTile + lane;
+  const bool live = v < vrows;
+  const int row = live ? (int)(v / chunks) : 0;
+  const long long k = live ? v % chunks : 0;
+  const long long start = k * chunk;
+  const long long base = row * len + start;
+  const int clen = live ? (int)min((long long)chunk, len - start) : 0;
   const float at = live ? at_[row] : 0.0f, rt = live ? rt_[row] : 0.0f;
-  float gh = 0.0f, omc = 0.0f;
+  float gh = 0.0f, omc = 0.0f, prod = 1.0f;
+  if (live && k + 1 < chunks) omc = 1.0f - (d[row * len + start + chunk] > 0.0f ? at : rt);
+  if (!kLocal && live && chunks > 1) gh = carry[v];
 
   const long long tiles = (len + kTile - 1) / kTile;
-  // the k-th tile walked is time tile (tiles - 1 - k)
+  const int ctiles = chunk / kTile;
+  // the j-th tile walked is chunk tile (ctiles - 1 - j)
 #pragma unroll
-  for (int k = 0; k < kRStages; ++k) {
-    if (k < tiles) {
-      const long long t0 = (tiles - 1 - k) * kTile;
-      fetch_tile(gring[k], g, row0, rows, len, t0, lane);
-      fetch_tile(dring[k], d, row0, rows, len, t0, lane);
+  for (int j = 0; j < kWalkStages; ++j) {
+    if (j < ctiles) {
+      fetch_chunk_tiles(gring[j], dring[j], g, d, base, clen, (ctiles - 1 - j) * kTile, lane);
     }
     __pipeline_commit();
   }
-  for (long long k = 0; k < tiles; ++k) {
-    Tile& tg = gring[k % kRStages];
-    Tile& td = dring[k % kRStages];
-    const long long tile = tiles - 1 - k;
-    const long long t0 = tile * kTile;
-    __pipeline_wait_prior(kRStages - 1);
+  for (int j = 0; j < ctiles; ++j) {
+    Tile& tg = gring[j % kWalkStages];
+    Tile& td = dring[j % kWalkStages];
+    const int t0 = (ctiles - 1 - j) * kTile;
+    __pipeline_wait_prior(kWalkStages - 1);
     __syncwarp();
     float sa = 0.0f, sr = 0.0f;
 #pragma unroll
-    for (int j = kTile - 1; j >= 0; --j) {
-      const float dd = td[lane][j];
+    for (int i = kTile - 1; i >= 0; --i) {
+      const float dd = td[lane][i];
       const bool att = dd > 0.0f;
       const float c = att ? at : rt;
-      gh = tg[lane][j] + omc * gh;
+      gh = tg[lane][i] + omc * gh;
+      if (kLocal) prod *= omc;
       omc = 1.0f - c;
-      const float dc = dd * gh;
-      sa += att ? dc : 0.0f;
-      sr += att ? 0.0f : dc;
-      tg[lane][j] = c * gh;
+      if (!kLocal) {
+        const float dc = dd * gh;
+        sa += att ? dc : 0.0f;
+        sr += att ? 0.0f : dc;
+        tg[lane][i] = c * gh;
+      }
+    }
+    if (!kLocal) {
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < kTile; ++i) {
+        const long long b = __shfl_sync(kFullWarp, base, i) + t0 + lane;
+        if (t0 + lane < __shfl_sync(kFullWarp, clen, i)) out[b] = tg[i][lane];
+      }
+      if (live && start + t0 < len) {
+        const long long tile = (start + t0) / kTile;
+        part_at[row * tiles + tile] = sa;
+        part_rt[row * tiles + tile] = sr;
+      }
     }
     __syncwarp();
-    if (t0 + lane < len) {
-      for (int i = 0; i < rows; ++i) out[(row0 + i) * len + t0 + lane] = tg[i][lane];
-    }
-    if (live) {
-      part_at[row * tiles + tile] = sa;
-      part_rt[row * tiles + tile] = sr;
-    }
-    __syncwarp();
-    if (k + kRStages < tiles) {
-      const long long tn = (tile - kRStages) * kTile;
-      fetch_tile(tg, g, row0, rows, len, tn, lane);
-      fetch_tile(td, d, row0, rows, len, tn, lane);
+    if (j + kWalkStages < ctiles) {
+      fetch_chunk_tiles(tg, td, g, d, base, clen, t0 - kWalkStages * kTile, lane);
     }
     __pipeline_commit();
   }
-  if (dzi != nullptr && live) dzi[row] = omc * gh;
+  if (!live) return;
+  if (kLocal) {
+    carry[v] = gh;
+    carry[vrows + v] = prod;
+  } else if (dzi != nullptr && k == 0) {
+    dzi[row] = omc * gh;
+  }
+}
+
+// Pass 2 of the chunked walk, one warp per row: chunk k maps the gh
+// entering it from its end, x, to gh at its first sample, b[k] + a[k] x
+// (carry[0] and carry[1] of the local walks).  Composes the maps from the
+// last chunk back, 32 chunks at a time by a suffix scan over the warp,
+// and overwrites b[k] with the true gh entering chunk k (0 for the last).
+__global__ void __launch_bounds__(kTile)
+carry_kernel(float* __restrict__ carry, int n, long long chunks) {
+  const int lane = threadIdx.x;
+  float* b = carry + (long long)blockIdx.x * chunks;
+  const float* a = carry + ((long long)n + blockIdx.x) * chunks;
+  float x = 0.0f;  // gh entering the current group of 32 chunks from its end
+  long long k = ((chunks - 1) / kTile) * kTile + lane;
+  // the identity map past the last chunk
+  float bn = k < chunks ? b[k] : 0.0f, an = k < chunks ? a[k] : 1.0f;
+  for (; k >= lane; k -= kTile) {
+    float bk = bn, ak = an;
+    if (k >= kTile) {  // the next group's maps load while this one scans
+      bn = b[k - kTile];
+      an = a[k - kTile];
+    }
+    // lane i: the composition of chunks i .. 31 of the group
+#pragma unroll
+    for (int o = 1; o < kTile; o <<= 1) {
+      const float b2 = __shfl_down_sync(kFullWarp, bk, o), a2 = __shfl_down_sync(kFullWarp, ak, o);
+      if (lane + o < kTile) {
+        bk = fmaf(ak, b2, bk);
+        ak *= a2;
+      }
+    }
+    const float ghs = fmaf(ak, x, bk);  // the true gh at chunk k's first sample
+    const float next = __shfl_down_sync(kFullWarp, ghs, 1);
+    if (k < chunks) b[k] = lane == kTile - 1 ? x : next;
+    x = __shfl_sync(kFullWarp, ghs, 0);
+  }
 }
 
 // gh[n] = g[n] + a[n] gh[n+1] over each row, from gh[L] = 0 (gh may be g).
-// The same ring as rwalk_kernel; samples past L are zeros, so the state
-// entering the last real sample is exactly 0.
+// A 4-deep ring of (32 rows x 32 samples) tiles; samples past L are zeros,
+// so the state entering the last real sample is exactly 0.
 __global__ void __launch_bounds__(kTile)
 rscan_kernel(const float* a, const float* g, float* gh, int n, long long len) {
   __shared__ Tile aring[kRStages];
@@ -336,20 +450,36 @@ reduce_kernel(const float* __restrict__ part, float* __restrict__ out, long long
   }
 }
 
-bool bad_shape(int n, long long len, int kind) {
+bool bad_shape(int n, long long len, int kind, int chunk = kTile) {
   return n > 65535 || (len + kElemThreads - 1) / kElemThreads > 0x7fffffffLL ||
-         kind < 0 || kind > 1;
+         kind < 0 || kind > 1 || chunk <= 0 || chunk % kTile != 0;
 }
 
 dim3 elem_grid(int n, long long len) {
   return dim3((unsigned)((len + kElemThreads - 1) / kElemThreads), n);
 }
 
+// The chunked reverse walk (rwalk_kernel, carry_kernel): chunk is a
+// positive multiple of 32; carry is (2, n, ceil(len / chunk)) scratch, or
+// null where one chunk covers the row.
 cudaError_t rwalk(const float* g, const float* d, float* out, const float* at,
-                  const float* rt, float* part_at, float* part_rt, float* dzi, int n,
-                  long long len, cudaStream_t s) {
-  rwalk_kernel<<<(n + kTile - 1) / kTile, kTile, 0, s>>>(g, d, out, at, rt, part_at,
-                                                         part_rt, dzi, n, len);
+                  const float* rt, float* part_at, float* part_rt, float* dzi, float* carry,
+                  int n, long long len, int chunk, cudaStream_t s) {
+  const long long tiles = (len + kTile - 1) / kTile;
+  if (chunk >= len) chunk = (int)(tiles * kTile);  // one chunk walks the row's tiles only
+  const long long chunks = (len + chunk - 1) / chunk;
+  const long long blocks = ((long long)n * chunks + kTile - 1) / kTile;
+  if (blocks > 0x7fffffffLL || (chunks > 1 && carry == nullptr)) return cudaErrorInvalidValue;
+  if (chunks > 1) {
+    rwalk_kernel<true><<<(unsigned)blocks, kTile, 0, s>>>(g, d, nullptr, at, rt, nullptr, nullptr,
+                                                          nullptr, carry, n, len, chunk, chunks);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    carry_kernel<<<n, kTile, 0, s>>>(carry, n, chunks);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  rwalk_kernel<false><<<(unsigned)blocks, kTile, 0, s>>>(g, d, out, at, rt, part_at, part_rt,
+                                                         dzi, carry, n, len, chunk, chunks);
   return cudaGetLastError();
 }
 
@@ -366,14 +496,17 @@ extern "C" {
 // All pointers are device pointers to contiguous float32 arrays: u, d, gg
 // and du (n, len); ylast (n,); consts (5, n) with rows at, rt, th, cf, hk;
 // grads (6, n), written with rows dzi, dat, drt, dth, dcf, dhk; partials
-// (5, n, ceil(len / 32)) scratch.  kind: 0 compressor, 1 noise gate.
+// (5, n, ceil(len / 32)) scratch; carry (2, n, ceil(len / chunk)) scratch
+// (null where chunk >= len), chunk the reverse walk's chunk length, a
+// positive multiple of 32.  kind: 0 compressor, 1 noise gate.
 // Returns the cudaError_t of the launches (0 on success).
 int grafx_gain_bwd(const float* u, const float* d, const float* ylast, const float* gg,
                    const float* consts, float* du, float* grads, float* partials,
-                   int n, long long len, int kind, int device, void* stream) {
+                   float* carry, int n, long long len, int chunk, int kind, int device,
+                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (bad_shape(n, len, kind)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(n, len, kind, chunk)) return (int)cudaErrorInvalidValue;
   if (n <= 0 || len <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long tiles = (len + kTile - 1) / kTile;
@@ -383,21 +516,26 @@ int grafx_gain_bwd(const float* u, const float* d, const float* ylast, const flo
   gain_bwd_elem<<<elem_grid(n, len), kElemThreads, 0, s>>>(u, d, ylast, gg, c, du,
                                                            partials + 2 * pn, kind, n, len);
   if ((err = cudaGetLastError())) return (int)err;
-  if ((err = rwalk(du, d, du, c, c + n, partials, partials + pn, grads, n, len, s))) return (int)err;
+  if ((err = rwalk(du, d, du, c, c + n, partials, partials + pn, grads, carry, n, len, chunk,
+                   s))) {
+    return (int)err;
+  }
   return (int)reduce(partials, grads + n, 5, n, tiles, s);
 }
 
 // u, d_a, d_b, gg and du (n, len); lasts (2, n) with rows v_last, u_last;
 // consts (10, n) with rows at_a, rt_a, th_a, cf_a, hk_a, at_b, rt_b, th_b,
 // cf_b, hk_b; scratch (2, n, len); grads (10, n), written in the order of
-// consts; partials (10, n, ceil(len / 32)) scratch.
+// consts; partials (10, n, ceil(len / 32)) scratch; carry and chunk as for
+// grafx_gain_bwd, shared by the two members' walks.
 int grafx_gain_pair_bwd(const float* u, const float* d_a, const float* d_b,
                         const float* lasts, const float* gg, const float* consts,
-                        float* du, float* scratch, float* grads, float* partials, int n,
-                        long long len, int kind_a, int kind_b, int device, void* stream) {
+                        float* du, float* scratch, float* grads, float* partials,
+                        float* carry, int n, long long len, int chunk, int kind_a,
+                        int kind_b, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (bad_shape(n, len, kind_a) || bad_shape(n, len, kind_b)) {
+  if (bad_shape(n, len, kind_a, chunk) || bad_shape(n, len, kind_b)) {
     return (int)cudaErrorInvalidValue;
   }
   if (n <= 0 || len <= 0) return 0;
@@ -414,12 +552,17 @@ int grafx_gain_pair_bwd(const float* u, const float* d_a, const float* d_b,
                                            partials + 7 * pn, kind_a, kind_b, n, len);
   if ((err = cudaGetLastError())) return (int)err;
   if ((err = rwalk(dec, d_b, dec, b, b + n, partials + 5 * pn, partials + 6 * pn, nullptr,
-                   n, len, s))) return (int)err;
+                   carry, n, len, chunk, s))) {
+    return (int)err;
+  }
   // du <- g1, walked in place; dec <- dec ga^2, added last
   pair_bwd_a<<<grid, kElemThreads, 0, s>>>(u, d_a, lasts, ga, du, dec, consts,
                                            partials + 2 * pn, kind_a, n, len);
   if ((err = cudaGetLastError())) return (int)err;
-  if ((err = rwalk(du, d_a, du, a, a + n, partials, partials + pn, nullptr, n, len, s))) return (int)err;
+  if ((err = rwalk(du, d_a, du, a, a + n, partials, partials + pn, nullptr, carry, n, len,
+                   chunk, s))) {
+    return (int)err;
+  }
   const long long size = (long long)n * len;
   add_kernel<<<(unsigned)((size + kElemThreads - 1) / kElemThreads), kElemThreads, 0, s>>>(
       du, dec, size);
@@ -429,21 +572,37 @@ int grafx_gain_pair_bwd(const float* u, const float* d_a, const float* d_b,
 
 // The plain smoother's adjoint.  d, g and du (n, len); consts (2, n) with
 // rows at, rt; grads (3, n), written with rows dzi, dat, drt; partials
-// (2, n, ceil(len / 32)) scratch.
+// (2, n, ceil(len / 32)) scratch; carry and chunk as for grafx_gain_bwd.
 int grafx_ballistics_bwd(const float* d, const float* g, const float* consts, float* du,
-                         float* grads, float* partials, int n, long long len, int device,
-                         void* stream) {
+                         float* grads, float* partials, float* carry, int n, long long len,
+                         int chunk, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (bad_shape(n, len, 0)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(n, len, 0, chunk)) return (int)cudaErrorInvalidValue;
   if (n <= 0 || len <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long tiles = (len + kTile - 1) / kTile;
   const long long pn = (long long)n * tiles;
-  if ((err = rwalk(g, d, du, consts, consts + n, partials, partials + pn, grads, n, len, s))) {
+  if ((err = rwalk(g, d, du, consts, consts + n, partials, partials + pn, grads, carry, n, len,
+                   chunk, s))) {
     return (int)err;
   }
   return (int)reduce(partials, grads + n, 2, n, tiles, s);
+}
+
+// *blocks: the reverse walk's one-warp blocks resident at once on one SM
+// of the device (the fewer of its two passes'), by which the wrapper
+// picks the chunk length (ops/ballistics.py:walk_slots).
+int grafx_walk_blocks_per_sm(int* blocks, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  int local = 0, rewalk = 0;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&local, rwalk_kernel<true>, kTile, 0)) ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&rewalk, rwalk_kernel<false>, kTile, 0))) {
+    return (int)err;
+  }
+  *blocks = min(local, rewalk);
+  return 0;
 }
 
 // gh[n] = g[n] + a[n] gh[n+1], gh[L] = 0; a, g and gh (n, len).

@@ -45,15 +45,18 @@ _SOURCES = {
         "grafx_ballistics_fwd": [_p] * 4 + [_i, _ll, _i, _p],
     },
     "ballistics_grad.cu": {
-        # u, d, ylast, gg, consts, du, grads, partials, n, len, kind, device, stream
-        "grafx_gain_bwd": [_p] * 8 + [_i, _ll, _i, _i, _p],
-        # u, d_a, d_b, lasts, gg, consts, du, scratch, grads, partials, n, len,
-        # kind_a, kind_b, device, stream
-        "grafx_gain_pair_bwd": [_p] * 10 + [_i, _ll, _i, _i, _i, _p],
-        # d, g, consts, du, grads, partials, n, len, device, stream
-        "grafx_ballistics_bwd": [_p] * 6 + [_i, _ll, _i, _p],
+        # u, d, ylast, gg, consts, du, grads, partials, carry, n, len, chunk, kind,
+        # device, stream
+        "grafx_gain_bwd": [_p] * 9 + [_i, _ll, _i, _i, _i, _p],
+        # u, d_a, d_b, lasts, gg, consts, du, scratch, grads, partials, carry, n,
+        # len, chunk, kind_a, kind_b, device, stream
+        "grafx_gain_pair_bwd": [_p] * 11 + [_i, _ll, _i, _i, _i, _i, _p],
+        # d, g, consts, du, grads, partials, carry, n, len, chunk, device, stream
+        "grafx_ballistics_bwd": [_p] * 7 + [_i, _ll, _i, _i, _p],
         # a, g, gh, n, len, device, stream
         "grafx_reverse_scan": [_p] * 3 + [_i, _ll, _i, _p],
+        # blocks (out), device
+        "grafx_walk_blocks_per_sm": [ctypes.POINTER(_i), _i],
     },
 }
 

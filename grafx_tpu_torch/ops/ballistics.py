@@ -50,8 +50,14 @@ treat the attack/release decisions (``d > 0``) as constants.  The
 adjoint rebuilds ``y`` from ``u - d`` shifted one sample (``y[L-1]`` is
 the saved final state) and walks ``gh[n] = g[n] + (1 - c[n+1]) gh[n+1]``
 back in time.  Per-row parameter sums are taken per 32-sample tile and
-then over the tiles, as the Pallas kernels sum each tile.
+then over the tiles, as the Pallas kernels sum each tile.  On the card
+the adjoints split that linear walk over time chunks
+(:func:`walk_chunk`; :func:`_reverse_walk_chunked` is the same
+decomposition in PyTorch, for the tests).
 """
+
+import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -62,6 +68,7 @@ from grafx_tpu_torch.ops import _cuda
 _EPS = 1e-5
 _TILE = 32
 _KINDS = {"compressor": 0, "noisegate": 1}
+_MIN_CHUNK = 64
 
 
 def fused_gain_available():
@@ -155,6 +162,95 @@ def _reverse_walk(g, d, at, rt):
         st = torch.addcmul(g[:, n], a, st)
         gh[:, n] = st
         a = omc[:, n]
+    dc = d * gh
+    dat = _tile_sum(torch.where(att, dc, 0.0))
+    drt = _tile_sum(torch.where(att, 0.0, dc))
+    return c * gh, dat, drt, omc[:, 0] * gh[:, 0]
+
+
+def walk_chunk(n, length, chunk=None, slots=None):
+    """The chunk length, in samples, of the CUDA reverse walk over ``(n,
+    length)`` rows: ``chunk`` if given (a positive multiple of 32); else,
+    for ``slots`` virtual rows resident on the card at once
+    (:func:`walk_slots`), the shortest multiple of 32, at least 64, whose
+    ``n x chunks`` virtual rows all fit, a row of at most two such chunks
+    walked whole; with neither, the whole row.  Never more than the row's
+    tiles.
+    """
+    tiles = max(1, -(-length // _TILE))
+    if chunk is None:
+        chunk = tiles * _TILE
+        if slots is not None:
+            per_row = max(1, slots // max(n, 1))
+            split = max(_MIN_CHUNK, -(-tiles // per_row) * _TILE)
+            if length > 2 * split:
+                chunk = split
+    elif isinstance(chunk, bool) or not isinstance(chunk, int) or chunk <= 0 or chunk % _TILE:
+        raise ValueError(f"chunk must be a positive multiple of {_TILE}, got {chunk!r}")
+    return min(chunk, tiles * _TILE)
+
+
+def walk_slots(device):
+    """The virtual rows (row, chunk) the CUDA reverse walk holds resident
+    at once on the CUDA ``device``: its SMs x the walk kernel's one-warp
+    blocks an SM (its occupancy, from the compiled kernel) x 32 lanes."""
+    device = torch.device(device)
+    return _walk_slots(torch.cuda.current_device() if device.index is None else device.index)
+
+
+@functools.cache
+def _walk_slots(index):
+    blocks = ctypes.c_int(0)
+    rc = _cuda.library().grafx_walk_blocks_per_sm(ctypes.byref(blocks), index)
+    if rc != 0:
+        raise RuntimeError(f"walk_slots: occupancy query failed with cudaError {rc}")
+    return torch.cuda.get_device_properties(index).multi_processor_count * blocks.value * _TILE
+
+
+def _reverse_walk_chunked(g, d, at, rt, chunk):
+    """:func:`_reverse_walk` as the CUDA kernels decompose it over chunks of
+    ``chunk`` samples (:func:`walk_chunk` validates and clamps it), in
+    three passes vectorized over (row, chunk):
+
+    1. each chunk walks from ``gh = 0``, keeping its ``gh`` at its first
+       sample and the product of its carry factors ``1 - c[m]``, m from its
+       second sample through the next chunk's first;
+    2. from the last chunk back, ``gh`` entering each chunk from its end:
+       ``x[k-1] = local[k] + prod[k] x[k]``, ``x[C-1] = 0``;
+    3. each chunk walks again from its ``x``.
+
+    Samples past L are zeros, so nothing flows from them.  One chunk is
+    :func:`_reverse_walk` bit for bit.  Used by the tests only.
+    """
+    n, length = g.shape
+    chunk = walk_chunk(n, length, chunk)
+    chunks = -(-length // chunk)
+    pad = chunks * chunk - length
+    att = d > 0
+    c = torch.where(att, at[:, None], rt[:, None])
+    omc = 1.0 - c
+    gp = F.pad(g, (0, pad)).reshape(n, chunks, chunk)
+    om = F.pad(omc, (0, pad)).reshape(n, chunks, chunk)
+    # the factor entering each chunk from its end: 1 - c at the next chunk's start
+    om_in = torch.cat([om[:, 1:, 0], torch.zeros_like(om[:, :1, 0])], dim=1)
+
+    def walk(seed):
+        gh = torch.empty_like(gp)
+        st, a, prod = seed, om_in, torch.ones_like(seed)
+        for j in range(chunk - 1, -1, -1):
+            st = torch.addcmul(gp[:, :, j], a, st)
+            gh[:, :, j] = st
+            prod = prod * a
+            a = om[:, :, j]
+        return gh, prod
+
+    local, prod = walk(torch.zeros_like(om_in))
+    x = torch.empty_like(om_in)
+    st = torch.zeros_like(at)
+    for k in range(chunks - 1, -1, -1):
+        x[:, k] = st
+        st = torch.addcmul(local[:, k, 0], prod[:, k], st)
+    gh = walk(x)[0].reshape(n, -1)[:, :length]
     dc = d * gh
     dat = _tile_sum(torch.where(att, dc, 0.0))
     drt = _tile_sum(torch.where(att, 0.0, dc))
@@ -318,6 +414,25 @@ def _tiles(u):
     return -(-u.shape[1] // _TILE)
 
 
+def _walk_chunk(u, chunk):
+    """:func:`walk_chunk` for ``u``'s rows on ``u``'s device; a bad
+    ``chunk`` raises on every device."""
+    slots = walk_slots(u.device) if chunk is None and u.device.type == "cuda" else None
+    return walk_chunk(u.shape[0], u.shape[-1], chunk, slots)
+
+
+def _carry(u, chunk):
+    """The reverse walk's ``(2, N, chunks)`` scratch for chunks of
+    ``chunk`` samples of ``u``'s rows (``None`` for one chunk)."""
+    n, length = u.shape
+    chunks = -(-length // chunk)
+    return u.new_empty(2, n, chunks) if chunks > 1 else None
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _run(name, fn_name, u, *args):
     """Launch ``fn_name(*args, device, stream)``; raise on a CUDA error."""
     rc = getattr(_cuda.library(), fn_name)(
@@ -382,15 +497,18 @@ def ballistics_gain_fwd(u, zi, at, rt, th, cf, hk, kind="compressor"):
     return gain, d, y_last
 
 
-def ballistics_gain_bwd(u, d, y_last, gg, at, rt, th, cf, hk, kind="compressor"):
+def ballistics_gain_bwd(u, d, y_last, gg, at, rt, th, cf, hk, kind="compressor", chunk=None):
     """Adjoint of :func:`ballistics_gain_fwd` for the gain cotangent
-    ``gg`` (replaces ``_bwd_gain_kernel``).
+    ``gg`` (replaces ``_bwd_gain_kernel``).  ``chunk``: the CUDA reverse
+    walk's chunk length (:func:`walk_chunk`; None picks it from the
+    shape and the card); the plain version walks whole rows.
 
     Returns:
         ``(du, dzi, dat, drt, dth, dcf, dhk)``: ``du`` ``(N, L)``, the
         rest ``(N,)``.
     """
     name = "ballistics_gain_bwd"
+    chunk = _walk_chunk(u, chunk)
     if _device(u, name) == "cpu":
         return ballistics_gain_bwd_plain(u, d, y_last, gg, at, rt, th, cf, hk, kind)
     u, d, gg = _rows(name, u, d, gg)
@@ -400,9 +518,10 @@ def ballistics_gain_bwd(u, d, y_last, gg, at, rt, th, cf, hk, kind="compressor")
     du = torch.empty_like(u)
     grads = u.new_empty(6, n)
     partials = u.new_empty(5, n, _tiles(u))
+    carry = _carry(u, chunk)
     _run(name, "grafx_gain_bwd", u, u.data_ptr(), d.data_ptr(), y_last.data_ptr(),
          gg.data_ptr(), consts.data_ptr(), du.data_ptr(), grads.data_ptr(),
-         partials.data_ptr(), n, u.shape[1], _KINDS[kind])
+         partials.data_ptr(), _ptr(carry), n, u.shape[1], chunk, _KINDS[kind])
     ballistics_gain_bwd.launches += 1
     return (du, *grads.unbind(0))
 
@@ -482,10 +601,11 @@ def ballistics_gain_pair_fwd(
 def ballistics_gain_pair_bwd(
     u, d_a, d_b, v_last, u_last, gg,
     at_a, rt_a, th_a, cf_a, hk_a, at_b, rt_b, th_b, cf_b, hk_b,
-    kinds=("noisegate", "compressor"),
+    kinds=("noisegate", "compressor"), chunk=None,
 ):
     """Adjoint of :func:`ballistics_gain_pair_fwd` for the gain cotangent
-    ``gg`` (replaces ``_bwd_gain_pair_kernel``).
+    ``gg`` (replaces ``_bwd_gain_pair_kernel``).  ``chunk`` as for
+    :func:`ballistics_gain_bwd`, for both members' walks.
 
     Returns:
         ``(du, dat_a, drt_a, dth_a, dcf_a, dhk_a, dat_b, drt_b, dth_b,
@@ -493,6 +613,7 @@ def ballistics_gain_pair_bwd(
     """
     name = "ballistics_gain_pair_bwd"
     consts = (at_a, rt_a, th_a, cf_a, hk_a, at_b, rt_b, th_b, cf_b, hk_b)
+    chunk = _walk_chunk(u, chunk)
     if _device(u, name) == "cpu":
         return ballistics_gain_pair_bwd_plain(
             u, d_a, d_b, v_last, u_last, gg, *consts, kinds=kinds
@@ -505,9 +626,10 @@ def ballistics_gain_pair_bwd(
     scratch = u.new_empty(2, *u.shape)
     grads = u.new_empty(10, n)
     partials = u.new_empty(10, n, _tiles(u))
+    carry = _carry(u, chunk)
     _run(name, "grafx_gain_pair_bwd", u, u.data_ptr(), d_a.data_ptr(), d_b.data_ptr(),
          lasts.data_ptr(), gg.data_ptr(), c.data_ptr(), du.data_ptr(), scratch.data_ptr(),
-         grads.data_ptr(), partials.data_ptr(), n, u.shape[1],
+         grads.data_ptr(), partials.data_ptr(), _ptr(carry), n, u.shape[1], chunk,
          _KINDS[kinds[0]], _KINDS[kinds[1]])
     ballistics_gain_pair_bwd.launches += 1
     return (du, *grads.unbind(0))
@@ -563,17 +685,19 @@ def ballistics_fwd(u, zi, at, rt):
     return y, d
 
 
-def ballistics_bwd(d, g, at, rt):
+def ballistics_bwd(d, g, at, rt, chunk=None):
     """Adjoint of :func:`ballistics_fwd` for the output cotangent ``g``
     (replaces ``_bwd_fused_kernel``): with ``c = at`` where ``d > 0``
     else ``rt`` and ``gh[n] = g[n] + (1 - c[n+1]) gh[n+1]``,
     ``du = c gh``, ``dat`` / ``drt`` the sums of ``d gh`` over attack /
-    release samples and ``dzi = (1 - c[0]) gh[0]``.
+    release samples and ``dzi = (1 - c[0]) gh[0]``.  ``chunk`` as for
+    :func:`ballistics_gain_bwd`.
 
     Returns:
         ``(du, dzi, dat, drt)``: ``du`` ``(N, L)``, the rest ``(N,)``.
     """
     name = "ballistics_bwd"
+    chunk = _walk_chunk(d, chunk)
     if _device(d, name) == "cpu":
         return ballistics_bwd_plain(d, g, at, rt)
     d, g = _rows(name, d, g)
@@ -582,8 +706,10 @@ def ballistics_bwd(d, g, at, rt):
     du = torch.empty_like(d)
     grads = d.new_empty(3, n)
     partials = d.new_empty(2, n, _tiles(d))
+    carry = _carry(d, chunk)
     _run(name, "grafx_ballistics_bwd", d, d.data_ptr(), g.data_ptr(), consts.data_ptr(),
-         du.data_ptr(), grads.data_ptr(), partials.data_ptr(), n, d.shape[1])
+         du.data_ptr(), grads.data_ptr(), partials.data_ptr(), _ptr(carry), n, d.shape[1],
+         chunk)
     ballistics_bwd.launches += 1
     return (du, *grads.unbind(0))
 

@@ -172,16 +172,23 @@ def _close(got, ref, rtol, atol, what):
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=rtol, atol=atol, err_msg=what)
 
 
-@pytest.mark.parametrize(
-    "kind, N, L, onepole, absent",
-    [
-        ("compressor", 5, 192, False, False),
-        ("noisegate", 5, 200, False, False),  # 200: the end pad crosses the carry
-        ("compressor", 130, 96, False, False),  # ragged N across lane groups
-        ("noisegate", 3, 200, True, False),  # one-pole, initial state 0
-        ("compressor", 4, 192, False, True),
-    ],
-)
+GAIN_BWD_CASES = [
+    ("compressor", 5, 192, False, False),
+    ("noisegate", 5, 200, False, False),  # 200: the end pad crosses the carry
+    ("compressor", 130, 96, False, False),  # ragged N across lane groups
+    ("noisegate", 3, 200, True, False),  # one-pole, initial state 0
+    ("compressor", 4, 192, False, True),
+]
+PAIR_BWD_CASES = [
+    (("noisegate", "compressor"), (1.0, 1.0), 5, 192, None),
+    (("noisegate", "compressor"), (0.0, 1.0), 5, 200, None),  # one-pole gate
+    (("compressor", "noisegate"), (1.0, 1.0), 130, 96, None),  # ragged N
+    (("noisegate", "compressor"), (0.0, 1.0), 6, 200, 0),  # padded gate
+    (("noisegate", "compressor"), (1.0, 1.0), 3, 160, 1),
+]
+
+
+@pytest.mark.parametrize("kind, N, L, onepole, absent", GAIN_BWD_CASES)
 def test_gain_fwd_bwd_plain_match_pallas(kind, N, L, onepole, absent):
     """#5 and #6: gain, residuals and every gradient against
     forward_gain_pallas_tm / backward_gain_pallas_tm."""
@@ -225,16 +232,7 @@ def test_gain_fwd_bwd_plain_match_pallas(kind, N, L, onepole, absent):
                 assert np.all(g.numpy() == 0.0), name
 
 
-@pytest.mark.parametrize(
-    "kinds, inits, N, L, absent",
-    [
-        (("noisegate", "compressor"), (1.0, 1.0), 5, 192, None),
-        (("noisegate", "compressor"), (0.0, 1.0), 5, 200, None),  # one-pole gate
-        (("compressor", "noisegate"), (1.0, 1.0), 130, 96, None),  # ragged N
-        (("noisegate", "compressor"), (0.0, 1.0), 6, 200, 0),  # padded gate
-        (("noisegate", "compressor"), (1.0, 1.0), 3, 160, 1),
-    ],
-)
+@pytest.mark.parametrize("kinds, inits, N, L, absent", PAIR_BWD_CASES)
 def test_gain_pair_fwd_bwd_plain_match_pallas(kinds, inits, N, L, absent):
     """#3 and #4: gain, residuals and the eleven gradients against
     forward_gain_pair_pallas_tm(with_residuals=True) /
@@ -283,6 +281,116 @@ def test_gain_pair_fwd_bwd_plain_match_pallas(kinds, inits, N, L, absent):
         for name, g in zip(names, got):
             if name.endswith(member) and not name.startswith("dcf"):
                 assert np.all(g.numpy() == 0.0), name
+
+
+# ---------------------------------------------------------------------------
+# The chunked reverse walk of the CUDA adjoints (#4, #6, #9), mirrored in
+# PyTorch: _reverse_walk_chunked against the serial _reverse_walk, and the
+# plain adjoints with it substituted against the Pallas kernels
+# ---------------------------------------------------------------------------
+
+
+def _chunk(spec, L):
+    """A chunk length: a number, ``"L"`` (the row's tiles: one chunk) or
+    ``">L"`` (longer than the row)."""
+    whole = -(-L // 32) * 32
+    return {"L": whole, ">L": whole + 96}.get(spec, spec)
+
+
+def _walk_inputs(N, L, chunk, seed):
+    """(g, d, at, rt): random rows, every third row's decisions switching
+    exactly at each chunk boundary (attack on even chunks, release on odd
+    ones), every fourth row absent (g = 0); release factors down to 0.005
+    so that gh carries across many chunks."""
+    rng = np.random.RandomState(seed)
+    g = rng.randn(N, L)
+    d = rng.randn(N, L)
+    switch = np.where((np.arange(L) // chunk) % 2 == 0, 1.0, -1.0) * (0.1 + np.abs(d))
+    d[1::3] = switch[1::3]
+    g[3::4] = 0.0
+    at = rng.uniform(0.05, 0.9, N)
+    rt = rng.uniform(0.005, 0.3, N)
+    return [torch.tensor(np.asarray(v, np.float32)) for v in (g, d, at, rt)]
+
+
+@pytest.mark.parametrize("N", [1, 8, 68])
+@pytest.mark.parametrize("L", [64, 200, 4096, 4109])
+@pytest.mark.parametrize("spec", [32, 64, 256, "L", ">L"])
+def test_reverse_walk_chunked_matches_serial(spec, L, N):
+    """The three-pass decomposition against the serial walk: du within
+    1e-6 of max|ref|, dzi / dat / drt within 1e-5 of theirs, absent rows
+    exactly 0, and one chunk bit for bit.  Where a per-row sum cancels so
+    far that the serial float32 walk itself is farther than that from the
+    float64 walk, the chunked walk is held to twice the serial walk's own
+    error against float64."""
+    chunk = _chunk(spec, L)
+    g, d, at, rt = _walk_inputs(N, L, chunk, seed=N + L)
+    ref = bal._reverse_walk(g, d, at, rt)
+    ref64 = bal._reverse_walk(g.double(), d, at.double(), rt.double())
+    got = bal._reverse_walk_chunked(g, d, at, rt, chunk)
+    for name, v, r, r64, rel in zip(
+        ("du", "dat", "drt", "dzi"), got, ref, ref64, (1e-6, 1e-5, 1e-5, 1e-5)
+    ):
+        assert v.shape == r.shape, name
+        err64 = (v.double() - r64).abs().max()
+        assert (v - r).abs().max() <= rel * r.abs().max() or (
+            name != "du" and err64 <= 2 * (r.double() - r64).abs().max()
+        ), name
+        assert bool((v[3::4] == 0).all()), f"absent rows: {name}"
+    if chunk >= L:
+        for name, v, r in zip(("du", "dat", "drt", "dzi"), got, ref):
+            assert torch.equal(v, r), name
+
+
+def test_walk_chunk_picks_and_checks_the_chunk_length():
+    """The console's shapes on an H100's resident virtual rows (68 pair
+    rows and 8 bus rows of 2^17, the factorized compressor's 68 x 128
+    frame calls), no slots, clamping, and refusals on every device."""
+    h100 = 132 * 8 * 32  # 132 SMs x 8 one-warp blocks x 32 lanes
+    assert bal.walk_chunk(68, 2**17, slots=h100) == 288  # 456 chunks: 969 warps
+    assert bal.walk_chunk(8, 2**17, slots=h100) == 64  # 2048 chunks: 512 warps
+    assert bal.walk_chunk(68, 128, slots=h100) == 128  # one chunk: the whole-row walk
+    assert bal.walk_chunk(68, 200, slots=h100) == 64
+    assert bal.walk_chunk(68, 2**17, slots=h100 // 2) == 544  # half the slots: 248 chunks a row
+    assert bal.walk_chunk(68, 2**17) == 2**17  # no slots: the whole row
+    assert bal.walk_chunk(3, 4109) == 4128
+    assert bal.walk_chunk(3, 4109, 8192) == 4128
+    assert bal.walk_chunk(3, 4109, 32) == 32
+    u = torch.zeros(2, 64)
+    c = torch.full((2,), 0.5)
+    for bad in (0, 48, -32, 32.0, True):
+        with pytest.raises(ValueError, match="multiple of 32"):
+            bal.walk_chunk(2, 64, bad)
+        with pytest.raises(ValueError, match="multiple of 32"):
+            bal.ballistics_bwd(u, u, c, c, chunk=bad)
+        with pytest.raises(ValueError, match="multiple of 32"):
+            bal.ballistics_gain_bwd(u, u, c, u, *[c] * 5, chunk=bad)
+        with pytest.raises(ValueError, match="multiple of 32"):
+            bal.ballistics_gain_pair_bwd(u, u, u, c, c, u, *[c] * 10, chunk=bad)
+
+
+def _substitute_chunked_walk(monkeypatch, chunk):
+    monkeypatch.setattr(
+        bal, "_reverse_walk", lambda g, d, at, rt: bal._reverse_walk_chunked(g, d, at, rt, chunk)
+    )
+
+
+@pytest.mark.parametrize("chunk", [32, 64])
+@pytest.mark.parametrize("kind, N, L, onepole, absent", GAIN_BWD_CASES)
+def test_gain_bwd_chunked_walk_matches_pallas(monkeypatch, chunk, kind, N, L, onepole, absent):
+    """#6 as the card computes it: ballistics_gain_bwd_plain with the
+    chunked walk against backward_gain_pallas_tm."""
+    _substitute_chunked_walk(monkeypatch, chunk)
+    test_gain_fwd_bwd_plain_match_pallas(kind, N, L, onepole, absent)
+
+
+@pytest.mark.parametrize("chunk", [32, 64])
+@pytest.mark.parametrize("kinds, inits, N, L, absent", PAIR_BWD_CASES)
+def test_gain_pair_bwd_chunked_walk_matches_pallas(monkeypatch, chunk, kinds, inits, N, L, absent):
+    """#4 as the card computes it: ballistics_gain_pair_bwd_plain with the
+    chunked walk (both members) against backward_gain_pair_pallas_tm."""
+    _substitute_chunked_walk(monkeypatch, chunk)
+    test_gain_pair_fwd_bwd_plain_match_pallas(kinds, inits, N, L, absent)
 
 
 def _leaves(n, seed):
