@@ -19,12 +19,23 @@ before the result line):
    #6 also at the factorized console's gate members, 68 x 2^17; the plain
    smoother's forward with residuals #8, its adjoint #9 and the reverse
    scan #10 at N = 2, 8, 17, 68 and L = 64, 128, 200, 4096, 4109, timed
-   at the factorized console's frame calls and at 68 x 2^17, #9 also
-   checked there). The adjoints' chunked reverse walk: each line of #4,
+   at the factorized console's frame calls, with the host's ms to enqueue
+   a call, and at 68 x 2^17, #9 also checked there). The adjoints' chunked reverse walk: each line of #4,
    #6 and #9 prints its chunk length and count; #4 (68 rows) and #6 (8
    rows) are also held at forced chunk lengths (one tile, 256, the whole
    row, their own pick) on L = 4109 and 2^17 + 13, and timed at their
-   console shapes over chunk lengths 64-1024 (``chunk_sweep``);
+   console shapes over chunk lengths 64-1024 (``chunk_sweep``). The
+   forward walks (a block a row): each timed line of #1, #2, #3, #5, #7
+   and #8 prints its stage length T; #1, #2, #3 and #5 are also held
+   against their plain versions at N = 1, 37, 68 and L = 4109, 8205 (row
+   starts not 16-byte aligned), at their own T and at T = 96; at 68 x
+   (2^17 + 13) each of the six forward kernels on the first 2^17 samples
+   equals the first 2^17 columns of its call on the whole rows, bit for
+   bit (causality); #8 at 68 x 2^17, #5 at 8 x 2^17 and #3 at 68 x 2^17
+   are timed over T = 64-1024 (#3 also as two #8 walks with the knees
+   between in PyTorch) (``walk_sweep``); and #3 on twice as many rows as
+   the card has SMs, whose blocks share SMs, equals its call on the first
+   half of the rows bit for bit and is timed beside that half;
 4. exactness: the exact IIR cascade against scipy float64;
 5. serve: three requests of (4, 17, 2, 2^17) through the fused console,
    with every kernel's launch count (the primal kernels #1/#2 only);
@@ -50,8 +61,9 @@ before the result line):
 
 The line before the last is ``{"kernels": [...]}``: per kernel its
 errors, times, launches on its path and per run of each path, and its
-bound (bytes over 3.35 TB/s or operations over 67 TFLOP/s); the last
-line is ``{"ok": true, "device": {...}}``.
+bound (bytes over 3.35 TB/s or operations over 67 TFLOP/s), and for the
+forward walks their stage length; the last line is ``{"ok": true,
+"device": {...}}``.
 
 ``--profile DIR`` adds, after phase 5, one more warm request, after phase
 6, one more warm step, after phase 9, one more warm block and, after
@@ -113,6 +125,13 @@ FACTORIZED_STEP = {"ballistics_gain_fwd": 1, "ballistics_gain_bwd": 1,
 # None, the wrapper's own pick
 FORCED_CHUNKS = (32, 256, "whole", None)
 SWEEP_CHUNKS = (64, 128, 256, 512, 1024)  # timed at the console's shapes
+# the forward walks' stage lengths T timed at the console's shapes, and the
+# one forced on the ragged checks (many stages, a ring refilled many times)
+SWEEP_SAMPLES = (64, 128, 256, 512, 1024)
+FORCED_SAMPLES = 96
+RAGGED_ROWS, RAGGED_LENGTHS = (1, 37, 68), (4096 + 13, 8192 + 13)
+FORWARDS = ("ballistics_gain_pair_core", "ballistics_gain_pair_fwd", "ballistics_gain_core",
+            "ballistics_gain_fwd", "ballistics_core", "ballistics_fwd")
 MAX_ABS = 2e-5  # the bound benchmarks/verify_ballistics_tpu.py uses on the TPU
 DU_REL = 1e-5  # du: max abs error <= DU_REL * max |ref|
 GRAD_REL = 1e-4  # per-row gradients: max abs error <= GRAD_REL * max |ref|
@@ -191,6 +210,18 @@ def device_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def host_ms(fn, reps):
+    """Host wall ms per call of ``fn`` to enqueue it, over ``reps`` calls
+    (the card is synchronised before and after, not between)."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - start) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
 
 
 def max_err(got, ref):
@@ -324,6 +355,12 @@ def chunking(shape, chunk=None):
     return {"chunk": t, "chunks": -(-length // t)}
 
 
+def walk_stage(name, shape):
+    """A forward kernel's stage at ``shape`` as the wrapper picks it,
+    ``{"samples": T}``; other kernels ``{}``."""
+    return {"samples": bal.walk_samples(shape[1])} if name in FORWARDS else {}
+
+
 def grad_names(case):
     if case.pair:
         return [f"d{p}_{m}" for m in "ab" for p in ("at", "rt", "th", "cf", "hk")]
@@ -370,7 +407,7 @@ def check_case(label, case, stats, absent=None, timed=False, path=None):
                            (bwd_name, lambda: case.backward(fwd))):
             kern()  # warm-up
             ms = device_ms(kern, reps=5)[0]
-            more = chunking(shape) if name == bwd_name else {}
+            more = chunking(shape) if name == bwd_name else walk_stage(name, shape)
             if path is None:
                 stats[name].update(ms=ms, plain_ms=plain_ms[name], shape=shape, **more)
             else:
@@ -450,6 +487,158 @@ def check_forced_chunks(gen, stats):
                     **chunking(u.shape, forced))
 
 
+def forward_at(case, res, samples):
+    """#1 / #3 (``case.pair``) or #2 / #5 (``res``: with residuals) with
+    stages of a forced ``samples``, or the wrapper's pick for None."""
+    if case.pair:
+        return bal._pair_fwd_cuda("forced stage", case.u, case.consts, case.kinds, case.inits, res,
+                                  samples)
+    return bal._gain_fwd_cuda("forced stage", case.u, case.consts, case.kinds, res, samples)
+
+
+def check_ragged_forwards(gen, stats):
+    """#1, #2, #3 and #5 against their plain versions at N = 1, 37, 68 and
+    L = 4109, 8205: row starts that are not 16-byte aligned, at the
+    wrapper's stage length and at FORCED_SAMPLES; #1's gain equals #3's
+    and #2's #5's, bit for bit, and an absent single member's gain is
+    exactly 1."""
+    for n in RAGGED_ROWS:
+        for length in RAGGED_LENGTHS:
+            u = energy(gen, n, length)
+            absent = torch.arange(n, device="cuda") % 5 == 0
+            single = KernelCase(False, u, [torch.rand(n, generator=gen, device="cuda")]
+                                + gain_consts(gen, n, "compressor", absent=absent),
+                                "compressor", None, None)
+            gate = torch.arange(n, device="cuda") % 3 != 0
+            pair = KernelCase(True, u, gain_consts(gen, n, "noisegate", onepole=True, absent=gate)
+                              + gain_consts(gen, n, "compressor"),
+                              ("noisegate", "compressor"), (0.0, 1.0), None)
+            for case in (single, pair):
+                prim_name, fwd_name, _ = case.names
+                ref = case.forward(plain=True)
+                for samples in (None, FORCED_SAMPLES):
+                    prim, fwd = forward_at(case, False, samples), forward_at(case, True, samples)
+                    torch.cuda.synchronize()
+                    label = f"ragged ({n}, {length}) T {samples or 'picked'}"
+                    err = max_err(prim, ref[0])
+                    ferr = max(max_err(a, b) for a, b in zip(fwd, ref))
+                    check(err < MAX_ABS, f"{prim_name} {label}: max abs err {err} >= {MAX_ABS}")
+                    check(ferr < MAX_ABS, f"{fwd_name} {label}: max abs err {ferr} >= {MAX_ABS}")
+                    check(torch.equal(fwd[0], prim), f"{fwd_name} {label}: the gain differs from {prim_name}'s")
+                    if not case.pair:
+                        check(bool((prim[absent] == 1.0).all()), f"{prim_name} {label}: absent gain != 1")
+                    stats[prim_name]["max_abs_err"] = max(stats[prim_name]["max_abs_err"], err)
+                    stats[fwd_name]["max_abs_err"] = max(stats[fwd_name]["max_abs_err"], ferr)
+                    say("kernels", case=f"{prim_name}/{fwd_name} {label}", primal_err=f"{err:.3g}",
+                        fwd_err=f"{ferr:.3g}", gain_bit_equal=True)
+
+
+def check_causality(gen):
+    """At 68 x (2^17 + 13), whose row starts are not 16-byte aligned, each
+    forward kernel (#1, #2, #3, #5, #7, #8) on the first 2^17 samples
+    equals the first 2^17 columns of its call on the whole rows, bit for
+    bit, in every per-sample output."""
+    n = BATCH * CHAINS
+    u = energy(gen, n, AUDIO_LEN + 13)
+    head = u[:, :AUDIO_LEN].contiguous()
+    pair = gain_consts(gen, n, "noisegate", onepole=True) + gain_consts(gen, n, "compressor")
+    pair_kw = {"kinds": ("noisegate", "compressor"), "inits": (0.0, 1.0)}
+    single = [torch.rand(n, generator=gen, device="cuda")] + gain_consts(gen, n, "compressor")
+    calls = {
+        "ballistics_gain_pair_core": lambda x: [bal.ballistics_gain_pair_core(x, *pair, **pair_kw)],
+        "ballistics_gain_pair_fwd": lambda x: bal.ballistics_gain_pair_fwd(x, *pair, **pair_kw)[:3],
+        "ballistics_gain_core": lambda x: [bal.ballistics_gain_core(x, *single)],
+        "ballistics_gain_fwd": lambda x: bal.ballistics_gain_fwd(x, *single)[:2],
+        "ballistics_core": lambda x: [bal.ballistics_core(x, *single[:3])],
+        "ballistics_fwd": lambda x: list(bal.ballistics_fwd(x, *single[:3])),
+    }
+    for name, call in calls.items():
+        whole, part = call(u), call(head)
+        torch.cuda.synchronize()
+        for i, (w, p) in enumerate(zip(whole, part)):
+            check(torch.equal(w[:, :AUDIO_LEN], p),
+                  f"{name}: output {i} on the first {AUDIO_LEN} samples differs from the whole call's")
+    say("kernels", causality=f"({n}, {AUDIO_LEN + 13}) vs ({n}, {AUDIO_LEN})", kernels=len(calls),
+        bit_equal=True)
+
+
+def split_pair(u, consts, kinds, inits, samples):
+    """#3's outputs the unfused way: two #8 walks with stages of
+    ``samples``, with the knees between them in PyTorch (the pair kernel's
+    yardstick)."""
+    at_a, rt_a, th_a, cf_a, hk_a, at_b, rt_b, th_b, cf_b, hk_b = consts
+    v, d_a = bal._walk_fwd_cuda("split pair", u, (torch.full_like(at_a, inits[0]), at_a, rt_a),
+                                True, samples)
+    ga = bal._knee_gain(v, th_a, cf_a, hk_a, kinds[0])
+    ec = ga * ga * u
+    u2, d_b = bal._walk_fwd_cuda("split pair", ec, (torch.full_like(at_b, inits[1]), at_b, rt_b),
+                                 True, samples)
+    return ga * bal._knee_gain(u2, th_b, cf_b, hk_b, kinds[1]), d_a, d_b, v[:, -1], u2[:, -1]
+
+
+def walk_sweep(gen, stats):
+    """The forward walks' stage length against their time: #8 at 68 x
+    2^17, #5 at 8 x 2^17 and #3 at 68 x 2^17 over SWEEP_SAMPLES, #3 fused
+    and split (:func:`split_pair`), the split one first held to the fused
+    one; each over 3 calls after a warm-up."""
+    (pair, _), (bus, _) = console_cases(gen)[:2]
+    walk = walk_args(gen, BATCH * CHAINS, AUDIO_LEN)
+    fused = pair.forward()
+    split = split_pair(pair.u, pair.consts, pair.kinds, pair.inits, None)
+    torch.cuda.synchronize()
+    err = max(max_err(a, b) for a, b in zip(split, fused))
+    check(err < MAX_ABS, f"split pair vs fused pair: max abs err {err} >= {MAX_ABS}")
+    say("kernels", split_pair_vs_fused_err=f"{err:.3g}")
+    for samples in SWEEP_SAMPLES:
+        entries = [
+            ("ballistics_fwd", walk[0].shape, {},
+             lambda: bal._walk_fwd_cuda("sweep", walk[0], walk[1:], True, samples)),
+            ("ballistics_gain_fwd", bus.u.shape, {}, lambda: forward_at(bus, True, samples)),
+            ("ballistics_gain_pair_fwd", pair.u.shape, {"structure": "fused"},
+             lambda: forward_at(pair, True, samples)),
+            ("ballistics_gain_pair_fwd", pair.u.shape, {"structure": "split"},
+             lambda: split_pair(pair.u, pair.consts, pair.kinds, pair.inits, samples)),
+        ]
+        for name, shape, extra, fn in entries:
+            fn()  # warm-up
+            ms = device_ms(fn, reps=3)[0]
+            stats[name]["walk_sweep"].append({"shape": list(shape), "samples": samples, **extra,
+                                              "ms": ms})
+            say("kernels", sweep=name, shape=tuple(shape), samples=samples, **extra,
+                kernel_ms=f"{ms:.3f}")
+
+
+def check_many_rows(gen, stats):
+    """#3 on twice as many rows as the card has SMs, so that two blocks
+    share each SM (their rings sized to fit together): its first half of
+    the rows equals the call on that half alone (one block an SM, a larger
+    ring), bit for bit, in every output; each call timed over 3 calls
+    after a warm-up."""
+    name, sms = "ballistics_gain_pair_fwd", torch.cuda.get_device_properties(0).multi_processor_count
+    n = 2 * sms
+    u = energy(gen, n, AUDIO_LEN)
+    consts = gain_consts(gen, n, "noisegate", onepole=True) + gain_consts(gen, n, "compressor")
+    kw = {"kinds": ("noisegate", "compressor"), "inits": (0.0, 1.0)}
+    half_u, half_c = u[:sms].contiguous(), [c[:sms].contiguous() for c in consts]
+    whole = bal.ballistics_gain_pair_fwd(u, *consts, **kw)
+    half = bal.ballistics_gain_pair_fwd(half_u, *half_c, **kw)
+    torch.cuda.synchronize()
+    for i, (w, h) in enumerate(zip(whole, half)):
+        check(torch.equal(w[:sms], h), f"{name}: output {i} of {n} rows differs on its first {sms}")
+    del whole, half
+    times = {}
+    for rows, call in ((sms, lambda: bal.ballistics_gain_pair_fwd(half_u, *half_c, **kw)),
+                       (n, lambda: bal.ballistics_gain_pair_fwd(u, *consts, **kw))):
+        call()  # warm-up
+        times[rows] = device_ms(call, reps=3)[0]
+        stats[name]["more"].append({"path": "rows sharing SMs" if rows > sms else "a row an SM",
+                                    "shape": [rows, AUDIO_LEN], "ms": times[rows], "plain_ms": None,
+                                    "bound_ms": bound(name, rows, AUDIO_LEN)[0],
+                                    **walk_stage(name, (rows, AUDIO_LEN))})
+    say("kernels", many_rows=name, sms=sms, bit_equal=True,
+        **{f"kernel_ms_{rows}_rows": f"{ms:.3f}" for rows, ms in times.items()})
+
+
 def check_walk(label, u, zi, at, rt, stats, timed=False):
     """Hold kernel #7 against its plain version, and the walk split in
     two halves (the second from the first's last sample) against one
@@ -475,8 +664,9 @@ def check_walk(label, u, zi, at, rt, stats, timed=False):
         bal.ballistics_core(u, zi, at, rt)  # warm-up
         stats[name]["ms"] = device_ms(lambda: bal.ballistics_core(u, zi, at, rt), reps=5)[0]
         stats[name]["shape"] = tuple(u.shape)
+        stats[name].update(walk_stage(name, tuple(u.shape)))
         say("kernels", kernel=name, shape=tuple(u.shape), kernel_ms=f"{stats[name]['ms']:.3f}",
-            plain_ms=f"{stats[name]['plain_ms']:.1f}")
+            plain_ms=f"{stats[name]['plain_ms']:.1f}", **walk_stage(name, tuple(u.shape)))
 
 
 def walk_args(gen, n, length):
@@ -569,22 +759,27 @@ def check_smoother_bwd_at(label, case, stats):
 def time_smoother(case, stats, plain, main):
     """Time #8-#10 on one case: each kernel over 5 calls after a warm-up
     (and its busy device time under the profiler) and, with ``plain``,
-    each plain version's one call.  ``main``: the times of the kernel's
-    row, else an extra shape of it."""
+    the host's time to enqueue it over 100 calls and each plain version's
+    one call.  ``main``: the times of the kernel's row, else an extra
+    shape of it."""
     shape = tuple(case[0].shape)
     for name, (kern, ref) in smoother_calls(case).items():
         kern()  # warm-up
         ms = device_ms(kern, reps=5)[0]
         busy = device_busy_ms(kern, reps=5)
+        host = host_ms(kern, reps=100) if plain else None
         plain_ms = device_ms(ref, reps=1)[0] if plain else None
         bound_ms, bound_by = bound(name, *shape)
-        more = chunking(shape) if name == "ballistics_bwd" else {}
+        more = chunking(shape) if name == "ballistics_bwd" else walk_stage(name, shape)
         if main:
-            stats[name].update(ms=ms, plain_ms=plain_ms, shape=shape, device_busy_ms=busy, **more)
+            stats[name].update(ms=ms, plain_ms=plain_ms, shape=shape, device_busy_ms=busy,
+                               host_ms=host, **more)
         else:
             stats[name]["more"].append({"shape": list(shape), "ms": ms, "device_busy_ms": busy,
-                                        "plain_ms": plain_ms, "bound_ms": bound_ms, **more})
+                                        "host_ms": host, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                        **more})
         say("kernels", kernel=name, shape=shape, kernel_ms=f"{ms:.4f}", device_busy_ms=f"{busy:.4f}",
+            host_ms="not timed" if host is None else f"{host:.4f}",
             plain_ms="not timed" if plain_ms is None else f"{plain_ms:.1f}",
             bound_ms=f"{bound_ms:.3g}", bound_by=bound_by, **more)
 
@@ -826,13 +1021,15 @@ def kernel_row(name, source, replaces, stats):
            "launches": s.get("launches", 0), "max_abs_err": s["max_abs_err"], "ms": s["ms"],
            "plain_ms": s["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
            "library_ms": None, "shape": list(s["shape"]), "launches_per_run": s["per_run"]}
-    for key in ("device_busy_ms", "chunk", "chunks"):
+    for key in ("device_busy_ms", "host_ms", "chunk", "chunks", "samples"):
         if key in s:
             row[key] = s[key]
     if s["more"]:
         row["more_shapes"] = s["more"]
     if s["chunk_sweep"]:
         row["chunk_sweep"] = s["chunk_sweep"]
+    if s["walk_sweep"]:
+        row["walk_sweep"] = s["walk_sweep"]
     if name in NO_PATH:
         row["path"] = NO_PATH[name]
     return row
@@ -877,7 +1074,8 @@ def main():
 
     # 3. kernels against their plain versions on the card
     gen = torch.Generator(device="cuda").manual_seed(0)
-    stats = {name: {"max_abs_err": 0.0, "per_run": {}, "more": [], "chunk_sweep": []}
+    stats = {name: {"max_abs_err": 0.0, "per_run": {}, "more": [], "chunk_sweep": [],
+                    "walk_sweep": []}
              for name in KERNELS}
     say("kernels", walk_slots=bal.walk_slots("cuda"))
     with torch.inference_mode():
@@ -887,6 +1085,10 @@ def main():
             check_case(f"console {tuple(case.u.shape)}" + (f" {path}" if path else ""), case,
                        stats, timed=True, path=path)
         check_forced_chunks(gen, stats)
+        check_ragged_forwards(gen, stats)
+        check_causality(gen)
+        walk_sweep(gen, stats)
+        check_many_rows(gen, stats)
         # #7 at the stream's row counts (17 chain and 2 bus compressors)
         # and more, at a block, a ragged block and a call shorter than its
         # 8-tile ring; timed at the stream's call
@@ -900,8 +1102,10 @@ def main():
         big_ms = device_ms(lambda: bal.ballistics_core(*big), reps=5)[0]
         stats["ballistics_core"]["more"].append(
             {"shape": list(big[0].shape), "ms": big_ms, "plain_ms": None,
-             "bound_ms": bound("ballistics_core", *big[0].shape)[0]})
-        say("kernels", kernel="ballistics_core", shape=tuple(big[0].shape), kernel_ms=f"{big_ms:.3f}")
+             "bound_ms": bound("ballistics_core", *big[0].shape)[0],
+             **walk_stage("ballistics_core", tuple(big[0].shape))})
+        say("kernels", kernel="ballistics_core", shape=tuple(big[0].shape), kernel_ms=f"{big_ms:.3f}",
+            **walk_stage("ballistics_core", tuple(big[0].shape)))
         del big
         # #8-#10 at small and ragged shapes (the frame calls' 128 included),
         # then timed at the factorized console's frame calls (68 gate ->

@@ -1,7 +1,8 @@
 // Shared pieces of the ballistics gain kernels (ballistics_gain.cu,
-// ballistics_grad.cu): the 32 x 32 time tiles a walk stages through
-// shared memory, and the quadratic knee of
-// grafx_tpu/ops/ballistics_tpu.py (_knee_f, _knee_fp, _knee_fhk).
+// ballistics_grad.cu): the 32 x 32 time tiles a reverse walk stages
+// through shared memory, the step of every forward walk, and the
+// quadratic knee of grafx_tpu/ops/ballistics_tpu.py (_knee_f, _knee_fp,
+// _knee_fhk).
 //
 // kind 0: compressor (cf = 1/ratio - 1); kind 1: noise gate
 // (cf = ratio - 1).  logf/expf are the accurate library versions and
@@ -34,6 +35,25 @@ __device__ __forceinline__ void fetch_tile(Tile& t, const float* x, int row0,
       t[i][lane] = 0.0f;
     }
   }
+}
+
+// One step of the ballistics recursion from state s, oma = 1 - at and
+// omr = 1 - rt: u > s ? oma s + at u : omr s + rt u, the arithmetic of
+// every forward walk, with its roundings spelled out, so that walks in
+// different kernels agree bit for bit.  The choice is a register mask
+// (set) and a bitwise select (lop3): written as a conditional, the
+// compiler guards one FMA with the compare's predicate, a longer chain of
+// dependent latency on the H100.
+__device__ __forceinline__ float walk_step(float u, float s, float at, float oma, float rt,
+                                           float omr) {
+  const float up = __fmaf_rn(oma, s, __fmul_rn(at, u));
+  const float dn = __fmaf_rn(omr, s, __fmul_rn(rt, u));
+  unsigned attack, y;  // attack: all ones where u > s
+  asm("set.gt.u32.f32 %0, %1, %2;" : "=r"(attack) : "f"(u), "f"(s));
+  asm("lop3.b32 %0, %1, %2, %3, 0xCA;"  // attack ? up : dn
+      : "=r"(y)
+      : "r"(attack), "r"(__float_as_uint(up)), "r"(__float_as_uint(dn)));
+  return __uint_as_float(y);
 }
 
 __device__ __forceinline__ float knee_f(float x, float hk, int kind) {

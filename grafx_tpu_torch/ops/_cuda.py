@@ -33,16 +33,16 @@ _p, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # source -> {function: argtypes}; every function returns a cudaError_t as int
 _SOURCES = {
     "ballistics_gain.cu": {
-        # u, gain, consts, n, len, kind, device, stream
-        "grafx_gain_fwd": [_p, _p, _p, _i, _ll, _i, _i, _p],
-        # u, gain, d, ylast, consts, n, len, kind, device, stream
-        "grafx_gain_fwd_res": [_p] * 5 + [_i, _ll, _i, _i, _p],
-        # u, gain, scratch, consts, n, len, kind_a, kind_b, init_a, init_b, device, stream
-        "grafx_gain_pair_fwd": [_p] * 4 + [_i, _ll, _i, _i, _f, _f, _i, _p],
-        # u, gain, scratch, d_a, d_b, v_last, u_last, consts, then as above
-        "grafx_gain_pair_fwd_res": [_p] * 8 + [_i, _ll, _i, _i, _f, _f, _i, _p],
-        # u, y, d (null: no residual), consts, n, len, device, stream
-        "grafx_ballistics_fwd": [_p] * 4 + [_i, _ll, _i, _p],
+        # u, gain, consts, n, len, kind, samples, device, stream
+        "grafx_gain_fwd": [_p, _p, _p, _i, _ll, _i, _i, _i, _p],
+        # u, gain, d, ylast, consts, n, len, kind, samples, device, stream
+        "grafx_gain_fwd_res": [_p] * 5 + [_i, _ll, _i, _i, _i, _p],
+        # u, gain, consts, n, len, kind_a, kind_b, init_a, init_b, samples, device, stream
+        "grafx_gain_pair_fwd": [_p] * 3 + [_i, _ll, _i, _i, _f, _f, _i, _i, _p],
+        # u, gain, d_a, d_b, v_last, u_last, consts, then as above
+        "grafx_gain_pair_fwd_res": [_p] * 7 + [_i, _ll, _i, _i, _f, _f, _i, _i, _p],
+        # u, y, d (null: no residual), consts, n, len, samples, device, stream
+        "grafx_ballistics_fwd": [_p] * 4 + [_i, _ll, _i, _i, _p],
     },
     "ballistics_grad.cu": {
         # u, d, ylast, gg, consts, du, grads, partials, carry, n, len, chunk, kind,

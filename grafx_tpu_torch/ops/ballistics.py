@@ -54,6 +54,13 @@ then over the tiles, as the Pallas kernels sum each tile.  On the card
 the adjoints split that linear walk over time chunks
 (:func:`walk_chunk`; :func:`_reverse_walk_chunked` is the same
 decomposition in PyTorch, for the tests).
+
+The forward walks cannot be split so: one thread walks a row from its
+first sample to its last.  On the card a block walks one row, staged
+through shared memory T samples at a time by bulk copies, and the pair's
+two members walk in one kernel, member b a stage behind member a
+(:func:`walk_samples` picks T; ``csrc/ballistics_gain.cu`` has the
+design).
 """
 
 import ctypes
@@ -69,6 +76,7 @@ _EPS = 1e-5
 _TILE = 32
 _KINDS = {"compressor": 0, "noisegate": 1}
 _MIN_CHUNK = 64
+_STAGE = 1024  # the most samples a stage of the forward walks holds
 
 
 def fused_gain_available():
@@ -188,6 +196,22 @@ def walk_chunk(n, length, chunk=None, slots=None):
     elif isinstance(chunk, bool) or not isinstance(chunk, int) or chunk <= 0 or chunk % _TILE:
         raise ValueError(f"chunk must be a positive multiple of {_TILE}, got {chunk!r}")
     return min(chunk, tiles * _TILE)
+
+
+def walk_samples(length, samples=None):
+    """The samples T a stage of the CUDA forward walks holds, over rows of
+    ``length`` samples: ``samples`` if given (a positive multiple of 32,
+    at most 1024); else 1024, or the row's length rounded up to 32 where
+    that is less.  A block walks one row through a ring of such stages.
+    """
+    if samples is None:
+        return min(_STAGE, max(1, -(-length // _TILE)) * _TILE)
+    if (isinstance(samples, bool) or not isinstance(samples, int) or samples <= 0
+            or samples % _TILE or samples > _STAGE):
+        raise ValueError(
+            f"samples must be a positive multiple of {_TILE} up to {_STAGE}, got {samples!r}"
+        )
+    return samples
 
 
 def walk_slots(device):
@@ -468,13 +492,27 @@ def ballistics_gain_core(u, zi, at, rt, th, cf, hk, kind="compressor"):
     name = "ballistics_gain_core"
     if _device(u, name) == "cpu":
         return ballistics_gain_plain(u, zi, at, rt, th, cf, hk, kind)
-    (u,) = _rows(name, u)
-    consts = _consts(name, u, zi, at, rt, th, cf, hk)
-    gain = torch.empty_like(u)
-    _run(name, "grafx_gain_fwd", u, u.data_ptr(), gain.data_ptr(), consts.data_ptr(),
-         u.shape[0], u.shape[1], _KINDS[kind])
+    gain = _gain_fwd_cuda(name, u, args[1:], kind, res=False)
     ballistics_gain_core.launches += 1
     return gain
+
+
+def _gain_fwd_cuda(name, u, consts, kind, res, samples=None):
+    """#2 (``res`` False: the gain) or #5 (``(gain, d, y_last)``) on the
+    card, the walk's stage of ``samples`` (:func:`walk_samples`)."""
+    (u,) = _rows(name, u)
+    c = _consts(name, u, *consts)
+    n, length = u.shape
+    samples = walk_samples(length, samples)
+    gain = torch.empty_like(u)
+    if not res:
+        _run(name, "grafx_gain_fwd", u, u.data_ptr(), gain.data_ptr(), c.data_ptr(), n, length,
+             _KINDS[kind], samples)
+        return gain
+    d, y_last = torch.empty_like(u), u.new_empty(n)
+    _run(name, "grafx_gain_fwd_res", u, u.data_ptr(), gain.data_ptr(), d.data_ptr(),
+         y_last.data_ptr(), c.data_ptr(), n, length, _KINDS[kind], samples)
+    return gain, d, y_last
 
 
 def ballistics_gain_fwd(u, zi, at, rt, th, cf, hk, kind="compressor"):
@@ -487,14 +525,9 @@ def ballistics_gain_fwd(u, zi, at, rt, th, cf, hk, kind="compressor"):
     name = "ballistics_gain_fwd"
     if _device(u, name) == "cpu":
         return ballistics_gain_fwd_plain(u, zi, at, rt, th, cf, hk, kind)
-    (u,) = _rows(name, u)
-    consts = _consts(name, u, zi, at, rt, th, cf, hk)
-    gain, d = torch.empty_like(u), torch.empty_like(u)
-    y_last = u.new_empty(u.shape[0])
-    _run(name, "grafx_gain_fwd_res", u, u.data_ptr(), gain.data_ptr(), d.data_ptr(),
-         y_last.data_ptr(), consts.data_ptr(), u.shape[0], u.shape[1], _KINDS[kind])
+    out = _gain_fwd_cuda(name, u, (zi, at, rt, th, cf, hk), kind, res=True)
     ballistics_gain_fwd.launches += 1
-    return gain, d, y_last
+    return out
 
 
 def ballistics_gain_bwd(u, d, y_last, gg, at, rt, th, cf, hk, kind="compressor", chunk=None):
@@ -560,14 +593,29 @@ def ballistics_gain_pair_core(
     name = "ballistics_gain_pair_core"
     if _device(u, name) == "cpu":
         return ballistics_gain_pair_plain(u, *consts, kinds=kinds, inits=inits)
-    (u,) = _rows(name, u)
-    c = _consts(name, u, *consts)
-    gain, scratch = torch.empty_like(u), torch.empty_like(u)
-    _run(name, "grafx_gain_pair_fwd", u, u.data_ptr(), gain.data_ptr(), scratch.data_ptr(),
-         c.data_ptr(), u.shape[0], u.shape[1], _KINDS[kinds[0]], _KINDS[kinds[1]],
-         float(inits[0]), float(inits[1]))
+    gain = _pair_fwd_cuda(name, u, consts, kinds, inits, res=False)
     ballistics_gain_pair_core.launches += 1
     return gain
+
+
+def _pair_fwd_cuda(name, u, consts, kinds, inits, res, samples=None):
+    """#1 (``res`` False: the gain) or #3 (``(gain, d_a, d_b, v_last,
+    u_last)``) on the card, the walks' stage of ``samples``
+    (:func:`walk_samples`)."""
+    (u,) = _rows(name, u)
+    c = _consts(name, u, *consts)
+    n, length = u.shape
+    tail = (n, length, _KINDS[kinds[0]], _KINDS[kinds[1]], float(inits[0]), float(inits[1]),
+            walk_samples(length, samples))
+    gain = torch.empty_like(u)
+    if not res:
+        _run(name, "grafx_gain_pair_fwd", u, u.data_ptr(), gain.data_ptr(), c.data_ptr(), *tail)
+        return gain
+    d_a, d_b = torch.empty_like(u), torch.empty_like(u)
+    lasts = u.new_empty(2, n)
+    _run(name, "grafx_gain_pair_fwd_res", u, u.data_ptr(), gain.data_ptr(), d_a.data_ptr(),
+         d_b.data_ptr(), lasts[0].data_ptr(), lasts[1].data_ptr(), c.data_ptr(), *tail)
+    return gain, d_a, d_b, lasts[0], lasts[1]
 
 
 def ballistics_gain_pair_fwd(
@@ -586,16 +634,9 @@ def ballistics_gain_pair_fwd(
     consts = (at_a, rt_a, th_a, cf_a, hk_a, at_b, rt_b, th_b, cf_b, hk_b)
     if _device(u, name) == "cpu":
         return ballistics_gain_pair_fwd_plain(u, *consts, kinds=kinds, inits=inits)
-    (u,) = _rows(name, u)
-    c = _consts(name, u, *consts)
-    gain, scratch, d_a, d_b = (torch.empty_like(u) for _ in range(4))
-    lasts = u.new_empty(2, u.shape[0])
-    _run(name, "grafx_gain_pair_fwd_res", u, u.data_ptr(), gain.data_ptr(),
-         scratch.data_ptr(), d_a.data_ptr(), d_b.data_ptr(), lasts[0].data_ptr(),
-         lasts[1].data_ptr(), c.data_ptr(), u.shape[0], u.shape[1],
-         _KINDS[kinds[0]], _KINDS[kinds[1]], float(inits[0]), float(inits[1]))
+    out = _pair_fwd_cuda(name, u, consts, kinds, inits, res=True)
     ballistics_gain_pair_fwd.launches += 1
-    return gain, d_a, d_b, lasts[0], lasts[1]
+    return out
 
 
 def ballistics_gain_pair_bwd(
@@ -656,13 +697,21 @@ def ballistics_core(u, zi, at, rt):
     name = "ballistics_core"
     if _device(u, name) == "cpu":
         return ballistics_plain(u, zi, at, rt)
-    (u,) = _rows(name, u)
-    consts = _consts(name, u, zi, at, rt)
-    y = torch.empty_like(u)
-    _run(name, "grafx_ballistics_fwd", u, u.data_ptr(), y.data_ptr(), None,
-         consts.data_ptr(), u.shape[0], u.shape[1])
+    y = _walk_fwd_cuda(name, u, (zi, at, rt), res=False)
     ballistics_core.launches += 1
     return y
+
+
+def _walk_fwd_cuda(name, u, consts, res, samples=None):
+    """#7 (``res`` False: ``y``) or #8 (``(y, d)``) on the card, the
+    walk's stage of ``samples`` (:func:`walk_samples`)."""
+    (u,) = _rows(name, u)
+    c = _consts(name, u, *consts)
+    y = torch.empty_like(u)
+    d = torch.empty_like(u) if res else None
+    _run(name, "grafx_ballistics_fwd", u, u.data_ptr(), y.data_ptr(), _ptr(d), c.data_ptr(),
+         u.shape[0], u.shape[1], walk_samples(u.shape[1], samples))
+    return (y, d) if res else y
 
 
 def ballistics_fwd(u, zi, at, rt):
@@ -676,13 +725,9 @@ def ballistics_fwd(u, zi, at, rt):
     name = "ballistics_fwd"
     if _device(u, name) == "cpu":
         return ballistics_fwd_plain(u, zi, at, rt)
-    (u,) = _rows(name, u)
-    consts = _consts(name, u, zi, at, rt)
-    y, d = torch.empty_like(u), torch.empty_like(u)
-    _run(name, "grafx_ballistics_fwd", u, u.data_ptr(), y.data_ptr(), d.data_ptr(),
-         consts.data_ptr(), u.shape[0], u.shape[1])
+    out = _walk_fwd_cuda(name, u, (zi, at, rt), res=True)
     ballistics_fwd.launches += 1
-    return y, d
+    return out
 
 
 def ballistics_bwd(d, g, at, rt, chunk=None):

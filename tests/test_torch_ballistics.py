@@ -77,6 +77,10 @@ def _t(arrays):
         ("compressor", 130, 96, False, False),  # ragged N across lane groups
         ("noisegate", 3, 160, True, False),
         ("compressor", 4, 128, False, True),
+        # odd N and L % 4 = 1, 2, 3: row starts off 16-byte alignment on the card
+        ("compressor", 9, 201, False, False),
+        ("noisegate", 9, 202, True, False),
+        ("noisegate", 37, 203, False, False),
     ],
 )
 def test_gain_plain_matches_pallas(kind, N, L, onepole, absent):
@@ -105,6 +109,8 @@ def test_gain_plain_matches_pallas(kind, N, L, onepole, absent):
         (("compressor", "noisegate"), (1.0, 1.0), 130, 96, None),  # ragged N
         (("noisegate", "compressor"), (0.0, 1.0), 6, 128, 0),  # padded gate
         (("noisegate", "compressor"), (1.0, 1.0), 3, 160, 1),
+        (("noisegate", "compressor"), (0.0, 1.0), 9, 201, None),  # odd N, L % 4 = 1
+        (("compressor", "noisegate"), (1.0, 1.0), 37, 203, None),  # L % 4 = 3
     ],
 )
 def test_gain_pair_plain_matches_pallas(kinds, inits, N, L, absent):
@@ -178,6 +184,8 @@ GAIN_BWD_CASES = [
     ("compressor", 130, 96, False, False),  # ragged N across lane groups
     ("noisegate", 3, 200, True, False),  # one-pole, initial state 0
     ("compressor", 4, 192, False, True),
+    ("compressor", 9, 201, False, False),  # odd N, L % 4 = 1
+    ("noisegate", 37, 203, True, False),  # L % 4 = 3
 ]
 PAIR_BWD_CASES = [
     (("noisegate", "compressor"), (1.0, 1.0), 5, 192, None),
@@ -185,6 +193,8 @@ PAIR_BWD_CASES = [
     (("compressor", "noisegate"), (1.0, 1.0), 130, 96, None),  # ragged N
     (("noisegate", "compressor"), (0.0, 1.0), 6, 200, 0),  # padded gate
     (("noisegate", "compressor"), (1.0, 1.0), 3, 160, 1),
+    (("noisegate", "compressor"), (0.0, 1.0), 9, 202, None),  # odd N, L % 4 = 2
+    (("compressor", "noisegate"), (1.0, 1.0), 37, 203, 0),  # L % 4 = 3, absent first member
 ]
 
 
@@ -369,6 +379,32 @@ def test_walk_chunk_picks_and_checks_the_chunk_length():
             bal.ballistics_gain_pair_bwd(u, u, u, c, c, u, *[c] * 10, chunk=bad)
 
 
+def test_walk_samples_picks_and_checks_the_stage_length():
+    """The forward walks' stage: the console's shapes (rows of 2^17 and
+    the stream's 4096: 1024; the factorized compressor's 128 frames: one
+    stage of the row), ragged rows rounded up to 32, forced lengths, and
+    refusals on every device."""
+    assert bal.walk_samples(2**17) == 1024
+    assert bal.walk_samples(4096) == 1024
+    assert bal.walk_samples(2**17 + 13) == 1024
+    assert bal.walk_samples(128) == 128  # one stage: the row's length
+    assert bal.walk_samples(201) == 224
+    assert bal.walk_samples(1) == 32
+    assert bal.walk_samples(4109, 256) == 256
+    assert bal.walk_samples(40, samples=1024) == 1024
+    for bad in (0, 48, -32, 2048, 32.0, True, "64"):
+        with pytest.raises(ValueError, match="multiple of 32 up to 1024"):
+            bal.walk_samples(64, samples=bad)
+    u = torch.zeros(2, 64)
+    c = torch.zeros(2)
+    for call in (lambda: bal._gain_fwd_cuda("t", u, [c] * 6, "compressor", True, 48),
+                 lambda: bal._pair_fwd_cuda("t", u, [c] * 10, ("noisegate", "compressor"),
+                                            (1.0, 1.0), False, 2048),
+                 lambda: bal._walk_fwd_cuda("t", u, [c] * 3, True, 0)):
+        with pytest.raises(ValueError, match="multiple of 32 up to 1024"):
+            call()
+
+
 def _substitute_chunked_walk(monkeypatch, chunk):
     monkeypatch.setattr(
         bal, "_reverse_walk", lambda g, d, at, rt: bal._reverse_walk_chunked(g, d, at, rt, chunk)
@@ -449,7 +485,8 @@ def test_training_wrappers_refuse_other_devices():
 # The plain smoother under gradient (#8, #9) and the reverse scan (#10)
 # ---------------------------------------------------------------------------
 
-WALK_SHAPES = [(3, 200), (5, 64), (130, 96)]  # tests/ops/test_ballistics_pallas.py:52
+# tests/ops/test_ballistics_pallas.py:52, and odd N with L % 4 = 1
+WALK_SHAPES = [(3, 200), (5, 64), (130, 96), (9, 201)]
 RTOL_Y, ATOL_Y = 1e-5, 1e-6  # y: tests/ops/test_ballistics_pallas.py:57-58
 RTOL_D, ATOL_D = 1e-4, 1e-5  # d, du, dzi: :63, :97, :105
 RTOL_C, ATOL_C = 1e-3, 1e-4  # dat, drt: :99-103
