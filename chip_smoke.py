@@ -1,6 +1,8 @@
 """Serve, train and stream the bench.py mixing console on one NVIDIA GPU
 through grafx_tpu_torch, serve and train it with FactorizedCompressor as
-its compressor, and check every hand-written kernel on the way.
+its compressor, run each of those paths compiled (CUDA-graph replays)
+and through serving.py's exported programs, and check every hand-written
+kernel on the way.
 
 Run from the root of the repository, on a machine with the card:
 
@@ -57,7 +59,36 @@ before the result line):
     #2 once, #7 twice, nothing else) and three gradient steps as in phase
     6 (launches per step: #5 and #6 once, #8 and #9 twice, nothing else);
 11. factorized grad card vs CPU: that step's loss and every parameter
-    gradient at batch 1, L = 2^14, on the card and on the CPU.
+    gradient at batch 1, L = 2^14, on the card and on the CPU;
+12. compiled request: ``make_render_fn(jit=True)`` (a CUDA-graph replay)
+    beside ``jit=False`` at (4, 17, 2, 2^17): replays against eager (two
+    inputs, and every parameter changed between replays) within 1e-6 of
+    max|eager|, their outputs distinct, warm calls of each timed by CUDA
+    events, peak memory, the capture's seconds and reserved memory, and
+    the capture's launch counts;
+13. and 14. compiled steps: three steps of ``bench_trainer(17)`` and of
+    the factorized console with ``jit=True`` (the whole update captured)
+    and three with ``jit=False`` from the same start, losses and every
+    leaf within 1e-6 relative after each step, then timed as in 12;
+15. compiled stream: the stream of phase 9 through ``StreamRenderer`` with
+    and without ``jit``, in turns block by block (device and wall ms, the
+    real-time factor), each block within 1e-6; ``step_many(4)`` (one graph
+    of four block steps) against eager and timed a block;
+16. serving, after every timed phase: ``serving.py`` on the card, the
+    console's render exported and loaded against the live render (and
+    with changed parameters), the stream step exported for one block and
+    for four against the live stream.
+
+Phases 5-11 run the eager paths (``jit=False``), whose launch counts
+count every run.  A replay runs exactly the launches its capture made, so
+phases 12-16 set every count to 0 just before each capturing call (the
+request, both steps, the stream block, ``step_many(4)`` and the loaded
+render and stream steps), read them just after, and check that they equal
+one eager run's (four blocks' for ``step_many(4)``); the kernels' line
+keeps them under ``launches_per_run`` (``request_compiled``,
+``step_compiled``, ``step_factorized_compiled``,
+``stream_block_compiled``, ``step_many4_compiled``, ``load_render``,
+``load_stream_step``, ``load_stream_step4``).
 
 The line before the last is ``{"kernels": [...]}``: per kernel its
 errors, times, launches on its path and per run of each path, and its
@@ -67,11 +98,12 @@ forward walks their stage length; the last line is ``{"ok": true,
 
 ``--profile DIR`` adds, after phase 5, one more warm request, after phase
 6, one more warm step, after phase 9, one more warm block and, after
-phase 10, one more warm factorized step under ``torch.profiler``: each
-prints its device ms (CUDA events), host wall ms, busy device ms and the
-card's idle share, and writes its per-op table to
-``DIR/profile_request.txt``, ``DIR/profile_step.txt``,
-``DIR/profile_stream_block.txt`` and ``DIR/profile_step_factorized.txt``.
+phase 10, one more warm factorized step under ``torch.profiler``, and
+after phases 12-15 one more warm call of each compiled path: each prints
+its device ms (CUDA events), host wall ms, busy device ms and the card's
+idle share, and writes its per-op table to ``DIR/profile_<run>.txt``
+(``request``, ``step``, ``stream_block``, ``step_factorized``, and each
+with ``_compiled``).
 """
 
 import argparse
@@ -93,6 +125,7 @@ from grafx_tpu_torch.ops import ballistics as bal
 from grafx_tpu_torch.ops.iir import exactness_check_db
 from grafx_tpu_torch.processors import FactorizedCompressor
 from grafx_tpu_torch.render import StreamRenderer, make_render_fn
+from grafx_tpu_torch.serving import export_render, export_stream_step, load_render, load_stream_step
 from grafx_tpu_torch.utils import tree_items
 
 GAIN_SRC = "grafx_tpu_torch/csrc/ballistics_gain.cu"
@@ -133,6 +166,8 @@ RAGGED_ROWS, RAGGED_LENGTHS = (1, 37, 68), (4096 + 13, 8192 + 13)
 FORWARDS = ("ballistics_gain_pair_core", "ballistics_gain_pair_fwd", "ballistics_gain_core",
             "ballistics_gain_fwd", "ballistics_core", "ballistics_fwd")
 MAX_ABS = 2e-5  # the bound benchmarks/verify_ballistics_tpu.py uses on the TPU
+COMPILED_REL = 1e-6  # a compiled path against its eager form: max abs <= this x max|eager|
+WARM_CALLS = 5  # warm calls timed of each form of a compiled path
 DU_REL = 1e-5  # du: max abs error <= DU_REL * max |ref|
 GRAD_REL = 1e-4  # per-row gradients: max abs error <= GRAD_REL * max |ref|
 BATCH, CHAINS, AUDIO_LEN = 4, 17, 2**17
@@ -846,7 +881,7 @@ def stream_phase(args, smi, stats):
     """Phase 9: the console streamed in blocks, against its one-shot render."""
     console = bench_console(CHAINS, seed=0, device="cuda")
     streamer = StreamRenderer(console.fused_processors, console.plan, console.params,
-                              block_len=BLOCK_LEN)
+                              block_len=BLOCK_LEN, jit=False)
     g = torch.Generator(device="cuda").manual_seed(9)
     x = console_input((CHAINS, 2, AUDIO_LEN), g, "cuda")
     x_blocks = list(x.split(BLOCK_LEN, dim=-1))
@@ -876,7 +911,7 @@ def stream_phase(args, smi, stats):
         launches=launches, card=repr(smi))
 
     with torch.inference_mode():
-        full = make_render_fn(console.fused_processors, console.plan)(x, console.params)[0]
+        full = make_render_fn(console.fused_processors, console.plan, jit=False)(x, console.params)[0]
         many, _ = streamer.step_many(torch.stack(x_blocks[:4]), streamer.init_state())
     peak_db = 20.0 * torch.log10((streamed - full).abs().max() / full.abs().max()).item()
     check(peak_db <= -60.0, f"stream vs one-shot render at {peak_db:.1f} dB (max-abs/peak) > -60 dB")
@@ -985,7 +1020,7 @@ def factorized_phase(args, smi, stats):
     """Phase 10: serve the factorized console once and take three of its
     gradient steps at full width, with the exact launch counts."""
     console = bench_console(CHAINS, seed=0, device="cuda", processors=factorized_processors())
-    render = make_render_fn(console.fused_processors, console.plan)
+    render = make_render_fn(console.fused_processors, console.plan, jit=False)
     x = torch.randn(BATCH, CHAINS, 2, AUDIO_LEN, generator=torch.Generator(device="cuda").manual_seed(1),
                     device="cuda")
     torch.cuda.synchronize()
@@ -999,7 +1034,8 @@ def factorized_phase(args, smi, stats):
         launches=launches, card=repr(smi))
     del console, render, x, y
 
-    trainer = bench_trainer(CHAINS, seed=0, device="cuda", processors=factorized_processors())
+    trainer = bench_trainer(CHAINS, seed=0, device="cuda", processors=factorized_processors(),
+                            jit=False)
     g = torch.Generator(device="cuda").manual_seed(7)
     x = console_input((BATCH, CHAINS, 2, AUDIO_LEN), g, "cuda")
     target = torch.randn(BATCH, 1, 2, AUDIO_LEN, generator=g, device="cuda")
@@ -1011,6 +1047,310 @@ def factorized_phase(args, smi, stats):
     say("factorized", run="train", **fields, launches=launches, card=repr(smi))
     if args.profile:
         profile_run(lambda: trainer.step(x, target), args.profile, "step_factorized", smi)
+
+
+def rel_err(got, ref):
+    """max |got - ref| over max |ref| (the max abs difference where ref
+    is all zero)."""
+    err, scale = max_err(got, ref), ref.abs().max().item()
+    return err / scale if scale > 0 else err
+
+
+def check_compiled(label, got, ref):
+    """Hold a compiled path's output against its eager form's within
+    COMPILED_REL of max|eager|; returns ``(relative error, bit-equal)``."""
+    err = rel_err(got, ref)
+    check(err <= COMPILED_REL, f"{label}: compiled vs eager at {err:.3g} of max|eager| > {COMPILED_REL}")
+    return err, torch.equal(got, ref)
+
+
+def call_ms(fn, calls=WARM_CALLS):
+    """CUDA-event ms of each of ``calls`` calls of ``fn``."""
+    return [device_ms(fn, reps=1)[0] for _ in range(calls)]
+
+
+def peak_gib(fn):
+    """Peak allocated device GiB over one call of ``fn``, from what is held
+    before it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def eager_run(stats, path, runs=1):
+    """Each kernel's launches in ``runs`` runs of an eager path (phases
+    5-10), from its ``launches_per_run``."""
+    return {name: runs * s["per_run"][path] for name, s in stats.items()}
+
+
+def capturing_call(fn, label, expected, stats, path):
+    """The call that captures a path, with every launch counter at 0 just
+    before it and read just after.  A replay runs exactly the launches
+    that were captured, so each kernel's count must equal ``expected``
+    (:func:`eager_run`); it is kept as the kernel's ``launches_per_run``
+    of ``path``.  Returns ``(its result, its wall seconds, the device GiB
+    it reserved, the counts)``; the graph's pool is most of that memory."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    bal.reset_launch_counts()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    counts = bal.launch_counts()
+    for name, count in counts.items():
+        check(count == expected[name], f"{label}: the capture launched {name} {count} times,"
+                                       f" an eager run {expected[name]:g}")
+        stats[name]["per_run"][path] = count
+    return out, seconds, (torch.cuda.memory_reserved() - before) / 2**30, counts
+
+
+def perturbed(params):
+    """Every parameter leaf plus 0.01; the ``_absent`` masks unchanged."""
+    return {k: v if k == "_absent" else perturbed(v) if isinstance(v, dict) else v + 0.01
+            for k, v in params.items()}
+
+
+def ms_fields(eager_ms, compiled_ms):
+    return dict(eager_ms=[round(t, 3) for t in eager_ms], compiled_ms=[round(t, 3) for t in compiled_ms],
+                eager_median_ms=f"{statistics.median(eager_ms):.3f}",
+                compiled_median_ms=f"{statistics.median(compiled_ms):.3f}")
+
+
+def compiled_request_phase(args, smi, stats):
+    """Phase 12: the request through ``make_render_fn(jit=True)`` (a call
+    warms it, the next captures it) beside ``jit=False``: three replays
+    (two inputs; one with every parameter changed) against eager, their
+    outputs distinct; the capture's launches equal to an eager request's;
+    warm calls of each timed, peaks, capture seconds."""
+    console = bench_console(CHAINS, seed=0, device="cuda")
+    eager = make_render_fn(console.fused_processors, console.plan, jit=False)
+    compiled = make_render_fn(console.fused_processors, console.plan)
+    xs = [torch.randn(BATCH, CHAINS, 2, AUDIO_LEN, generator=torch.Generator(device="cuda").manual_seed(s),
+                      device="cuda") for s in (1, 2)]
+    params, changed = console.params, perturbed(console.params)
+    with torch.inference_mode():
+        compiled(xs[0], params)  # warm-up: eager, on a side stream
+        (y0, _, _), call_s, reserved, captured = capturing_call(
+            lambda: compiled(xs[0], params), "request", eager_run(stats, "request"), stats,
+            "request_compiled")
+        y_changed, y1 = compiled(xs[0], changed)[0], compiled(xs[1], params)[0]
+        refs = [eager(xs[0], params)[0], eager(xs[0], changed)[0], eager(xs[1], params)[0]]
+        # eager against itself: the mix stages' index_add_ adds with atomics
+        eager_repeat_equal = torch.equal(eager(xs[0], params)[0], refs[0])
+        errs = [check_compiled(f"request {k}", y, r) for k, (y, r) in enumerate(zip((y0, y_changed, y1), refs))]
+        check(not torch.equal(y_changed, y0), "request: changed parameters left the replay's output as it was")
+        check(len({y.data_ptr() for y in (y0, y_changed, y1)}) == 3, "request: two replays' outputs alias")
+        eager_ms = call_ms(lambda: eager(xs[1], params))
+        compiled_ms = call_ms(lambda: compiled(xs[1], params))
+        peaks = peak_gib(lambda: eager(xs[1], params)), peak_gib(lambda: compiled(xs[1], params))
+    say("compiled", path="request", **ms_fields(eager_ms, compiled_ms),
+        max_rel_err=f"{max(e for e, _ in errs):.3g}", bit_equal=all(b for _, b in errs),
+        eager_repeat_bit_equal=eager_repeat_equal, parameter_change="honoured", outputs_alias=False,
+        captured_launches=captured, capture_s=f"{compiled.capture_seconds[-1]:.3f}", capturing_call_s=f"{call_s:.3f}",
+        capture_reserved_gib=f"{reserved:.3f}", eager_peak_gib=f"{peaks[0]:.3f}",
+        compiled_peak_gib=f"{peaks[1]:.3f}", card=repr(smi))
+    if args.profile:
+        with torch.inference_mode():
+            profile_run(lambda: compiled(xs[1], params), args.profile, "request_compiled", smi)
+
+
+def compiled_step_phase(args, smi, stats, path, eager_path, make_processors):
+    """Phases 13 and 14: three steps of ``bench_trainer(jit=True)`` (the
+    first eager on a side stream, the second captures the whole update)
+    and three of ``jit=False`` from the same start: losses and every leaf
+    within COMPILED_REL after each step; the capture's launches equal to
+    an eager step's (``eager_path``); warm steps of each timed, peaks,
+    capture seconds."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = console_input((BATCH, CHAINS, 2, AUDIO_LEN), g, "cuda")
+    target = torch.randn(BATCH, 1, 2, AUDIO_LEN, generator=g, device="cuda")
+    eager = bench_trainer(CHAINS, seed=0, device="cuda", processors=make_processors(), jit=False)
+    compiled = bench_trainer(CHAINS, seed=0, device="cuda", processors=make_processors())
+    worst, bit_equal = 0.0, True
+    for step in range(3):
+        total, audio = eager.step(x, target)
+        if step == 1:
+            (c_total, c_audio), call_s, reserved, captured = capturing_call(
+                lambda: compiled.step(x, target), path, eager_run(stats, eager_path), stats,
+                f"{path}_compiled")
+        else:
+            c_total, c_audio = compiled.step(x, target)
+        torch.cuda.synchronize()
+        pairs = [("loss", c_audio, audio), ("total", c_total, total)]
+        pairs += [(k, p.detach(), q.detach())
+                  for (k, p), (_, q) in zip(tree_items(compiled.params), tree_items(eager.params))]
+        for k, got, ref in pairs:
+            err, same = check_compiled(f"{path} step {step + 1} {k}", got, ref)
+            worst, bit_equal = max(worst, err), bit_equal and same
+    eager_ms = call_ms(lambda: eager.step(x, target))
+    compiled_ms = call_ms(lambda: compiled.step(x, target))
+    peaks = peak_gib(lambda: eager.step(x, target)), peak_gib(lambda: compiled.step(x, target))
+    say("compiled", path=path, steps_compared=3, **ms_fields(eager_ms, compiled_ms),
+        max_rel_err=f"{worst:.3g}", bit_equal=bit_equal, captured_launches=captured,
+        capture_s=f"{compiled._update.capture_seconds[-1]:.3f}", capturing_call_s=f"{call_s:.3f}",
+        capture_reserved_gib=f"{reserved:.3f}", eager_peak_gib=f"{peaks[0]:.3f}",
+        compiled_peak_gib=f"{peaks[1]:.3f}", card=repr(smi))
+    if args.profile:
+        profile_run(lambda: compiled.step(x, target), args.profile, f"{path}_compiled", smi)
+
+
+def compiled_stream_phase(args, smi, stats):
+    """Phase 15: the stream of phase 9 through ``StreamRenderer(jit=True)``
+    and ``jit=False`` in turns, block by block (block 1 warms the compiled
+    step, block 2 captures it): each block against eager, device and wall
+    ms a block, real-time factors; ``step_many(4)`` compiled (one graph of
+    four block steps) against eager and timed a block; each capture's
+    launches equal to one eager block's (four for ``step_many(4)``)."""
+    console = bench_console(CHAINS, seed=0, device="cuda")
+    streamers = {"eager": StreamRenderer(console.fused_processors, console.plan, console.params,
+                                         block_len=BLOCK_LEN, jit=False),
+                 "compiled": StreamRenderer(console.fused_processors, console.plan, console.params,
+                                            block_len=BLOCK_LEN)}
+    x = console_input((CHAINS, 2, AUDIO_LEN), torch.Generator(device="cuda").manual_seed(9), "cuda")
+    blocks = list(x.split(BLOCK_LEN, dim=-1))
+    states = {k: s.init_state() for k, s in streamers.items()}
+    outs, ms, wall = ({k: [] for k in streamers} for _ in range(3))
+    with torch.inference_mode():
+        for i, xb in enumerate(blocks):
+            for k, streamer in streamers.items():
+                call = functools.partial(streamer, xb, states[k])
+                start = time.perf_counter()
+                if k == "compiled" and i == 1:  # block 2 captures the compiled step
+                    t, (out, _, _, captured) = device_ms(functools.partial(
+                        capturing_call, call, "stream block", eager_run(stats, "stream_block"),
+                        stats, "stream_block_compiled"), reps=1)
+                else:
+                    t, out = device_ms(call, reps=1)
+                wall[k].append(1e3 * (time.perf_counter() - start))
+                y, states[k] = out
+                ms[k].append(t)
+                outs[k].append(y)
+        errs = [check_compiled(f"stream block {i}", a, b) for i, (a, b) in
+                enumerate(zip(outs["compiled"], outs["eager"]))]
+        check(len({y.data_ptr() for y in outs["compiled"]}) == len(blocks), "stream: two blocks' outputs alias")
+        many = {k: [torch.stack(blocks[4 * i:4 * i + 4]) for i in range(3)] for k in streamers}
+        m_eager = streamers["eager"].step_many(many["eager"][0], streamers["eager"].init_state())[0]
+        compiled = streamers["compiled"]
+        compiled.step_many(many["compiled"][0], compiled.init_state())  # warm-up
+        (m_compiled, _), call_s, reserved, captured4 = capturing_call(
+            lambda: compiled.step_many(many["compiled"][0], compiled.init_state()), "step_many(4)",
+            eager_run(stats, "stream_block", runs=4), stats, "step_many4_compiled")
+        m_err = check_compiled("step_many(4)", m_compiled, m_eager)
+        per_block = {k: [t / 4 for t in call_ms(lambda s=s, xs=many[k][1]: s.step_many(xs, s.init_state()))]
+                     for k, s in streamers.items()}
+    block_s = BLOCK_LEN / SAMPLE_RATE
+    fields = {}
+    for k in streamers:  # blocks 3-32: past the compiled step's warm-up and capture
+        med_ms, med_wall = statistics.median(ms[k][2:]), statistics.median(wall[k][2:])
+        fields.update({f"{k}_median_ms": f"{med_ms:.3f}", f"{k}_median_wall_ms": f"{med_wall:.3f}",
+                       f"{k}_real_time_factor": f"{1e3 * block_s / med_wall:.2f}",
+                       f"{k}_step_many4_ms_a_block": f"{statistics.median(per_block[k]):.3f}"})
+    say("compiled", path="stream_block", blocks=len(blocks), block_len=BLOCK_LEN,
+        eager_ms=[round(t, 3) for t in ms["eager"]], compiled_ms=[round(t, 3) for t in ms["compiled"]],
+        compiled_wall_ms=[round(t, 3) for t in wall["compiled"]], **fields,
+        max_rel_err=f"{max(e for e, _ in errs):.3g}", bit_equal=all(b for _, b in errs),
+        step_many4_rel_err=f"{m_err[0]:.3g}", step_many4_bit_equal=m_err[1],
+        captured_launches=captured, step_many4_captured_launches=captured4, capture_s=[round(t, 3) for t in compiled._step_fn.capture_seconds],
+        step_many4_capturing_call_s=f"{call_s:.3f}", step_many4_capture_reserved_gib=f"{reserved:.3f}",
+        card=repr(smi))
+    if args.profile:
+        with torch.inference_mode():
+            profile_run(lambda: compiled(blocks[-1], states["compiled"]), args.profile,
+                        "stream_block_compiled", smi)
+
+
+def serving_phase(smi, stats):
+    """Phase 16, after every timed phase: ``serving.py`` on the card.  The
+    console's render exported and loaded (three calls: warm-up, capture,
+    replay; and changed parameters) against the live eager render; the
+    stream step exported for one block (8 blocks, each against the live
+    eager stream) and with ``blocks_per_step=4`` (3 calls against single
+    live steps, the JAX test's rtol 2e-5 / atol 2e-6); each loaded
+    program's capture launches what an eager request, block or four blocks
+    launch."""
+    console = bench_console(CHAINS, seed=0, device="cuda")
+    live = make_render_fn(console.fused_processors, console.plan, jit=False)
+    blobs, seconds = {}, {}
+    start = time.perf_counter()
+    # the example inputs fix shapes only
+    blobs["render"] = export_render(make_render_fn(console.fused_processors, console.plan),
+                                    torch.empty(BATCH, CHAINS, 2, AUDIO_LEN, device="cuda"),
+                                    console.params)
+    seconds["render"] = time.perf_counter() - start
+    streamer = StreamRenderer(console.fused_processors, console.plan, console.params,
+                              block_len=BLOCK_LEN)
+    for name, k in (("stream_step", 1), ("stream_step4", 4)):
+        start = time.perf_counter()
+        blobs[name] = export_stream_step(streamer, torch.empty(CHAINS, 2, BLOCK_LEN, device="cuda"),
+                                         blocks_per_step=k)
+        seconds[name] = time.perf_counter() - start
+    del streamer
+
+    x = torch.randn(BATCH, CHAINS, 2, AUDIO_LEN, generator=torch.Generator(device="cuda").manual_seed(3),
+                    device="cuda")
+    params, changed = console.params, perturbed(console.params)
+    start = time.perf_counter()
+    served = load_render(blobs["render"])
+    load_s = time.perf_counter() - start
+    errs = []
+    with torch.inference_mode():
+        ref, ref_changed = live(x, params)[0], live(x, changed)[0]
+        errs.append(check_compiled("load_render call 1", served(x, params), ref))
+        y, _, _, captured = capturing_call(lambda: served(x, params), "load_render",
+                                           eager_run(stats, "request"), stats, "load_render")
+        errs.append(check_compiled("load_render call 2", y, ref))
+        errs.append(check_compiled("load_render call 3", served(x, params), ref))
+        errs.append(check_compiled("load_render, changed parameters", served(x, changed), ref_changed))
+    say("serving", run="render", export_s=f"{seconds['render']:.2f}", load_s=f"{load_s:.2f}",
+        artifact_mib=f"{len(blobs['render']) / 2**20:.2f}", max_rel_err=f"{max(e for e, _ in errs):.3g}",
+        bit_equal=all(b for _, b in errs), captured_launches=captured)
+    del served, ref, ref_changed, y
+
+    blocks = list(console_input((CHAINS, 2, 12 * BLOCK_LEN), torch.Generator(device="cuda").manual_seed(9),
+                                "cuda").split(BLOCK_LEN, dim=-1))
+    start = time.perf_counter()
+    step, state = load_stream_step(blobs["stream_step"])
+    load_s = time.perf_counter() - start
+    many, many_state = load_stream_step(blobs["stream_step4"])
+    live_stream = StreamRenderer(console.fused_processors, console.plan, params, block_len=BLOCK_LEN,
+                                 jit=False)
+    live_state, errs, many_err = live_stream.init_state(), [], 0.0
+    with torch.inference_mode():
+        singles = []
+        for xb in blocks:
+            y, live_state = live_stream(xb, live_state)
+            singles.append(y)
+        for k, xb in enumerate(blocks[:8]):
+            if k == 1:  # the loaded step's capture
+                (y, state), _, _, captured = capturing_call(
+                    functools.partial(step, xb, state), "load_stream_step",
+                    eager_run(stats, "stream_block"), stats, "load_stream_step")
+            else:
+                y, state = step(xb, state)
+            errs.append(check_compiled(f"load_stream_step block {k + 1}", y, singles[k]))
+        for i in range(3):
+            call = functools.partial(many, torch.stack(blocks[4 * i:4 * i + 4]), many_state)
+            if i == 1:
+                (ys, many_state), _, _, captured4 = capturing_call(
+                    call, "load_stream_step(blocks_per_step=4)", eager_run(stats, "stream_block", runs=4),
+                    stats, "load_stream_step4")
+            else:
+                ys, many_state = call()
+            for k in range(4):
+                ref = singles[4 * i + k]
+                check(torch.allclose(ys[k], ref, rtol=2e-5, atol=2e-6),
+                      f"load_stream_step(blocks_per_step=4) call {i + 1} block {k + 1} != single steps")
+                many_err = max(many_err, max_err(ys[k], ref))
+    say("serving", run="stream_step", export_s=f"{seconds['stream_step']:.2f}",
+        export4_s=f"{seconds['stream_step4']:.2f}", load_s=f"{load_s:.2f}",
+        artifact_mib=f"{len(blobs['stream_step']) / 2**20:.2f}",
+        max_rel_err=f"{max(e for e, _ in errs):.3g}", bit_equal=all(b for _, b in errs),
+        blocks_per_step4_max_abs_err=f"{many_err:.3g}", captured_launches=captured,
+        blocks_per_step4_captured_launches=captured4, card=repr(smi))
 
 
 def kernel_row(name, source, replaces, stats):
@@ -1064,7 +1404,6 @@ def main():
         cuda=torch.version.cuda, max_sm_clock_mhz=clock_mhz,
         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
-
     # 2. build
     lib = _cuda.library()
     say("build", seconds=f"{lib.build_seconds:.2f}", libraries=list(lib.paths.values()))
@@ -1129,7 +1468,7 @@ def main():
 
     # 5. serve the full-width console
     console = bench_console(CHAINS, seed=0, device="cuda")
-    render = make_render_fn(console.fused_processors, console.plan)
+    render = make_render_fn(console.fused_processors, console.plan, jit=False)
     requests = []
     for seed in (1, 2, 3):
         g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1155,7 +1494,7 @@ def main():
     del console, render, requests, y
 
     # 6. train the full-width console: three gradient steps
-    trainer = bench_trainer(CHAINS, seed=0, device="cuda")
+    trainer = bench_trainer(CHAINS, seed=0, device="cuda", jit=False)
     g = torch.Generator(device="cuda").manual_seed(7)
     x = console_input((BATCH, CHAINS, 2, AUDIO_LEN), g, "cuda")
     target = torch.randn(BATCH, 1, 2, AUDIO_LEN, generator=g, device="cuda")
@@ -1175,7 +1514,8 @@ def main():
     for device in ("cuda", "cpu"):
         c = bench_console(CHAINS, seed=5, device=device)
         with torch.inference_mode():
-            outs[device] = make_render_fn(c.fused_processors, c.plan)(x.to(device), c.params)[0].cpu()
+            outs[device] = make_render_fn(c.fused_processors, c.plan, jit=False)(
+                x.to(device), c.params)[0].cpu()
     card_db = db(outs["cuda"] - outs["cpu"], outs["cpu"])
     say("card_vs_cpu", db=f"{card_db:.1f}")
     check(bool(torch.isfinite(outs["cuda"]).all()), "non-finite card output")
@@ -1189,6 +1529,19 @@ def main():
 
     # 11. its step's loss and gradients, card against the port's CPU path
     grad_card_vs_cpu("factorized_grad_card_vs_cpu", factorized_processors)
+
+    # 12-15. the compiled paths (CUDA-graph replays) beside their eager forms
+    phases_at = time.perf_counter()
+    compiled_request_phase(args, smi, stats)
+    compiled_step_phase(args, smi, stats, "step", "step", bench_processors)
+    compiled_step_phase(args, smi, stats, "step_factorized", "factorized_step", factorized_processors)
+    compiled_stream_phase(args, smi, stats)
+    compiled_s = time.perf_counter() - phases_at
+
+    # 16. serving.py: exported render and stream steps against the live paths
+    serving_phase(smi, stats)
+    say("compiled", phases_12_15_s=f"{compiled_s:.1f}",
+        phase_16_s=f"{time.perf_counter() - phases_at - compiled_s:.1f}")
 
     for name in KERNELS:
         check(name in NO_PATH or "launches" in stats[name], f"{name} ran on no path")

@@ -110,14 +110,15 @@ class Console:
     num_chains: int
 
 
-def bench_trainer(num_chains=17, seed=0, device="cuda", processors=None):
+def bench_trainer(num_chains=17, seed=0, device="cuda", processors=None, jit=True):
     """The gradient step ``bench.py`` times (``bench.py:188-197``) as a
     :class:`GraphParameterOptimizer`: the console fused with
     ``"pad-auto"``, MSE loss, SGD with lr 1e-3, and parameters drawn from
     ``seed`` on the unfused graph and migrated (so the padded gates stay
     absent, and frozen).  ``processors`` defaults to
-    :func:`bench_processors`.  ``bench_trainer(c, s).params`` equal
-    ``bench_console(c, s).params``."""
+    :func:`bench_processors`; ``jit`` as for the optimizer (the step
+    replays a CUDA graph on the card).  ``bench_trainer(c, s).params``
+    equal ``bench_console(c, s).params``."""
     return GraphParameterOptimizer(
         bench_graph(num_chains),
         bench_processors() if processors is None else processors,
@@ -126,6 +127,7 @@ def bench_trainer(num_chains=17, seed=0, device="cuda", processors=None):
         generator=torch.Generator().manual_seed(seed),
         fuse="pad-auto",
         device=device,
+        jit=jit,
     )
 
 

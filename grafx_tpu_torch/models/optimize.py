@@ -2,8 +2,11 @@
 :mod:`grafx_tpu.models.optimize` on ``torch.optim``).
 
 One step is the canonical GRAFX training loop: render -> audio loss +
-aux losses -> backward -> optimizer step.  PyTorch runs it eagerly, so
-there is nothing to compile.
+aux losses -> backward -> optimizer step.  ``grafx_tpu`` jits the whole
+update; here, with ``jit=True`` on the card, the whole update (zero-grad,
+forward, loss, backward and ``optimizer.step()``) replays one CUDA graph
+(:class:`~grafx_tpu_torch.render.compiled.CapturedFunction`, PyTorch's
+whole-network capture recipe).
 """
 
 import torch
@@ -15,6 +18,8 @@ from grafx_tpu_torch.ops.losses import (
     precompute_stft_targets,
 )
 from grafx_tpu_torch.render import (
+    CapturedFunction,
+    check_capturable,
     fuse_parameters,
     fuse_serial_lti,
     make_render_fn,
@@ -25,7 +30,11 @@ from grafx_tpu_torch.utils import check_device, create_empty_parameters, tree_le
 
 
 def _adam(params):
-    return torch.optim.Adam(params, lr=1e-2)
+    """Adam, lr 1e-2; ``capturable`` (the same update, its step count on
+    the device) where the parameters are on the card, which torch refuses
+    for CPU parameters."""
+    params = list(params)
+    return torch.optim.Adam(params, lr=1e-2, capturable=any(p.is_cuda for p in params))
 
 
 class GraphParameterOptimizer:
@@ -36,10 +45,15 @@ class GraphParameterOptimizer:
         processors: type -> processor mapping.
         loss_fn: ``f(output, target) -> scalar`` (default:
             multi-resolution STFT loss, whose target spectrograms are then
-            computed once per target tensor).
+            computed once per target tensor, eagerly, outside any captured
+            step, which takes them as an argument).
         optimizer: a factory ``f(list of tensors) -> torch.optim.Optimizer``
             (default: Adam with lr 1e-2).  It receives the trainable
-            leaves only, so frozen leaves are never updated.
+            leaves only, so frozen leaves are never updated.  With ``jit``
+            on the card its ``step()`` must be capturable
+            (:func:`~grafx_tpu_torch.render.compiled.check_capturable`;
+            else the constructor raises), and its hyper-parameters are
+            read once, at capture.
         trainable: optional freezing spec: a type-level dict
             ``{"eq": True, "reverb": False, ...}`` (missing types train)
             or a full boolean tree with the parameters' structure.
@@ -60,6 +74,12 @@ class GraphParameterOptimizer:
         device: where the parameters, the processors and the step live
             (default the card; ``"cpu"`` must be asked for, and ``"cuda"``
             without a card raises).
+        jit: on the card, :meth:`step` replays one captured CUDA graph of
+            the whole update per input and target shapes (the first step
+            of a shape runs eagerly, the second captures), and
+            :meth:`render_current` a captured render; ``False`` runs every
+            step eagerly (the kernels' launch counters then count every
+            step).  The CPU runs eagerly either way.
     """
 
     def __init__(
@@ -74,6 +94,7 @@ class GraphParameterOptimizer:
         generator=None,
         fuse=False,
         device="cuda",
+        jit=True,
     ):
         device = check_device(device)
         G_unfused = processors_unfused = None
@@ -97,7 +118,9 @@ class GraphParameterOptimizer:
         self.render_data = prepare_render(G_t)
         for proc in processors.values():
             proc.to(device)
-        self.render = make_render_fn(processors, self.render_data)
+        # the step differentiates through the render (and is captured whole)
+        self.render = make_render_fn(processors, self.render_data, jit=False)
+        self._render_jit = make_render_fn(processors, self.render_data, jit=jit)
 
         if G_unfused is not None:
             params = fuse_parameters(
@@ -116,6 +139,11 @@ class GraphParameterOptimizer:
         self.optimizer = (optimizer or _adam)(
             [p for p in tree_leaves(self.params) if p.requires_grad]
         )
+        self._update = self._eager_update
+        if jit:
+            if device.type == "cuda":
+                check_capturable(self.optimizer)
+            self._update = CapturedFunction(self._eager_update, name="GraphParameterOptimizer.step")
 
     @staticmethod
     def _freeze_absent(mask):
@@ -144,29 +172,41 @@ class GraphParameterOptimizer:
             }
         return trainable
 
-    def loss(self, input_signals, target):
-        """``(total_loss, audio_loss)`` at the current parameters,
-        differentiable in them; ``total = audio + aux_weight * aux``."""
-        if self._precompute_target:
-            cached, specs = self._target_cache
-            if cached is not target:
-                with torch.no_grad():
-                    specs = precompute_stft_targets(target)
-                self._target_cache = (target, specs)
-            target = specs
+    def _loss_target(self, target):
+        """The loss's target: with the default MR-STFT loss its
+        spectrograms, computed once per target tensor (by identity)."""
+        if not self._precompute_target:
+            return target
+        cached, specs = self._target_cache
+        if cached is not target:
+            with torch.no_grad():
+                specs = precompute_stft_targets(target)
+            self._target_cache = (target, specs)
+        return specs
+
+    def _loss(self, input_signals, loss_target):
         out, intermediates, _ = self.render(input_signals, self.params)
-        audio = self.loss_fn(out, target)
+        audio = self.loss_fn(out, loss_target)
         aux = sum(v.sum() for inter in intermediates for v in tree_leaves(inter))
         return audio + self.aux_weight * aux, audio
 
-    def step(self, input_signals, target):
-        """One optimization step; returns ``(total_loss, audio_loss)``
-        (detached scalars)."""
+    def loss(self, input_signals, target):
+        """``(total_loss, audio_loss)`` at the current parameters,
+        differentiable in them; ``total = audio + aux_weight * aux``."""
+        return self._loss(input_signals, self._loss_target(target))
+
+    def _eager_update(self, input_signals, loss_target):
         self.optimizer.zero_grad(set_to_none=True)
-        total, audio = self.loss(input_signals, target)
+        total, audio = self._loss(input_signals, loss_target)
         total.backward()
         self.optimizer.step()
         return total.detach(), audio.detach()
+
+    def step(self, input_signals, target):
+        """One optimization step; returns ``(total_loss, audio_loss)``
+        (detached scalars, fresh on every call).  The parameters and their
+        ``.grad`` are updated in place."""
+        return self._update(input_signals, self._loss_target(target))
 
     def fit(self, input_signals, target, num_steps=100, log_every=0):
         """Run ``num_steps`` updates; returns the audio-loss history."""
@@ -179,6 +219,7 @@ class GraphParameterOptimizer:
         return history
 
     def render_current(self, input_signals):
-        """Render with the current parameters (no gradient)."""
+        """Render with the current parameters (no gradient; compiled with
+        ``jit``, like ``grafx_tpu``'s ``_render_jit``)."""
         with torch.no_grad():
-            return self.render(input_signals, self.params)[0]
+            return self._render_jit(input_signals, self.params)[0]

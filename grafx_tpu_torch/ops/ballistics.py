@@ -61,10 +61,20 @@ through shared memory T samples at a time by bulk copies, and the pair's
 two members walk in one kernel, member b a stage behind member a
 (:func:`walk_samples` picks T; ``csrc/ballistics_gain.cu`` has the
 design).
+
+The primal kernels #1, #2 and #7, which a served render and a stream
+block launch, are ``torch.library`` custom ops
+(``torch.ops.grafx_tpu_torch.ballistics_gain_pair``, ``.ballistics_gain``
+and ``.ballistics``): the CPU implementation is the plain version, the
+CUDA one the kernel's launch, and a fake implementation gives the
+output's shape.  ``torch.export`` so records one op where it would
+otherwise unroll the plain version's loop over time, and could not see a
+ctypes call.
 """
 
 import ctypes
 import functools
+from collections.abc import Sequence
 
 import torch
 import torch.nn.functional as F
@@ -489,12 +499,26 @@ def ballistics_gain_core(u, zi, at, rt, th, cf, hk, kind="compressor"):
     args = (u, zi, at, rt, th, cf, hk)
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
         return _Gain.apply(*args, kind)
-    name = "ballistics_gain_core"
-    if _device(u, name) == "cpu":
-        return ballistics_gain_plain(u, zi, at, rt, th, cf, hk, kind)
-    gain = _gain_fwd_cuda(name, u, args[1:], kind, res=False)
+    _device(u, "ballistics_gain_core")
+    return torch.ops.grafx_tpu_torch.ballistics_gain(u, args[1:], kind)
+
+
+@torch.library.custom_op("grafx_tpu_torch::ballistics_gain", mutates_args=())
+def _gain_op(u: torch.Tensor, consts: Sequence[torch.Tensor], kind: str) -> torch.Tensor:
+    """#2 as a custom op; ``consts`` = (zi, at, rt, th, cf, hk)."""
+    return ballistics_gain_plain(u, *consts, kind)
+
+
+@_gain_op.register_kernel("cuda")
+def _gain_op_cuda(u, consts, kind):
+    gain = _gain_fwd_cuda("ballistics_gain_core", u, consts, kind, res=False)
     ballistics_gain_core.launches += 1
     return gain
+
+
+@_gain_op.register_fake
+def _gain_op_fake(u, consts, kind):
+    return torch.empty_like(u)
 
 
 def _gain_fwd_cuda(name, u, consts, kind, res, samples=None):
@@ -590,12 +614,32 @@ def ballistics_gain_pair_core(
     consts = (at_a, rt_a, th_a, cf_a, hk_a, at_b, rt_b, th_b, cf_b, hk_b)
     if torch.is_grad_enabled() and any(a.requires_grad for a in (u, *consts)):
         return _GainPair.apply(u, *consts, tuple(kinds), tuple(inits))
-    name = "ballistics_gain_pair_core"
-    if _device(u, name) == "cpu":
-        return ballistics_gain_pair_plain(u, *consts, kinds=kinds, inits=inits)
-    gain = _pair_fwd_cuda(name, u, consts, kinds, inits, res=False)
+    _device(u, "ballistics_gain_pair_core")
+    return torch.ops.grafx_tpu_torch.ballistics_gain_pair(
+        u, consts, kinds[0], kinds[1], float(inits[0]), float(inits[1])
+    )
+
+
+@torch.library.custom_op("grafx_tpu_torch::ballistics_gain_pair", mutates_args=())
+def _pair_op(
+    u: torch.Tensor, consts: Sequence[torch.Tensor], kind_a: str, kind_b: str,
+    init_a: float, init_b: float,
+) -> torch.Tensor:
+    """#1 as a custom op; ``consts`` = the ten member constants."""
+    return ballistics_gain_pair_plain(u, *consts, kinds=(kind_a, kind_b), inits=(init_a, init_b))
+
+
+@_pair_op.register_kernel("cuda")
+def _pair_op_cuda(u, consts, kind_a, kind_b, init_a, init_b):
+    gain = _pair_fwd_cuda("ballistics_gain_pair_core", u, consts, (kind_a, kind_b),
+                          (init_a, init_b), res=False)
     ballistics_gain_pair_core.launches += 1
     return gain
+
+
+@_pair_op.register_fake
+def _pair_op_fake(u, consts, kind_a, kind_b, init_a, init_b):
+    return torch.empty_like(u)
 
 
 def _pair_fwd_cuda(name, u, consts, kinds, inits, res, samples=None):
@@ -694,12 +738,26 @@ def ballistics_core(u, zi, at, rt):
     """
     if torch.is_grad_enabled() and any(a.requires_grad for a in (u, zi, at, rt)):
         return _Ballistics.apply(u, zi, at, rt)
-    name = "ballistics_core"
-    if _device(u, name) == "cpu":
-        return ballistics_plain(u, zi, at, rt)
-    y = _walk_fwd_cuda(name, u, (zi, at, rt), res=False)
+    _device(u, "ballistics_core")
+    return torch.ops.grafx_tpu_torch.ballistics(u, (zi, at, rt))
+
+
+@torch.library.custom_op("grafx_tpu_torch::ballistics", mutates_args=())
+def _walk_op(u: torch.Tensor, consts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """#7 as a custom op; ``consts`` = (zi, at, rt)."""
+    return ballistics_plain(u, *consts)
+
+
+@_walk_op.register_kernel("cuda")
+def _walk_op_cuda(u, consts):
+    y = _walk_fwd_cuda("ballistics_core", u, consts, res=False)
     ballistics_core.launches += 1
     return y
+
+
+@_walk_op.register_fake
+def _walk_op_fake(u, consts):
+    return torch.empty_like(u)
 
 
 def _walk_fwd_cuda(name, u, consts, res, samples=None):

@@ -118,7 +118,7 @@ def _stage_eigen_kernels(bk, ak, T):
     """
     N = ak.shape[0]
     dtype = ak.dtype
-    tiny = torch.tensor(1e-300 if dtype == torch.float64 else 1e-30, dtype=dtype, device=ak.device)
+    tiny = 1e-300 if dtype == torch.float64 else 1e-30
 
     b0, b1, b2 = bk[:, 0], bk[:, 1], bk[:, 2]
     a1, a2 = ak[:, 1], ak[:, 2]
@@ -126,8 +126,8 @@ def _stage_eigen_kernels(bk, ak, T):
 
     disc = _compensated_disc(a1, a2)
     mu = -0.5 * a1
-    dim = 0.5 * torch.sqrt(torch.maximum(-disc, tiny))  # Im(l), complex case
-    delta = 0.5 * torch.sqrt(torch.maximum(disc, tiny))  # (l1 - l2)/2, real
+    dim = 0.5 * torch.sqrt(torch.clamp_min(-disc, tiny))  # Im(l), complex case
+    delta = 0.5 * torch.sqrt(torch.clamp_min(disc, tiny))  # (l1 - l2)/2, real
     is_complex = disc < 0
     jtol = 1e-14 if dtype == torch.float64 else 1e-6
     is_jordan = (~is_complex) & (delta <= jtol * torch.abs(mu))
@@ -150,7 +150,7 @@ def _stage_eigen_kernels(bk, ak, T):
         return torch.flip(a, dims=[-1])
 
     # --- complex pair
-    dim_s = torch.maximum(dim, tiny)
+    dim_s = torch.clamp_min(dim, tiny)
     C1c = ((c0 * mu + c1) / dim_s)[:, None]
     C2c = c0[:, None]
     Koc0 = C1c * xs[:, :T] - C2c * ys[:, :T]
@@ -167,7 +167,7 @@ def _stage_eigen_kernels(bk, ak, T):
     hc = torch.cat([b0[:, None], Koc1[:, : T - 1]], dim=-1)
 
     # --- separated real poles
-    sq_s = torch.maximum(2.0 * delta, tiny)
+    sq_s = torch.clamp_min(2.0 * delta, tiny)
     C1r = ((c0 * l1 + c1) / sq_s)[:, None]
     C2r = ((c0 * l2 + c1) / sq_s)[:, None]
     Kor0 = C1r * u[:, :T]
@@ -373,7 +373,7 @@ def _cascade_kernels_doubling(b, a, T):
     if K_pad != K:
         pad_n = K_pad - K
         delta = h.new_zeros((N, pad_n, T))
-        delta[..., 0] = 1.0
+        delta[..., 0].fill_(1.0)  # a fill: setitem would make a host tensor
         h = torch.cat([h, delta], dim=1)
         CA = torch.cat([CA, CA.new_zeros((N, pad_n, 2, T))], dim=1)
         W_stage = torch.cat([W_stage, W_stage.new_zeros((N, pad_n, 2, T))], dim=1)

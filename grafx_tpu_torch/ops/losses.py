@@ -2,13 +2,22 @@
 :mod:`grafx_tpu.ops.losses`): multi-resolution STFT losses on
 :mod:`grafx_tpu_torch.ops.stft`, and plain MAE / MSE."""
 
+import functools
+
 import torch
 
 from grafx_tpu_torch.ops.stft import hann_window, stft
 
 
+@functools.cache
+def _window(n_fft, dtype, device):
+    """The Hann window on ``device``, made once: a warm loss copies
+    nothing from the host."""
+    return torch.as_tensor(hann_window(n_fft), dtype=dtype, device=device)
+
+
 def _spectrogram(x, n_fft, hop):
-    window = torch.as_tensor(hann_window(n_fft), dtype=x.dtype, device=x.device)
+    window = _window(n_fft, x.dtype, x.device)
     flat = x.reshape((-1, x.shape[-1]))
     return torch.abs(stft(flat, n_fft, hop, window))
 

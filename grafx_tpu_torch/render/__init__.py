@@ -1,6 +1,7 @@
-"""Render engine: scheduling, plan compilation, fusion, the executor and
-the streaming renderer."""
+"""Render engine: scheduling, plan compilation, fusion, the executor, the
+streaming renderer and their CUDA-graph capture."""
 
+from grafx_tpu_torch.render.compiled import CapturedFunction, check_capturable
 from grafx_tpu_torch.render.fuse import (
     FusedBiquadChain,
     FusedDynamicsChain,
@@ -13,10 +14,12 @@ from grafx_tpu_torch.render.prepare import RenderData, prepare_render
 from grafx_tpu_torch.render.streaming import StreamRenderer
 
 __all__ = [
+    "CapturedFunction",
     "FusedBiquadChain",
     "FusedDynamicsChain",
     "RenderData",
     "StreamRenderer",
+    "check_capturable",
     "compute_render_order",
     "fuse_parameters",
     "fuse_serial_lti",

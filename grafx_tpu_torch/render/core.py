@@ -2,7 +2,26 @@
 render executor (the port of :mod:`grafx_tpu.render.core`, for the
 ``"stages"`` buffer mode: there is no threaded signal buffer to write)."""
 
+import functools
+
 import torch
+
+
+@functools.cache
+def _cached_index_tensor(idx, device):
+    with torch.inference_mode(False):  # also for renders that autograd tracks
+        return torch.tensor(idx, device=device)
+
+
+def _index_tensor(idx, device):
+    """A plan's gather or scatter indices as a tensor on ``device``, made
+    once per (indices, device) and shared by every render: a warm render
+    then copies nothing from the host, which a CUDA-graph capture would
+    refuse.  While ``torch.export`` traces, a fresh tensor (it becomes a
+    constant of the exported program)."""
+    if torch.compiler.is_exporting():
+        return torch.tensor(idx, device=device)
+    return _cached_index_tensor(idx, device)
 
 
 def read_tensor(x, access, dim=0):
@@ -11,8 +30,7 @@ def read_tensor(x, access, dim=0):
         lo, hi = access.idx
         return x.narrow(dim, lo, hi - lo)
     if access.method == "index":
-        idx = torch.as_tensor(access.idx, device=x.device)
-        return x.index_select(dim, idx)
+        return x.index_select(dim, _index_tensor(access.idx, x.device))
     raise ValueError(f"Unavailable read method: {access.method}")
 
 
@@ -39,7 +57,7 @@ def aggregate_tensor(x, aggregation, dim=0):
     if aggregation.method == "scatter":
         shape = list(x.shape)
         shape[dim] = aggregation.num_segments
-        idx = torch.as_tensor(aggregation.idx, device=x.device)
+        idx = _index_tensor(aggregation.idx, x.device)
         return x.new_zeros(shape).index_add_(dim, idx, x)
     raise ValueError(f"Unavailable aggregation method: {aggregation.method}")
 

@@ -1,4 +1,4 @@
-"""The render executor: run a static render plan eagerly.
+"""The render executor: run a static render plan.
 
 The port of :mod:`grafx_tpu.render.graph` in its ``"stages"`` buffer
 mode: every stage's output stays its own tensor and reads resolve into
@@ -6,11 +6,14 @@ them as slices (after ``reorder_for_fast_render`` most reads are one
 view, no copy).  Under ``jax.jit`` the assembled signal buffer is free
 when unused; eager torch would really build it (about 400 MB per request
 on the ``bench.py`` console), so it is assembled only on request.
+:func:`make_render_fn` compiles the render, as ``grafx_tpu``'s does:
+on the card it replays a CUDA graph (:mod:`.compiled`).
 """
 
 import torch
 
 from grafx_tpu_torch.data.configs import UTILITY_TYPES
+from grafx_tpu_torch.render.compiled import CapturedFunction
 from grafx_tpu_torch.render.core import (
     aggregate_tensor,
     expand_tensor_or_tensor_dict,
@@ -211,11 +214,19 @@ def render_grafx(
     return output_signals, intermediates_list, signal_buffer
 
 
-def make_render_fn(processors, render_data):
+def make_render_fn(processors, render_data, jit=True):
     """Build a render closure over static (processors, plan) with
     signature ``f(input_signals, per_type_parameters, return_buffer=False)``
-    (the counterpart of :func:`grafx_tpu.render.graph.make_render_fn`;
-    eager, so there is nothing to compile or cache)."""
+    (the counterpart of :func:`grafx_tpu.render.graph.make_render_fn`).
+
+    With ``jit`` (the default, as in ``grafx_tpu``) a call on the card
+    replays a CUDA graph captured per input shapes and parameter tree
+    (:class:`~grafx_tpu_torch.render.compiled.CapturedFunction`: the
+    first call with a new signature runs eagerly, the second captures),
+    with the parameters passed in, and returns fresh tensors; it refuses
+    parameters that need autograd (pass ``jit=False`` to differentiate
+    through the render).  On the CPU both run the same eager code.
+    """
 
     def render_fn(input_signals, per_type_parameters, return_buffer=False):
         return render_grafx(
@@ -226,4 +237,4 @@ def make_render_fn(processors, render_data):
             return_buffer=return_buffer,
         )
 
-    return render_fn
+    return CapturedFunction(render_fn, name="make_render_fn(jit=True)") if jit else render_fn

@@ -23,12 +23,17 @@ distortions without DC removal) and are called on each block.  Streaming
 is inference only: the renderer builds and steps under
 ``torch.no_grad()``, and collects no aux losses.
 
+On the card a block step replays a captured CUDA graph, and
+``step_many`` one graph of its k block steps, the counterparts of
+``grafx_tpu``'s jitted step and its ``lax.scan``
+(:mod:`~grafx_tpu_torch.render.compiled`).
+
 Typical use::
 
     streamer = StreamRenderer(processors, render_data, params, block_len=4096)
     state = streamer.init_state()
     for block in blocks:                      # (num_sources, C, block_len)
-        y, state = streamer(block, state)
+        y, state = streamer(block, state)     # one CUDA-graph replay
 """
 
 import inspect
@@ -36,6 +41,7 @@ import inspect
 import torch
 
 from grafx_tpu_torch.data.configs import UTILITY_TYPES
+from grafx_tpu_torch.render.compiled import CapturedFunction
 from grafx_tpu_torch.render.core import aggregate_tensor, read_tensor_or_tensor_dict
 from grafx_tpu_torch.render.graph import _access_rows, _read_rows_from_stages, _row_sources
 
@@ -53,6 +59,13 @@ class StreamRenderer:
         num_channels: audio channels (2 for stereo graphs).
         rng, common_parameters: not ported yet; anything but ``None``
             raises.
+        jit: on the card, replay a CUDA graph of the block step captured
+            per block and state shapes (the first call of a shape runs
+            eagerly, the second captures), and of ``step_many``'s k steps
+            per k; every call returns fresh tensors, and the renderer's
+            caches are baked into the graphs.  ``False`` steps eagerly (the
+            kernels' launch counters then count every block).  The CPU
+            runs eagerly either way.
     """
 
     def __init__(
@@ -64,6 +77,7 @@ class StreamRenderer:
         num_channels=2,
         rng=None,
         common_parameters=None,
+        jit=True,
     ):
         if rng is not None or common_parameters is not None:
             raise NotImplementedError(
@@ -77,6 +91,10 @@ class StreamRenderer:
         self.block_len = block_len
         self.num_channels = num_channels
         self._row_src = _row_sources(render_data)
+        self._step_fn, self._step_many_fn = self._step, self._step_many
+        if jit:
+            self._step_fn = CapturedFunction(self._step, name="StreamRenderer.__call__")
+            self._step_many_fn = CapturedFunction(self._step_many, name="StreamRenderer.step_many")
 
         # per-stage states and caches, built once
         self._caches = {}
@@ -124,7 +142,10 @@ class StreamRenderer:
         """Fresh carried state for a new stream."""
         return dict(self._init_states)
 
-    def _step(self, x_block, stream_state):
+    def _step(self, x_block, stream_state, caches=None):
+        """One block; ``caches`` in place of the renderer's own (the
+        serving export passes them as the program's arguments)."""
+        caches = self._caches if caches is None else caches
         rd = self.render_data
         stage_outputs = [x_block]
         new_state = {}
@@ -141,7 +162,7 @@ class StreamRenderer:
             ]
             node_type = stage.node_type
             if node_type in self.processors:
-                kind, cache = self._caches[i]
+                kind, cache = caches[i]
                 proc = self.processors[node_type]
                 if kind == "stream":
                     output, new_state[i] = proc.stream_step(*stage_inputs, stream_state[i], cache)
@@ -163,6 +184,13 @@ class StreamRenderer:
             stage_outputs.append(output)
         return output, new_state
 
+    def _step_many(self, x_blocks, stream_state, caches=None):
+        ys = []
+        for x in x_blocks:
+            y, stream_state = self._step(x, stream_state, caches)
+            ys.append(y)
+        return torch.stack(ys), stream_state
+
     @torch.no_grad()
     def __call__(self, x_block, stream_state):
         """Process one block ``(num_sources, C, block_len)``; returns
@@ -171,20 +199,17 @@ class StreamRenderer:
             raise ValueError(
                 f"block length {x_block.shape[-1]} != configured {self.block_len}"
             )
-        return self._step(x_block, stream_state)
+        return self._step_fn(x_block, stream_state)
 
     @torch.no_grad()
     def step_many(self, x_blocks, stream_state):
         """Process ``k`` consecutive blocks ``(k, num_sources, C,
         block_len)``: the single-block step over the leading axis, the
-        same math as ``k`` calls.  Returns ``(y_blocks, new_stream_state)``
-        with ``y_blocks`` stacked on the leading axis."""
+        same math as ``k`` calls, in one CUDA-graph replay on the card.
+        Returns ``(y_blocks, new_stream_state)`` with ``y_blocks`` stacked
+        on the leading axis."""
         if x_blocks.dim() < 2 or x_blocks.shape[-1] != self.block_len:
             raise ValueError(
                 f"x_blocks must be (k, ..., {self.block_len}); got {tuple(x_blocks.shape)}"
             )
-        ys = []
-        for x in x_blocks:
-            y, stream_state = self._step(x, stream_state)
-            ys.append(y)
-        return torch.stack(ys), stream_state
+        return self._step_many_fn(x_blocks, stream_state)

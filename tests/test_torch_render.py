@@ -89,6 +89,7 @@ def test_import_leaves_jax_and_networkx_out():
         "import pkgutil, sys, grafx_tpu_torch\n"
         "for m in pkgutil.walk_packages(grafx_tpu_torch.__path__, 'grafx_tpu_torch.'):\n"
         "    __import__(m.name)\n"
+        "assert 'grafx_tpu_torch.serving' in sys.modules\n"
         "bad = [m for m in ('jax', 'networkx', 'grafx_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )
