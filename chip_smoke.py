@@ -1,8 +1,10 @@
 """Serve, train and stream the bench.py mixing console on one NVIDIA GPU
 through grafx_tpu_torch, serve and train it with FactorizedCompressor as
 its compressor, run each of those paths compiled (CUDA-graph replays)
-and through serving.py's exported programs, and check every hand-written
-kernel on the way.
+and through serving.py's exported programs, run the packaged fit loop
+(mixing_console -> GraphParameterOptimizer.fit -> save/restore, with
+MultitapDelay and the neural parameter predictor), and check every
+hand-written kernel on the way.
 
 Run from the root of the repository, on a machine with the card:
 
@@ -77,7 +79,35 @@ before the result line):
 16. serving, after every timed phase: ``serving.py`` on the card, the
     console's render exported and loaded against the live render (and
     with changed parameters), the stream step exported for one block and
-    for four against the live stream.
+    for four against the live stream;
+17. fit: ``mixing_console(16)`` (70 nodes) on synthetic stems (16, 2,
+    2^17), seed 0; the target is the ground truth (initial parameters +
+    0.3 N(0, 1)) through ``render_current``, whose capture launches #2
+    once per compressor stage; ``GraphParameterOptimizer`` with its
+    defaults (MR-STFT, Adam lr 1e-2, ``jit=True``) fits 20 steps, the loss
+    must fall, the second step's capture launches #5 and #6 once per
+    compressor stage; compiled and eager ms a step, capture seconds, peak
+    memory; the first step against the CPU's at full width: render and
+    loss <= -60 dB, the render's backward (the gradient of an MSE against
+    the target) <= -60 dB and each leaf <= -40 dB, and the default loss's
+    gradient no further from the CPU's than the CPU's own gradient moves
+    when the stems move by as much as the two renders differ, plus 6 dB
+    (its log-magnitude L1 term is a sum of per-bin signs; see
+    ``step_card_vs_cpu``);
+18. resume: ``save`` after 5 steps; a fresh optimizer takes two (its graph
+    captured), then ``restore``: parameters and Adam state bit-equal to
+    the saved ones and the same tensors (``data_ptr``), and 5 more steps
+    within 1e-6 relative of steps 6-10 of the uninterrupted run; a
+    ``save_session``/``load_session`` round trip onto the card;
+19. delay: the fit console with ``MultitapDelay(segment_len=1500,
+    num_segments=10)`` after each track's gain (86 nodes): one
+    ``render_current`` and one step, and that step against the CPU's as in
+    phase 17;
+20. predictor: ``ParameterPredictor`` on the fit console, each node
+    conditioned on its stem's ``audio_features`` (the bus and the send on
+    the mix's): the first loss against the CPU's on the same weights (<=
+    -60 dB), then 10 eager Adam steps through the render, the loss must
+    fall (#5 and #6 once per compressor stage a step).
 
 Phases 5-11 run the eager paths (``jit=False``), whose launch counts
 count every run.  A replay runs exactly the launches its capture made, so
@@ -103,7 +133,9 @@ after phases 12-15 one more warm call of each compiled path: each prints
 its device ms (CUDA events), host wall ms, busy device ms and the card's
 idle share, and writes its per-op table to ``DIR/profile_<run>.txt``
 (``request``, ``step``, ``stream_block``, ``step_factorized``, and each
-with ``_compiled``).
+with ``_compiled``); and in phases 17 and 19 one more compiled fit step
+and delay-console step (``fit_step_compiled``, ``delay_step_compiled``),
+from whose busy times the delays' share of the step is derived.
 """
 
 import argparse
@@ -114,19 +146,32 @@ import statistics
 import time
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import torch
 
-from grafx_tpu_torch.models import bench_console, bench_trainer
+from grafx_tpu_torch.checkpoint import PARAMS_FILE, load_parameters, load_session, save_session
+from grafx_tpu_torch.data import convert_to_tensor
+from grafx_tpu_torch.models import (
+    GraphParameterOptimizer,
+    ParameterPredictor,
+    audio_features,
+    bench_console,
+    bench_trainer,
+    mixing_console,
+)
 from grafx_tpu_torch.models.console import bench_processors
+from grafx_tpu_torch.models.optimize import OPT_STATE_FILE
+from grafx_tpu_torch.models.predictor import features_per_type
 from grafx_tpu_torch.ops import _cuda
 from grafx_tpu_torch.ops import ballistics as bal
 from grafx_tpu_torch.ops.iir import exactness_check_db
 from grafx_tpu_torch.processors import FactorizedCompressor
-from grafx_tpu_torch.render import StreamRenderer, make_render_fn
+from grafx_tpu_torch.ops.losses import mse_loss, multi_resolution_stft_loss
+from grafx_tpu_torch.render import StreamRenderer, make_render_fn, prepare_render, reorder_for_fast_render
 from grafx_tpu_torch.serving import export_render, export_stream_step, load_render, load_stream_step
-from grafx_tpu_torch.utils import tree_items
+from grafx_tpu_torch.utils import tree_items, tree_leaves
 
 GAIN_SRC = "grafx_tpu_torch/csrc/ballistics_gain.cu"
 GRAD_SRC = "grafx_tpu_torch/csrc/ballistics_grad.cu"
@@ -173,6 +218,9 @@ GRAD_REL = 1e-4  # per-row gradients: max abs error <= GRAD_REL * max |ref|
 BATCH, CHAINS, AUDIO_LEN = 4, 17, 2**17
 BLOCK_LEN, SAMPLE_RATE = 4096, 44100
 FRAME_LEN = 1024  # FactorizedCompressor's documented frame (BASELINE.md, "documented fast path")
+FIT_TRACKS = 16  # mixing_console(16): the paper's console width (models/console.py)
+RESUME_REL = 1e-6  # resumed losses against the uninterrupted run's, relative
+PREDICTOR_STEPS = 10
 # The card's published peaks (H100 SXM, 700 W): device memory and float32
 # outside the tensor cores; the kernels do no matrix products.
 MEM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
@@ -363,7 +411,8 @@ def console_cases(gen):
     compressors (8 rows), whose times are the kernels' rows (``path``
     None); and the factorized console's gate members (68 rows of the
     one-pole gate from 0; an absent gate's gain is selected to 1 after
-    the kernel, so every row keeps its cf), an extra shape of #2/#5/#6."""
+    the kernel, so every row keeps its cf) and the fit console's 16 track
+    compressors (phases 17-20, 16 rows), extra shapes of #2/#5/#6."""
     n = BATCH * CHAINS
     absent = (torch.arange(n, device="cuda") % CHAINS) % 3 != 0
     u = energy(gen, n, AUDIO_LEN)
@@ -378,8 +427,12 @@ def console_cases(gen):
     u2 = energy(gen, n, AUDIO_LEN)
     c2 = [torch.ones(n, device="cuda")] + gain_consts(gen, n, "compressor")
     gg2 = torch.randn(n, AUDIO_LEN, generator=gen, device="cuda")
+    u4 = energy(gen, FIT_TRACKS, AUDIO_LEN)
+    c4 = [torch.ones(FIT_TRACKS, device="cuda")] + gain_consts(gen, FIT_TRACKS, "compressor")
+    gg4 = torch.randn(FIT_TRACKS, AUDIO_LEN, generator=gen, device="cuda")
     return [(pair, None), (KernelCase(False, u2, c2, "compressor", None, gg2), None),
-            (gate, "factorized gate member")]
+            (gate, "factorized gate member"),
+            (KernelCase(False, u4, c4, "compressor", None, gg4), "fit track compressors")]
 
 
 def chunking(shape, chunk=None):
@@ -875,6 +928,7 @@ def profile_run(fn, out_dir, name, card):
     say("profile", run=name, device_ms=f"{ms:.3f}", host_wall_ms=f"{wall_ms:.3f}",
         device_busy_ms=f"{busy:.3f}", device_ops=ops,
         idle_share=f"{max(0.0, 1.0 - busy / ms):.3f}", table=table, card=repr(card))
+    return busy
 
 
 def stream_phase(args, smi, stats):
@@ -985,29 +1039,43 @@ def grad_card_vs_cpu(phase, make_processors):
         tr = bench_trainer(CHAINS, seed=5, device=device, processors=make_processors())
         total, audio = tr.loss(x.to(device), target.to(device))
         total.backward()
-        losses[device] = audio.detach().cpu().double()
-        grads[device] = {k: torch.zeros(p.shape) if p.grad is None else p.grad.cpu()
-                         for k, p in tree_items(tr.params)}
+        losses[device], grads[device] = audio, leaf_grads(tr.params)
+    say(phase, **compare_card_cpu(phase, losses, grads))
+
+
+def leaf_grads(params):
+    """``{leaf path: gradient on the CPU}``, zeros where a leaf has none."""
+    return {k: torch.zeros(p.shape) if p.grad is None else p.grad.cpu()
+            for k, p in tree_items(params)}
+
+
+def compare_card_cpu(phase, losses, grads):
+    """Hold the card's loss and gradients (``{"cuda": ..., "cpu": ...}``)
+    against the CPU's: loss and concatenated gradient <= -60 dB, each
+    nonzero leaf <= -40 dB, leaves zero on the CPU zero on the card.
+    Prints every leaf's dB first, then checks; returns the fields of the
+    phase's line."""
+    losses = {d: v.detach().cpu().double() for d, v in losses.items()}
     loss_db = db(losses["cuda"] - losses["cpu"], losses["cpu"])
     cat = {d: torch.cat([v.ravel() for v in grads[d].values()]) for d in grads}
     grad_db = db(cat["cuda"] - cat["cpu"], cat["cpu"])
+    leaf_db, zero_leaves = {}, []
+    for k, ref in grads["cpu"].items():
+        if bool((ref != 0).any()):
+            leaf_db[k] = db(grads["cuda"][k] - ref, ref)
+        else:
+            zero_leaves.append(k)
+    say(phase, leaf_db={k: round(v, 1) for k, v in leaf_db.items()}, zero_leaves=zero_leaves)
     check(bool(torch.isfinite(cat["cuda"]).all()), f"{phase}: non-finite card gradient")
     check(loss_db <= -60.0, f"{phase}: loss card vs CPU at {loss_db:.1f} dB > -60 dB")
     check(grad_db <= -60.0, f"{phase}: gradient card vs CPU at {grad_db:.1f} dB > -60 dB")
-    worst, worst_leaf, zero_leaves = -1e9, None, 0
-    for k, ref in grads["cpu"].items():
-        got = grads["cuda"][k]
-        if bool((ref != 0).any()):
-            leaf_db = db(got - ref, ref)
-            check(leaf_db <= -40.0, f"{phase}: gradient of {k} card vs CPU at {leaf_db:.1f} dB > -40 dB")
-            if leaf_db > worst:
-                worst, worst_leaf = leaf_db, k
-        else:
-            check(bool((got == 0).all()), f"{phase}: gradient of {k} is zero on the CPU, not on the card")
-            zero_leaves += 1
-    say(phase, loss_db=f"{loss_db:.1f}", grad_db=f"{grad_db:.1f}",
-        worst_leaf_db=f"{worst:.1f}", worst_leaf=worst_leaf, zero_leaves=zero_leaves,
-        leaves=len(grads["cpu"]))
+    for k, v in leaf_db.items():
+        check(v <= -40.0, f"{phase}: gradient of {k} card vs CPU at {v:.1f} dB > -40 dB")
+    for k in zero_leaves:
+        check(bool((grads["cuda"][k] == 0).all()), f"{phase}: gradient of {k} is zero on the CPU, not on the card")
+    worst = max(leaf_db, key=leaf_db.get)
+    return dict(loss_db=f"{loss_db:.1f}", grad_db=f"{grad_db:.1f}", worst_leaf_db=f"{leaf_db[worst]:.1f}",
+                worst_leaf=worst, zero_leaves=len(zero_leaves), leaves=len(grads["cpu"]))
 
 
 def factorized_processors():
@@ -1353,6 +1421,309 @@ def serving_phase(smi, stats):
         blocks_per_step4_captured_launches=captured4, card=repr(smi))
 
 
+def synthetic_stems(num_tracks, length, generator):
+    """Tonal and noisy stems with a spectrum of their own each, panned
+    across the field (examples/match_mix.py's), ``(num_tracks, 2, length)``."""
+    t = torch.arange(length) / SAMPLE_RATE
+    stems = []
+    for i in range(num_tracks):
+        f0 = 80.0 * 2.0 ** (i / 2.0)
+        tone = 0.3 * torch.sin(2 * np.pi * f0 * t) * torch.exp(-((t % 0.5) * 4))
+        mono = tone + 0.05 * torch.randn(length, generator=generator)
+        pan = i / max(num_tracks - 1, 1)
+        stems.append(torch.stack([mono * (1 - 0.5 * pan), mono * (0.5 + 0.5 * pan)]))
+    return torch.stack(stems)
+
+
+def fit_console(delay=False):
+    """The fit console, ``mixing_console(16)`` (eq -> compressor -> gain a
+    track, geq -> compressor on the bus, a reverb send: 70 nodes), with a
+    delay after each track's gain where asked (86 nodes)."""
+    chain = ("eq", "compressor", "gain", "delay") if delay else ("eq", "compressor", "gain")
+    return mixing_console(num_tracks=FIT_TRACKS, track_chain=chain)
+
+
+def fit_optimizer(device, delay=False, jit=True):
+    """The packaged fit loop on the fit console with its defaults
+    (MR-STFT loss, Adam lr 1e-2), parameters drawn from seed 1."""
+    return GraphParameterOptimizer(*fit_console(delay), generator=torch.Generator().manual_seed(1),
+                                   device=device, jit=jit)
+
+
+def compressor_stages(plan):
+    return sum(stage.node_type == "compressor" for stage in plan.iter_list)
+
+
+def first_step(device, delay, stems, target, perturb=0.0):
+    """The fit optimizer's first step at full width on ``device``, at its
+    initial parameters, from one render: the output, the total and the
+    audio (MR-STFT) loss, and every gradient of the total and of the MSE
+    against the target; ``perturb`` scales relative noise on the stems."""
+    opt = fit_optimizer(device, delay=delay, jit=False)
+    x = stems.to(device)
+    if perturb:
+        x = x * (1 + perturb * torch.randn(x.shape, generator=torch.Generator().manual_seed(5)).to(device))
+    y = target.to(device)
+    start = time.perf_counter()
+    out, intermediates, _ = opt.render(x, opt.params)
+    audio = multi_resolution_stft_loss(out, y)
+    total = audio + sum(v.sum() for inter in intermediates for v in tree_leaves(inter))
+    leaves = [p for _, p in tree_items(opt.params) if p.requires_grad]
+    names = [k for k, p in tree_items(opt.params) if p.requires_grad]
+
+    def grads(loss, retain):
+        return {k: g.cpu() for k, g in zip(names, torch.autograd.grad(loss, leaves, retain_graph=retain))}
+
+    result = dict(out=out.detach().cpu(), audio=audio.detach(), total=total.detach(),
+                  grads=grads(total, True), mse_grads=grads(mse_loss(out, y), False))
+    torch.cuda.synchronize()
+    result["seconds"] = time.perf_counter() - start
+    return result
+
+
+def step_card_vs_cpu(phase, delay, stems, target):
+    """The fit console's first step (with ``delay``s) on the card against
+    the CPU's at full width.  Gates: render, MR-STFT and total loss <=
+    -60 dB; the render's backward, through the MSE's gradient, <= -60 dB
+    (each leaf <= -40 dB).  The default loss's gradient is determined only
+    as far as float32 lets its log-magnitude L1 term be: that gradient is
+    a sum of per-bin signs, and where the card's render differs from the
+    CPU's (by ``r``), bins near their target flip.  So it is held to the
+    CPU's own spread: the CPU gradient with the stems moved by relative
+    noise of size ``r``, plus 6 dB.  Returns the fields of the line."""
+    card = first_step("cuda", delay, stems, target)
+    cpu = first_step("cpu", delay, stems, target)
+    render_db = db(card["out"] - cpu["out"], cpu["out"])
+    check(bool(torch.isfinite(card["out"]).all()), f"{phase}: non-finite render")
+    check(render_db <= -60.0, f"{phase}: render card vs CPU at {render_db:.1f} dB > -60 dB")
+    total = {d: r["total"].cpu().double() for d, r in (("cuda", card), ("cpu", cpu))}
+    total_db = db(total["cuda"] - total["cpu"], total["cpu"])
+    check(total_db <= -60.0, f"{phase}: total loss card vs CPU at {total_db:.1f} dB > -60 dB")
+    mse = compare_card_cpu(f"{phase} mse", {"cuda": card["audio"], "cpu": cpu["audio"]},
+                           {"cuda": card["mse_grads"], "cpu": cpu["mse_grads"]})
+    rel = torch.linalg.norm(card["out"] - cpu["out"]) / torch.linalg.norm(cpu["out"])
+    moved = first_step("cpu", delay, stems, target, perturb=rel.item())
+    cat = {k: torch.cat([v.ravel() for v in r["grads"].values()]) for k, r in
+           (("cuda", card), ("cpu", cpu), ("moved", moved))}
+    grad_db = db(cat["cuda"] - cat["cpu"], cat["cpu"])
+    spread_db = db(cat["moved"] - cat["cpu"], cat["cpu"])
+    leaf_db = {k: round(db(card["grads"][k] - v, v), 1) for k, v in cpu["grads"].items() if bool((v != 0).any())}
+    say(phase, mrstft_leaf_db=leaf_db)
+    check(bool(torch.isfinite(cat["cuda"]).all()), f"{phase}: non-finite card gradient")
+    check(grad_db <= spread_db + 6.0, f"{phase}: MR-STFT gradient card vs CPU at {grad_db:.1f} dB, above the"
+                                      f" CPU's own spread {spread_db:.1f} dB + 6 dB")
+    return dict(render_db=f"{render_db:.1f}", loss_db=mse["loss_db"], total_loss_db=f"{total_db:.1f}",
+                mse_grad_db=mse["grad_db"], mse_worst_leaf_db=mse["worst_leaf_db"],
+                mse_worst_leaf=mse["worst_leaf"], mrstft_grad_db=f"{grad_db:.1f}",
+                mrstft_cpu_spread_db=f"{spread_db:.1f}", render_rel=f"{rel.item():.3g}",
+                cpu_seconds=f"{cpu['seconds']:.1f}"), cpu
+
+
+def fit_phase(args, smi, stats):
+    """Phase 17: the packaged fit loop at full width.  The target: the
+    ground truth (initial parameters + 0.3 N(0, 1), as
+    examples/match_mix.py draws it) through ``render_current``, whose
+    capture launches #2 once per compressor stage; then a fresh
+    ``GraphParameterOptimizer`` with its defaults fits 20 steps (the
+    second captures the whole update: #5 and #6 once per compressor
+    stage), timed compiled and eager; its first step against the CPU's.
+    Returns the stems, the target and (with ``--profile``) the compiled
+    step's busy device ms."""
+    stems = synthetic_stems(FIT_TRACKS, AUDIO_LEN, torch.Generator().manual_seed(0)).cuda()
+    truth = fit_optimizer("cuda")
+    stages = compressor_stages(truth.render_data)
+    noise = torch.Generator().manual_seed(8)
+    with torch.no_grad():
+        for _, p in tree_items(truth.params):
+            p.add_(0.3 * torch.randn(p.shape, generator=noise).cuda())
+    truth.render_current(stems)  # warm-up: eager, on a side stream
+    expected = {name: stages if name == "ballistics_gain_core" else 0 for name in KERNELS}
+    target, _, _, render_launches = capturing_call(
+        lambda: truth.render_current(stems), "fit render_current", expected, stats, "fit_render_compiled")
+    check(target.shape == (1, 2, AUDIO_LEN) and bool(torch.isfinite(target).all()), "fit: bad target")
+
+    opt = fit_optimizer("cuda")
+    first_total, first_audio = opt.step(stems, target)  # eager, on a side stream
+    first_grads = leaf_grads(opt.params)
+    expected = {name: stages if name in ("ballistics_gain_fwd", "ballistics_gain_bwd") else 0
+                for name in KERNELS}
+    (_, audio), call_s, reserved, step_launches = capturing_call(
+        lambda: opt.step(stems, target), "fit step", expected, stats, "fit_step_compiled")
+    history = [first_audio.item(), audio.item()] + opt.fit(stems, target, num_steps=18)
+    check(all(np.isfinite(history)), f"fit: non-finite losses {history}")
+    check(history[-1] < history[0], f"fit: the loss did not fall ({history[0]} -> {history[-1]})")
+    compiled_ms = call_ms(lambda: opt.step(stems, target))
+    compiled_peak = peak_gib(lambda: opt.step(stems, target))
+    eager = fit_optimizer("cuda", jit=False)
+    eager_ms = call_ms(lambda: eager.step(stems, target), calls=3)
+    eager_peak = peak_gib(lambda: eager.step(stems, target))
+    say("fit", nodes=opt.G.number_of_nodes(), stems=tuple(stems.shape), steps=len(history),
+        loss_first=f"{history[0]:.6f}", loss_last=f"{history[-1]:.6f}",
+        losses=[round(v, 6) for v in history], compressor_stages=stages,
+        compiled_ms=[round(t, 3) for t in compiled_ms],
+        compiled_median_ms=f"{statistics.median(compiled_ms):.3f}",
+        eager_ms=[round(t, 3) for t in eager_ms], eager_warm_median_ms=f"{statistics.median(eager_ms[1:]):.3f}",
+        capture_s=f"{opt._update.capture_seconds[-1]:.3f}", capturing_call_s=f"{call_s:.3f}",
+        capture_reserved_gib=f"{reserved:.3f}", compiled_peak_gib=f"{compiled_peak:.3f}",
+        eager_peak_gib=f"{eager_peak:.3f}", render_captured_launches=render_launches,
+        step_captured_launches=step_launches, card=repr(smi))
+    fit_busy = None
+    if args.profile:
+        fit_busy = profile_run(lambda: opt.step(stems, target), args.profile, "fit_step_compiled", smi)
+    del eager, truth
+
+    fields, cpu = step_card_vs_cpu("fit_card_vs_cpu", False, stems, target)
+    # the compiled optimizer's own first step: the same loss and gradient
+    first_db = db(first_audio.cpu().double() - cpu["audio"].double(), cpu["audio"].double())
+    check(first_db <= -60.0, f"fit: the first step's loss against the CPU's at {first_db:.1f} dB > -60 dB")
+    step_db = db(torch.cat([first_grads[k].ravel() for k in cpu["grads"]])
+                 - torch.cat([v.ravel() for v in cpu["grads"].values()]),
+                 torch.cat([v.ravel() for v in cpu["grads"].values()]))
+    say("fit_card_vs_cpu", step=1, **fields, compiled_first_step_loss_db=f"{first_db:.1f}",
+        compiled_first_step_grad_db=f"{step_db:.1f}")
+    return stems, target, fit_busy
+
+
+def resume_phase(stems, target):
+    """Phase 18: save after 5 compiled steps; a fresh optimizer takes two
+    (its graph captured), then restores: its parameters and Adam moments
+    bit-equal to the saved ones in the same tensors, and 5 more steps
+    within RESUME_REL of steps 6-10 of the uninterrupted run; a session
+    round trip onto the card."""
+    with tempfile.TemporaryDirectory() as directory:
+        run = fit_optimizer("cuda")
+        losses = run.fit(stems, target, num_steps=5)
+        run.save(directory, metadata={"step": 5})
+        losses += run.fit(stems, target, num_steps=5)
+
+        resumed = fit_optimizer("cuda")
+        resumed.fit(stems, target, num_steps=2)
+        check(resumed._update.capture_seconds, "resume: the fresh optimizer captured no graph")
+        tensors = [p for _, p in tree_items(resumed.params)]
+        tensors += [v for state in resumed.optimizer.state.values() for v in state.values()]
+        ptrs = [t.data_ptr() for t in tensors]
+        check(resumed.restore(directory) == {"step": 5}, "resume: metadata lost")
+        now = [p for _, p in tree_items(resumed.params)]
+        now += [v for state in resumed.optimizer.state.values() for v in state.values()]
+        check(all(a is b for a, b in zip(tensors, now)) and len(now) == len(tensors)
+              and [t.data_ptr() for t in now] == ptrs, "resume: restore replaced a live tensor")
+        saved_params = load_parameters(os.path.join(directory, PARAMS_FILE))
+        check(all(torch.equal(p.detach().cpu(), saved)
+                  for (_, p), (_, saved) in zip(tree_items(resumed.params), tree_items(saved_params))),
+              "resume: the restored parameters differ from the saved ones")
+        saved_state = torch.load(os.path.join(directory, OPT_STATE_FILE), weights_only=True)["state"]
+        params = resumed.optimizer.param_groups[0]["params"]
+        moments = 0
+        for i, values in saved_state.items():
+            live = resumed.optimizer.state[params[i]]
+            for name, v in values.items():
+                check(torch.equal(live[name].cpu(), v), f"resume: {name} of leaf {i} differs")
+                moments += 1
+        resumed_losses = resumed.fit(stems, target, num_steps=5)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(resumed_losses, losses[5:]))
+        check(rel <= RESUME_REL, f"resume: losses {resumed_losses} vs {losses[5:]}, rel {rel:.3g}")
+
+        session = os.path.join(directory, "session")
+        save_session(session, run.G, run.params, metadata={"steps": 10})
+        G2, params2, meta = load_session(session, like=run.params)
+        check(meta == {"steps": 10} and G2.number_of_nodes() == run.G.number_of_nodes(),
+              "session: graph or metadata lost")
+        check(all(q.is_cuda and torch.equal(q, p.detach())
+                  for (_, p), (_, q) in zip(tree_items(run.params), tree_items(params2))),
+              "session: parameters changed in the round trip")
+    say("resume", saved_at=5, restored_after_captured_steps=2, tensors_in_place=len(tensors),
+        state_entries_bit_equal=moments, params_bit_equal=True,
+        losses_uninterrupted=[round(v, 7) for v in losses[5:]],
+        losses_resumed=[round(v, 7) for v in resumed_losses], max_rel=f"{rel:.3g}",
+        bit_equal=resumed_losses == losses[5:], session_round_trip="equal, on the card")
+
+
+def delay_phase(args, smi, stats, stems, target, fit_busy):
+    """Phase 19: the fit console with a MultitapDelay after each track's
+    gain: one render_current and one step on the card, and the step
+    against the CPU's (step_card_vs_cpu); with ``--profile``, the
+    delays' share of a compiled step's busy device time, derived against
+    the fit step's."""
+    opt = fit_optimizer("cuda", delay=True)
+    bal.reset_launch_counts()
+    out = opt.render_current(stems)
+    total, audio = opt.step(stems, target)
+    stages = compressor_stages(opt.render_data)
+    read_launches("delay_render_and_step", 1, stats, ("ballistics_gain_core", "ballistics_gain_fwd",
+                                                     "ballistics_gain_bwd"),
+                  {"ballistics_gain_core": stages, "ballistics_gain_fwd": stages,
+                   "ballistics_gain_bwd": stages})
+    check(bool(torch.isfinite(out).all()) and bool(torch.isfinite(total)), "delay: non-finite render or loss")
+    fields, cpu = step_card_vs_cpu("delay_card_vs_cpu", True, stems, target)
+    render_db = db(out.cpu() - cpu["out"], cpu["out"])
+    check(render_db <= -60.0, f"delay: render_current card vs CPU at {render_db:.1f} dB > -60 dB")
+    say("delay", nodes=opt.G.number_of_nodes(), render_current_db=f"{render_db:.1f}",
+        radii_reg=f"{(total - audio).item():.4f}", **fields, card=repr(smi))
+    if args.profile:
+        opt.step(stems, target)  # captures
+        delay_busy = profile_run(lambda: opt.step(stems, target), args.profile, "delay_step_compiled", smi)
+        say("delay", share_of_step_busy=f"{1.0 - fit_busy / delay_busy:.3f}",
+            derived="1 - busy(fit step) / busy(delay step), both compiled")
+
+
+def predictor_loss(predictor, device, stems, target):
+    """``() -> MR-STFT loss`` of the fit console rendered eagerly with the
+    parameters ``predictor`` gives, each node conditioned on its stem's
+    audio_features (the bus and the send on the mix's), on ``device``;
+    and the number of compressor stages."""
+    G, procs = fit_console()
+    for proc in procs.values():
+        proc.to(device)
+    plan = prepare_render(reorder_for_fast_render(convert_to_tensor(G), method="beam"))
+    render = make_render_fn(procs, plan, jit=False)
+    x, y = stems.to(device), target.to(device)
+    feats = audio_features(torch.cat([x, x.sum(0, keepdim=True)]))
+    per_type = features_per_type(G, procs, feats[:FIT_TRACKS], feats[FIT_TRACKS])
+    stages = compressor_stages(plan)
+    return (lambda: multi_resolution_stft_loss(render(x, predictor(per_type))[0], y)), stages
+
+
+def predictor_phase(smi, stats, stems, target):
+    """Phase 20: ParameterPredictor on the fit console: its first loss on
+    the card against the CPU's on the same weights, then 10 eager Adam
+    steps of its weights through the render (#5 and #6 once per
+    compressor stage a step); the loss must fall."""
+    predictor = ParameterPredictor(fit_console()[1], generator=torch.Generator().manual_seed(2))
+    cpu_loss, _ = predictor_loss(predictor, "cpu", stems, target)
+    start = time.perf_counter()
+    with torch.no_grad():
+        loss_cpu = cpu_loss().double()
+    cpu_s = time.perf_counter() - start
+    loss_fn, stages = predictor_loss(predictor.cuda(), "cuda", stems, target)
+    opt = torch.optim.Adam(predictor.parameters(), lr=3e-3)
+
+    def train_step():
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn()
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    bal.reset_launch_counts()
+    history, step_ms = [], []
+    for _ in range(PREDICTOR_STEPS):
+        ms, loss = device_ms(train_step, reps=1)
+        history.append(loss.item())
+        step_ms.append(ms)
+    launches = read_launches("predictor_step", PREDICTOR_STEPS, stats,
+                             ("ballistics_gain_fwd", "ballistics_gain_bwd"),
+                             {"ballistics_gain_fwd": stages, "ballistics_gain_bwd": stages})
+    check(all(np.isfinite(history)) and history[-1] < history[0],
+          f"predictor: the loss did not fall: {history}")
+    loss_db = db(torch.tensor(history[0], dtype=torch.float64) - loss_cpu, loss_cpu)
+    check(loss_db <= -60.0, f"predictor: first loss card vs CPU at {loss_db:.1f} dB > -60 dB")
+    say("predictor", steps=len(history), losses=[round(v, 6) for v in history],
+        step_ms=[round(t, 3) for t in step_ms], warm_median_ms=f"{statistics.median(step_ms[1:]):.3f}",
+        first_loss_card_vs_cpu_db=f"{loss_db:.1f}", cpu_seconds=f"{cpu_s:.1f}",
+        weights=sum(p.numel() for p in predictor.parameters()), compressor_stages=stages,
+        launches=launches, card=repr(smi))
+
+
 def kernel_row(name, source, replaces, stats):
     """The kernel's entry of the ``{"kernels": [...]}`` line."""
     s = stats[name]
@@ -1542,6 +1913,14 @@ def main():
     serving_phase(smi, stats)
     say("compiled", phases_12_15_s=f"{compiled_s:.1f}",
         phase_16_s=f"{time.perf_counter() - phases_at - compiled_s:.1f}")
+
+    # 17-20. the packaged fit loop: fit, resume, the delay console, the predictor
+    phases_at = time.perf_counter()
+    stems, target, fit_busy = fit_phase(args, smi, stats)
+    resume_phase(stems, target)
+    delay_phase(args, smi, stats, stems, target, fit_busy)
+    predictor_phase(smi, stats, stems, target)
+    say("fit", phases_17_20_s=f"{time.perf_counter() - phases_at:.1f}")
 
     for name in KERNELS:
         check(name in NO_PATH or "launches" in stats[name], f"{name} ran on no path")

@@ -1,6 +1,14 @@
-"""The ~100-node mixing console of ``bench.py``, ready to serve
-(:func:`bench_console`) and to train (:func:`bench_trainer`), on the
-card unless ``device="cpu"`` is asked for.
+"""Graph factories for common console topologies (the port of
+:mod:`grafx_tpu.models.console`: :func:`simple_chain`,
+:func:`mixing_console`, :func:`mastering_chain`), and the ~100-node mixing
+console of ``bench.py``, ready to serve (:func:`bench_console`) and to
+train (:func:`bench_trainer`), on the card unless ``device="cpu"`` is
+asked for.
+
+Each factory returns ``(G, processors)`` ready for
+``reorder_for_fast_render`` -> ``prepare_render`` ->
+``create_empty_parameters`` -> ``make_render_fn``, or for
+:class:`~grafx_tpu_torch.models.optimize.GraphParameterOptimizer`.
 
 ``bench.py`` imports JAX, so its graph and processors are copied here
 (``bench.py:53-95,122-130``).  The serving parameters are made on the
@@ -23,6 +31,7 @@ from grafx_tpu_torch.ops.losses import mse_loss
 from grafx_tpu_torch.processors import (
     Compressor,
     GraphicEqualizer,
+    MultitapDelay,
     NoiseGate,
     ParametricEqualizer,
     STFTMaskedNoiseReverb,
@@ -36,6 +45,73 @@ from grafx_tpu_torch.render import (
     reorder_for_fast_render,
 )
 from grafx_tpu_torch.utils import check_device, create_empty_parameters, tree_to
+
+
+def simple_chain(chain=("eq", "compressor", "gain"), backend="exact", ir_len=30000):
+    """One source through a serial chain: the reference's minimal demo."""
+    processors = _default_processors(backend=backend, ir_len=ir_len)
+    G = GRAFX(config=NodeConfigs(sorted(processors)))
+    G.add_serial_chain(["in", *chain, "out"])
+    return G, {k: v for k, v in processors.items() if k in set(chain)}
+
+
+def mixing_console(
+    num_tracks=8,
+    track_chain=("eq", "compressor", "gain"),
+    bus_chain=("geq", "compressor"),
+    reverb_send=True,
+    backend="exact",
+    ir_len=30000,
+):
+    """A music-mixing console: per-track chains summed into a processed
+    bus, with an optional shared reverb send (the paper's ~100-node
+    benchmark topology at ``num_tracks~=16``)."""
+    processors = _default_processors(backend=backend, ir_len=ir_len)
+    G = GRAFX(config=NodeConfigs(sorted(processors)))
+
+    ends = [G.add_serial_chain(["in", *track_chain])[1] for _ in range(num_tracks)]
+    mix = G.add("mix")
+    for e in ends:
+        G.connect(e, mix)
+
+    first, bus_end = G.add_serial_chain(list(bus_chain))
+    G.connect(mix, first)
+
+    master = G.add("mix")
+    G.connect(bus_end, master)
+    if reverb_send:
+        rev = G.add("reverb")
+        G.connect(bus_end, rev)
+        G.connect(rev, master)
+    out = G.add("out")
+    G.connect(master, out)
+
+    used = set(track_chain) | set(bus_chain) | ({"reverb"} if reverb_send else set())
+    return G, {k: v for k, v in processors.items() if k in used}
+
+
+def mastering_chain(backend="exact"):
+    """A stereo mastering chain: EQ -> multiband-ish GEQ -> compressor ->
+    saturation -> gain."""
+    processors = _default_processors(backend=backend)
+    G = GRAFX(config=NodeConfigs(sorted(processors)))
+    chain = ["in", "eq", "geq", "compressor", "dist", "gain", "out"]
+    G.add_serial_chain(chain)
+    used = set(chain) - {"in", "out"}
+    return G, {k: v for k, v in processors.items() if k in used}
+
+
+def _default_processors(backend="exact", ir_len=30000):
+    return {
+        "eq": ParametricEqualizer(num_filters=6, backend=backend),
+        "geq": GraphicEqualizer(scale="bark", backend=backend),
+        "compressor": Compressor(energy_smoother="ballistics"),
+        "noisegate": NoiseGate(energy_smoother="iir"),
+        "gain": StereoGain(),
+        "dist": TanhDistortion(),
+        "reverb": STFTMaskedNoiseReverb(ir_len=ir_len),
+        "delay": MultitapDelay(segment_len=1500, num_segments=10),
+    }
 
 
 def bench_graph(num_chains=17):

@@ -9,8 +9,11 @@ forward, loss, backward and ``optimizer.step()``) replays one CUDA graph
 whole-network capture recipe).
 """
 
+import os
+
 import torch
 
+from grafx_tpu_torch import checkpoint
 from grafx_tpu_torch.data import convert_to_tensor
 from grafx_tpu_torch.ops.losses import (
     multi_resolution_stft_loss,
@@ -26,7 +29,15 @@ from grafx_tpu_torch.render import (
     prepare_render,
     reorder_for_fast_render,
 )
-from grafx_tpu_torch.utils import check_device, create_empty_parameters, tree_leaves, tree_map
+from grafx_tpu_torch.utils import (
+    check_device,
+    create_empty_parameters,
+    tree_items,
+    tree_leaves,
+    tree_map,
+)
+
+OPT_STATE_FILE = "opt_state.pt"
 
 
 def _adam(params):
@@ -217,6 +228,69 @@ class GraphParameterOptimizer:
             if log_every and (i % log_every == 0):
                 print(f"step {i}: audio_loss={history[-1]:.6f}")
         return history
+
+    def save(self, directory, metadata=None):
+        """Checkpoint the whole optimization state (graph, parameters and
+        the optimizer's state) for an exact resume by :meth:`restore`."""
+        checkpoint.save_session(directory, self.G, self.params, metadata)
+        checkpoint.save_parameters(
+            os.path.join(directory, OPT_STATE_FILE), self.optimizer.state_dict()
+        )
+
+    def restore(self, directory):
+        """Load a checkpoint from :meth:`save` into this optimizer, which
+        must be built with the same graph, processors and optimizer
+        configuration; a resumed :meth:`fit` continues the saved
+        trajectory.  Returns the saved metadata (or ``None``).
+
+        Every saved value is copied IN PLACE into the existing parameter
+        and optimizer-state tensors (Adam's ``step`` too, a device tensor
+        when ``capturable``): a captured step (``jit``) replays on those
+        tensors by address, and new tensors would leave it updating
+        tensors that nothing reads.  An optimizer that has no state yet
+        (no step taken, so nothing captured) loads it as torch does."""
+        _, params, metadata = checkpoint.load_session(directory, like=self.params)
+        saved = torch.load(
+            os.path.join(directory, OPT_STATE_FILE), map_location="cpu", weights_only=True
+        )
+        writes = self._state_writes(saved) if self.optimizer.state else None
+        with torch.no_grad():
+            for (_, p), (_, v) in zip(tree_items(self.params), tree_items(params)):
+                p.copy_(v)
+            if writes is None:
+                self.optimizer.load_state_dict(saved)
+                return metadata
+            for live, value in writes:
+                live.copy_(value)
+        for group, saved_group in zip(self.optimizer.param_groups, saved["param_groups"]):
+            group.update({k: v for k, v in saved_group.items() if k != "params"})
+        return metadata
+
+    def _state_writes(self, saved):
+        """``[(live state tensor, saved value)]`` for an optimizer that has
+        state, raising unless ``saved`` holds the same state entries of
+        the same shapes."""
+        groups = self.optimizer.param_groups
+        if [len(g["params"]) for g in groups] != [len(g["params"]) for g in saved["param_groups"]]:
+            raise ValueError("the saved optimizer state has other parameter groups")
+        params = [p for g in groups for p in g["params"]]
+        have = {i for i, p in enumerate(params) if p in self.optimizer.state}
+        if have != set(saved["state"]):
+            raise ValueError(
+                f"the saved optimizer state holds parameters {sorted(saved['state'])},"
+                f" this optimizer {sorted(have)}"
+            )
+        writes = []
+        for i, values in saved["state"].items():
+            state = self.optimizer.state[params[i]]
+            if set(state) != set(values):
+                raise ValueError(f"parameter {i}: saved state {sorted(values)}, live {sorted(state)}")
+            for name, v in values.items():
+                if tuple(v.shape) != tuple(state[name].shape):
+                    raise ValueError(f"parameter {i}: {name} saved as {tuple(v.shape)},"
+                                     f" live {tuple(state[name].shape)}")
+                writes.append((state[name], v))
+        return writes
 
     def render_current(self, input_signals):
         """Render with the current parameters (no gradient; compiled with

@@ -62,3 +62,27 @@ def hann_window(n: int, periodic: bool = True):
     denom = n if periodic else n - 1
     t = np.arange(n)
     return 0.5 * (1.0 - np.cos(2.0 * np.pi * t / denom))
+
+
+def get_window(window_type, window_length: int, **kwargs):
+    """Window factory (reference: core/fir.py:7-22), as numpy; ``None``
+    for a rectangular window."""
+    if window_type in ("rectangular", "none", "boxcar", None):
+        return None
+    match window_type:
+        case "hann":
+            return hann_window(window_length)
+        case "hamming":
+            t = np.arange(window_length)
+            return 0.54 - 0.46 * np.cos(2 * np.pi * t / window_length)
+        case "blackman":
+            t = 2 * np.pi * np.arange(window_length) / window_length
+            return 0.42 - 0.5 * np.cos(t) + 0.08 * np.cos(2 * t)
+        case "bartlett":
+            t = np.arange(window_length)
+            return 1.0 - np.abs(2.0 * t / window_length - 1.0)
+        case "kaiser":
+            beta = kwargs.get("beta", 12.0)
+            return np.kaiser(window_length + 1, beta)[:-1]
+        case _:
+            raise ValueError(f"Unsupported window type: {window_type}")

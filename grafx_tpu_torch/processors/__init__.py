@@ -10,6 +10,7 @@ from grafx_tpu_torch.processors.dynamics import (
     IIREnvelopeFollower,
     NoiseGate,
 )
+from grafx_tpu_torch.processors.delay import MultitapDelay
 from grafx_tpu_torch.processors.eq import GraphicEqualizer, ParametricEqualizer
 from grafx_tpu_torch.processors.filter import (
     BaseParametricEqualizerFilter,
@@ -33,6 +34,7 @@ __all__ = [
     "HighShelf",
     "IIREnvelopeFollower",
     "LowShelf",
+    "MultitapDelay",
     "NoiseGate",
     "ParametricEqualizer",
     "PeakingFilter",

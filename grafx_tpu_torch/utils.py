@@ -8,6 +8,11 @@ import numpy as np
 import torch
 
 
+def get_node_ids_from_type(G, node_type):
+    """Node ids of a specific type (reference: utils.py:8-26)."""
+    return [i for i, d in G.nodes(data=True) if d["node_type"] == node_type]
+
+
 def count_nodes_per_type(G, types_to_count=None):
     """Count nodes per type (reference: utils.py:28-57)."""
     if types_to_count is not None:
