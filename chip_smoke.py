@@ -3,8 +3,10 @@ through grafx_tpu_torch, serve and train it with FactorizedCompressor as
 its compressor, run each of those paths compiled (CUDA-graph replays)
 and through serving.py's exported programs, run the packaged fit loop
 (mixing_console -> GraphParameterOptimizer.fit -> save/restore, with
-MultitapDelay and the neural parameter predictor), and check every
-hand-written kernel on the way.
+MultitapDelay and the neural parameter predictor), serve, train and
+stream the console on the default IIR backend (the frequency-sampled
+FIRs, fused into FusedFIRChains), fit the gain -> delay console fused,
+and check every hand-written kernel on the way.
 
 Run from the root of the repository, on a machine with the card:
 
@@ -42,18 +44,20 @@ before the result line):
    half of the rows bit for bit and is timed beside that half;
 4. exactness: the exact IIR cascade against scipy float64;
 5. serve: three requests of (4, 17, 2, 2^17) through the fused console,
-   with every kernel's launch count (the primal kernels #1/#2 only);
+   with every kernel's launch count (#1 and #2 once a request, nothing
+   else);
 6. train: three gradient steps of ``bench_trainer(17)`` at (4, 17, 2,
    2^17), with device ms per step, peak memory, the losses, which leaves
-   moved, and every kernel's launch count (the training kernels #3-#6
-   only);
+   moved, and every kernel's launch count (#3-#6 once a step, nothing
+   else);
 7. grad card vs CPU: the trainer's loss and every parameter gradient at
    batch 1, L = 2^14, on the card and on the CPU;
 8. card vs CPU: the served console at batch 1, L = 2^14, on the card and
    on the CPU;
 9. stream: (17, 2, 2^17) through ``StreamRenderer`` in 32 blocks of
    4096, with device and host ms per block, the real-time factor, peak
-   memory and every kernel's launch count (#7 only), the streamed output
+   memory and every kernel's launch count (#7 twice a block, nothing
+   else), the streamed output
    against the one-shot render on the card, and ``step_many`` (4 blocks)
    against single steps;
 10. factorized: the console with ``FactorizedCompressor(frame_len=1024)``
@@ -107,18 +111,40 @@ before the result line):
     conditioned on its stem's ``audio_features`` (the bus and the send on
     the mix's): the first loss against the CPU's on the same weights (<=
     -60 dB), then 10 eager Adam steps through the render, the loss must
-    fall (#5 and #6 once per compressor stage a step).
+    fall (#5 and #6 once per compressor stage a step);
+21. fsm serve: the console with its equalizers on the default backend,
+    ``bench_processors(backend="fsm")``: its fused types (9
+    ``fused(eq+geq)`` and one ``fused(eq+gain)`` node, each a
+    ``FusedFIRChain``), three eager requests as in phase 5, the compiled
+    request as in phase 12, card vs CPU as in phase 8, and the fsm render
+    against the exact console's on the same parameters in dB (the FSM
+    approximation's own gap; printed, not gated);
+22. fsm train: three eager steps as in phase 6, three compiled beside
+    three eager as in phase 13, the loss and every gradient card vs CPU
+    as in phase 7;
+23. fsm stream: the fsm console streamed as in phase 9 (eager) and as
+    in phase 15 (compiled beside eager, without ``step_many``);
+24. fused delay: the console of phase 19 with
+    ``GraphParameterOptimizer(fuse=True)``, on the exact and on the fsm
+    backend: gain -> delay folds into ``FusedFIRChain`` on the 16 tracks;
+    one eager ``render_current`` (#2 once a compressor stage) and one
+    eager step (#5 and #6 once a compressor stage), the fused render
+    within 3e-5 of max|ref| of the unfused one; the compiled step
+    captured (its launches one eager step's) and timed.
 
-Phases 5-11 run the eager paths (``jit=False``), whose launch counts
-count every run.  A replay runs exactly the launches its capture made, so
-phases 12-16 set every count to 0 just before each capturing call (the
-request, both steps, the stream block, ``step_many(4)`` and the loaded
-render and stream steps), read them just after, and check that they equal
-one eager run's (four blocks' for ``step_many(4)``); the kernels' line
-keeps them under ``launches_per_run`` (``request_compiled``,
-``step_compiled``, ``step_factorized_compiled``,
-``stream_block_compiled``, ``step_many4_compiled``, ``load_render``,
-``load_stream_step``, ``load_stream_step4``).
+Phases 5-11 (and the eager runs of 21-24) run the eager paths
+(``jit=False``), whose launch counts count every run.  A replay runs
+exactly the launches its capture made, so phases 12-16 and 21-24 set
+every count to 0 just before each capturing call (the request, the
+steps, the stream block, ``step_many(4)`` and the loaded render and
+stream steps), read them just after, and check that they equal one eager
+run's (four blocks' for ``step_many(4)``); the kernels' line keeps them
+under ``launches_per_run`` (``request_compiled``, ``step_compiled``,
+``step_factorized_compiled``, ``stream_block_compiled``,
+``step_many4_compiled``, ``load_render``, ``load_stream_step``,
+``load_stream_step4``; and the eager ``request_fsm``, ``step_fsm``,
+``stream_block_fsm``, ``step_fused_delay`` and ``step_fused_delay_fsm``
+with each one's ``_compiled``).
 
 The line before the last is ``{"kernels": [...]}``: per kernel its
 errors, times, launches on its path and per run of each path, and its
@@ -133,9 +159,12 @@ after phases 12-15 one more warm call of each compiled path: each prints
 its device ms (CUDA events), host wall ms, busy device ms and the card's
 idle share, and writes its per-op table to ``DIR/profile_<run>.txt``
 (``request``, ``step``, ``stream_block``, ``step_factorized``, and each
-with ``_compiled``); and in phases 17 and 19 one more compiled fit step
-and delay-console step (``fit_step_compiled``, ``delay_step_compiled``),
-from whose busy times the delays' share of the step is derived.
+with ``_compiled``); in phases 17 and 19 one more compiled fit step and
+delay-console step (``fit_step_compiled``, ``delay_step_compiled``),
+from whose busy times the delays' share of the step is derived; and in
+phases 21-24 the same for the fsm paths (``request_fsm``, ``step_fsm``,
+``stream_block_fsm``, each also ``_compiled``, and
+``step_fused_delay_compiled``, ``step_fused_delay_fsm_compiled``).
 """
 
 import argparse
@@ -195,6 +224,12 @@ SERVE_KERNELS = ("ballistics_gain_pair_core", "ballistics_gain_core")
 TRAIN_KERNELS = ("ballistics_gain_pair_fwd", "ballistics_gain_pair_bwd",
                  "ballistics_gain_fwd", "ballistics_gain_bwd")
 STREAM_KERNELS = ("ballistics_core",)
+# launches per run of the console's paths (exact and fsm alike): the pair
+# stage and the bus-compressor stage each launch once
+SERVE_REQUEST = {"ballistics_gain_pair_core": 1, "ballistics_gain_core": 1}
+TRAIN_STEP = {name: 1 for name in TRAIN_KERNELS}
+STREAM_BLOCK = {"ballistics_core": 2}
+FUSED_DELAY_STEP = ("ballistics_gain_core", "ballistics_gain_fwd", "ballistics_gain_bwd")
 # launches per run of the factorized console's paths, and nothing else
 FACTORIZED_REQUEST = {"ballistics_gain_core": 1, "ballistics_core": 2}
 FACTORIZED_STEP = {"ballistics_gain_fwd": 1, "ballistics_gain_bwd": 1,
@@ -212,6 +247,7 @@ FORWARDS = ("ballistics_gain_pair_core", "ballistics_gain_pair_fwd", "ballistics
             "ballistics_gain_fwd", "ballistics_core", "ballistics_fwd")
 MAX_ABS = 2e-5  # the bound benchmarks/verify_ballistics_tpu.py uses on the TPU
 COMPILED_REL = 1e-6  # a compiled path against its eager form: max abs <= this x max|eager|
+FUSED_REL = 3e-5  # a fused render against the unfused one: max abs <= this x max|ref| (tests/graph/test_fuse.py)
 WARM_CALLS = 5  # warm calls timed of each form of a compiled path
 DU_REL = 1e-5  # du: max abs error <= DU_REL * max |ref|
 GRAD_REL = 1e-4  # per-row gradients: max abs error <= GRAD_REL * max |ref|
@@ -931,9 +967,72 @@ def profile_run(fn, out_dir, name, card):
     return busy
 
 
-def stream_phase(args, smi, stats):
-    """Phase 9: the console streamed in blocks, against its one-shot render."""
-    console = bench_console(CHAINS, seed=0, device="cuda")
+def serve_phase(args, smi, stats, phase, path, make_processors):
+    """Phases 5 and 21: three eager requests of (4, 17, 2, 2^17) through the
+    fused console built on ``make_processors()``, #1 and #2 once each a
+    request and nothing else; returns the console."""
+    console = bench_console(CHAINS, seed=0, device="cuda", processors=make_processors())
+    render = make_render_fn(console.fused_processors, console.plan, jit=False)
+    requests = []
+    for seed in (1, 2, 3):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        requests.append(torch.randn(BATCH, CHAINS, 2, AUDIO_LEN, generator=g, device="cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bal.reset_launch_counts()
+    request_ms = []
+    with torch.inference_mode():
+        for x in requests:
+            ms, (y, _, _) = device_ms(lambda x=x: render(x, console.params), reps=1)
+            check(y.shape == (BATCH, 1, 2, AUDIO_LEN), f"{phase}: output shape {tuple(y.shape)}")
+            check(bool(torch.isfinite(y).all()), f"{phase}: non-finite output")
+            request_ms.append(ms)
+    launches = read_launches(path, len(requests), stats, SERVE_KERNELS, SERVE_REQUEST)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    say(phase, requests=len(request_ms), request_ms=[round(t, 3) for t in request_ms],
+        median_ms=f"{statistics.median(request_ms):.3f}", peak_mem_gib=f"{peak_gb:.2f}",
+        launches=launches, card=repr(smi))
+    if args.profile:
+        with torch.inference_mode():
+            profile_run(lambda: render(requests[-1], console.params), args.profile, path, smi)
+    return console
+
+
+def train_phase(args, smi, stats, phase, path, make_processors):
+    """Phases 6 and 22: three eager gradient steps of ``bench_trainer(17)``
+    on ``make_processors()`` at (4, 17, 2, 2^17), #3-#6 once each a step
+    and nothing else."""
+    trainer = bench_trainer(CHAINS, seed=0, device="cuda", processors=make_processors(), jit=False)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = console_input((BATCH, CHAINS, 2, AUDIO_LEN), g, "cuda")
+    target = torch.randn(BATCH, 1, 2, AUDIO_LEN, generator=g, device="cuda")
+    fields = train_steps(trainer, x, target)
+    launches = read_launches(path, fields["steps"], stats, TRAIN_KERNELS, TRAIN_STEP)
+    say(phase, **fields, launches=launches, card=repr(smi))
+    if args.profile:
+        profile_run(lambda: trainer.step(x, target), args.profile, path, smi)
+
+
+def render_card_vs_cpu(phase, make_processors):
+    """Phases 8 and 21: the served console on ``make_processors()`` at
+    batch 1, L = 2^14, on the card against the port's CPU path, <= -60 dB."""
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((1, CHAINS, 2, 2**14)).astype(np.float32))
+    outs = {}
+    for device in ("cuda", "cpu"):
+        c = bench_console(CHAINS, seed=5, device=device, processors=make_processors())
+        with torch.inference_mode():
+            outs[device] = make_render_fn(c.fused_processors, c.plan, jit=False)(
+                x.to(device), c.params)[0].cpu()
+    card_db = db(outs["cuda"] - outs["cpu"], outs["cpu"])
+    say(phase, db=f"{card_db:.1f}")
+    check(bool(torch.isfinite(outs["cuda"]).all()), f"{phase}: non-finite card output")
+    check(card_db <= -60.0, f"{phase}: card vs CPU at {card_db:.1f} dB > -60 dB")
+
+
+def stream_phase(args, smi, stats, phase="stream", path="stream_block", make_processors=bench_processors):
+    """Phases 9 and 23: the console on ``make_processors()`` streamed in
+    blocks, against its one-shot render."""
+    console = bench_console(CHAINS, seed=0, device="cuda", processors=make_processors())
     streamer = StreamRenderer(console.fused_processors, console.plan, console.params,
                               block_len=BLOCK_LEN, jit=False)
     g = torch.Generator(device="cuda").manual_seed(9)
@@ -952,13 +1051,13 @@ def stream_phase(args, smi, stats):
             block_ms.append(ms)
             check(y.shape == (1, 2, BLOCK_LEN), f"stream block shape {tuple(y.shape)}")
             outs.append(y)
-    launches = read_launches("stream_block", len(x_blocks), stats, STREAM_KERNELS)
+    launches = read_launches(path, len(x_blocks), stats, STREAM_KERNELS, STREAM_BLOCK)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     streamed = torch.cat(outs, dim=-1)
     check(bool(torch.isfinite(streamed).all()), "non-finite streamed output")
     wall = statistics.median(wall_ms[1:])
     block_s = BLOCK_LEN / SAMPLE_RATE
-    say("stream", blocks=len(outs), block_len=BLOCK_LEN,
+    say(phase, blocks=len(outs), block_len=BLOCK_LEN,
         block_ms=[round(t, 3) for t in block_ms], host_wall_ms=[round(t, 3) for t in wall_ms],
         warm_median_ms=f"{statistics.median(block_ms[1:]):.3f}", warm_median_wall_ms=f"{wall:.3f}",
         real_time_factor=f"{1e3 * block_s / wall:.2f}", peak_mem_gib=f"{peak_gb:.3f}",
@@ -968,13 +1067,13 @@ def stream_phase(args, smi, stats):
         full = make_render_fn(console.fused_processors, console.plan, jit=False)(x, console.params)[0]
         many, _ = streamer.step_many(torch.stack(x_blocks[:4]), streamer.init_state())
     peak_db = 20.0 * torch.log10((streamed - full).abs().max() / full.abs().max()).item()
-    check(peak_db <= -60.0, f"stream vs one-shot render at {peak_db:.1f} dB (max-abs/peak) > -60 dB")
+    check(peak_db <= -60.0, f"{phase}: stream vs one-shot render at {peak_db:.1f} dB (max-abs/peak) > -60 dB")
     for k, (a, b) in enumerate(zip(outs, many)):
-        check(torch.allclose(b, a, rtol=2e-5, atol=2e-6), f"step_many block {k} != single step")
-    say("stream", vs_one_shot_db=f"{peak_db:.1f}", step_many_k=len(many), step_many="equal")
+        check(torch.allclose(b, a, rtol=2e-5, atol=2e-6), f"{phase}: step_many block {k} != single step")
+    say(phase, vs_one_shot_db=f"{peak_db:.1f}", step_many_k=len(many), step_many="equal")
     if args.profile:
         with torch.inference_mode():
-            profile_run(lambda: streamer(x_blocks[-1], state), args.profile, "stream_block", smi)
+            profile_run(lambda: streamer(x_blocks[-1], state), args.profile, path, smi)
 
 
 def train_steps(trainer, x, target, steps=3, nonzero=lambda leaf: True):
@@ -1188,13 +1287,14 @@ def ms_fields(eager_ms, compiled_ms):
                 compiled_median_ms=f"{statistics.median(compiled_ms):.3f}")
 
 
-def compiled_request_phase(args, smi, stats):
-    """Phase 12: the request through ``make_render_fn(jit=True)`` (a call
-    warms it, the next captures it) beside ``jit=False``: three replays
-    (two inputs; one with every parameter changed) against eager, their
-    outputs distinct; the capture's launches equal to an eager request's;
-    warm calls of each timed, peaks, capture seconds."""
-    console = bench_console(CHAINS, seed=0, device="cuda")
+def compiled_request_phase(args, smi, stats, path="request", make_processors=bench_processors):
+    """Phases 12 and 21: the request of the console on
+    ``make_processors()`` through ``make_render_fn(jit=True)`` (a call warms
+    it, the next captures it) beside ``jit=False``: three replays (two
+    inputs; one with every parameter changed) against eager, their outputs
+    distinct; the capture's launches equal to an eager request's (of
+    ``path``); warm calls of each timed, peaks, capture seconds."""
+    console = bench_console(CHAINS, seed=0, device="cuda", processors=make_processors())
     eager = make_render_fn(console.fused_processors, console.plan, jit=False)
     compiled = make_render_fn(console.fused_processors, console.plan)
     xs = [torch.randn(BATCH, CHAINS, 2, AUDIO_LEN, generator=torch.Generator(device="cuda").manual_seed(s),
@@ -1203,8 +1303,8 @@ def compiled_request_phase(args, smi, stats):
     with torch.inference_mode():
         compiled(xs[0], params)  # warm-up: eager, on a side stream
         (y0, _, _), call_s, reserved, captured = capturing_call(
-            lambda: compiled(xs[0], params), "request", eager_run(stats, "request"), stats,
-            "request_compiled")
+            lambda: compiled(xs[0], params), path, eager_run(stats, path), stats,
+            f"{path}_compiled")
         y_changed, y1 = compiled(xs[0], changed)[0], compiled(xs[1], params)[0]
         refs = [eager(xs[0], params)[0], eager(xs[0], changed)[0], eager(xs[1], params)[0]]
         # eager against itself: the mix stages' index_add_ adds with atomics
@@ -1215,7 +1315,7 @@ def compiled_request_phase(args, smi, stats):
         eager_ms = call_ms(lambda: eager(xs[1], params))
         compiled_ms = call_ms(lambda: compiled(xs[1], params))
         peaks = peak_gib(lambda: eager(xs[1], params)), peak_gib(lambda: compiled(xs[1], params))
-    say("compiled", path="request", **ms_fields(eager_ms, compiled_ms),
+    say("compiled", path=path, **ms_fields(eager_ms, compiled_ms),
         max_rel_err=f"{max(e for e, _ in errs):.3g}", bit_equal=all(b for _, b in errs),
         eager_repeat_bit_equal=eager_repeat_equal, parameter_change="honoured", outputs_alias=False,
         captured_launches=captured, capture_s=f"{compiled.capture_seconds[-1]:.3f}", capturing_call_s=f"{call_s:.3f}",
@@ -1223,7 +1323,7 @@ def compiled_request_phase(args, smi, stats):
         compiled_peak_gib=f"{peaks[1]:.3f}", card=repr(smi))
     if args.profile:
         with torch.inference_mode():
-            profile_run(lambda: compiled(xs[1], params), args.profile, "request_compiled", smi)
+            profile_run(lambda: compiled(xs[1], params), args.profile, f"{path}_compiled", smi)
 
 
 def compiled_step_phase(args, smi, stats, path, eager_path, make_processors):
@@ -1266,14 +1366,17 @@ def compiled_step_phase(args, smi, stats, path, eager_path, make_processors):
         profile_run(lambda: compiled.step(x, target), args.profile, f"{path}_compiled", smi)
 
 
-def compiled_stream_phase(args, smi, stats):
+def compiled_stream_phase(args, smi, stats, path="stream_block", make_processors=bench_processors,
+                          step_many=True):
     """Phase 15: the stream of phase 9 through ``StreamRenderer(jit=True)``
     and ``jit=False`` in turns, block by block (block 1 warms the compiled
     step, block 2 captures it): each block against eager, device and wall
     ms a block, real-time factors; ``step_many(4)`` compiled (one graph of
     four block steps) against eager and timed a block; each capture's
-    launches equal to one eager block's (four for ``step_many(4)``)."""
-    console = bench_console(CHAINS, seed=0, device="cuda")
+    launches equal to one eager block's (four for ``step_many(4)``).
+    Phase 23 runs it on the fsm console (``path``), without
+    ``step_many``."""
+    console = bench_console(CHAINS, seed=0, device="cuda", processors=make_processors())
     streamers = {"eager": StreamRenderer(console.fused_processors, console.plan, console.params,
                                          block_len=BLOCK_LEN, jit=False),
                  "compiled": StreamRenderer(console.fused_processors, console.plan, console.params,
@@ -1289,8 +1392,8 @@ def compiled_stream_phase(args, smi, stats):
                 start = time.perf_counter()
                 if k == "compiled" and i == 1:  # block 2 captures the compiled step
                     t, (out, _, _, captured) = device_ms(functools.partial(
-                        capturing_call, call, "stream block", eager_run(stats, "stream_block"),
-                        stats, "stream_block_compiled"), reps=1)
+                        capturing_call, call, path, eager_run(stats, path),
+                        stats, f"{path}_compiled"), reps=1)
                 else:
                     t, out = device_ms(call, reps=1)
                 wall[k].append(1e3 * (time.perf_counter() - start))
@@ -1300,35 +1403,44 @@ def compiled_stream_phase(args, smi, stats):
         errs = [check_compiled(f"stream block {i}", a, b) for i, (a, b) in
                 enumerate(zip(outs["compiled"], outs["eager"]))]
         check(len({y.data_ptr() for y in outs["compiled"]}) == len(blocks), "stream: two blocks' outputs alias")
-        many = {k: [torch.stack(blocks[4 * i:4 * i + 4]) for i in range(3)] for k in streamers}
-        m_eager = streamers["eager"].step_many(many["eager"][0], streamers["eager"].init_state())[0]
         compiled = streamers["compiled"]
-        compiled.step_many(many["compiled"][0], compiled.init_state())  # warm-up
-        (m_compiled, _), call_s, reserved, captured4 = capturing_call(
-            lambda: compiled.step_many(many["compiled"][0], compiled.init_state()), "step_many(4)",
-            eager_run(stats, "stream_block", runs=4), stats, "step_many4_compiled")
-        m_err = check_compiled("step_many(4)", m_compiled, m_eager)
-        per_block = {k: [t / 4 for t in call_ms(lambda s=s, xs=many[k][1]: s.step_many(xs, s.init_state()))]
-                     for k, s in streamers.items()}
+        many_fields = step_many_check(streamers, blocks, stats) if step_many else {}
     block_s = BLOCK_LEN / SAMPLE_RATE
     fields = {}
     for k in streamers:  # blocks 3-32: past the compiled step's warm-up and capture
         med_ms, med_wall = statistics.median(ms[k][2:]), statistics.median(wall[k][2:])
         fields.update({f"{k}_median_ms": f"{med_ms:.3f}", f"{k}_median_wall_ms": f"{med_wall:.3f}",
-                       f"{k}_real_time_factor": f"{1e3 * block_s / med_wall:.2f}",
-                       f"{k}_step_many4_ms_a_block": f"{statistics.median(per_block[k]):.3f}"})
-    say("compiled", path="stream_block", blocks=len(blocks), block_len=BLOCK_LEN,
+                       f"{k}_real_time_factor": f"{1e3 * block_s / med_wall:.2f}"})
+    say("compiled", path=path, blocks=len(blocks), block_len=BLOCK_LEN,
         eager_ms=[round(t, 3) for t in ms["eager"]], compiled_ms=[round(t, 3) for t in ms["compiled"]],
         compiled_wall_ms=[round(t, 3) for t in wall["compiled"]], **fields,
         max_rel_err=f"{max(e for e, _ in errs):.3g}", bit_equal=all(b for _, b in errs),
-        step_many4_rel_err=f"{m_err[0]:.3g}", step_many4_bit_equal=m_err[1],
-        captured_launches=captured, step_many4_captured_launches=captured4, capture_s=[round(t, 3) for t in compiled._step_fn.capture_seconds],
-        step_many4_capturing_call_s=f"{call_s:.3f}", step_many4_capture_reserved_gib=f"{reserved:.3f}",
-        card=repr(smi))
+        captured_launches=captured, capture_s=[round(t, 3) for t in compiled._step_fn.capture_seconds],
+        **many_fields, card=repr(smi))
     if args.profile:
         with torch.inference_mode():
             profile_run(lambda: compiled(blocks[-1], states["compiled"]), args.profile,
-                        "stream_block_compiled", smi)
+                        f"{path}_compiled", smi)
+
+
+def step_many_check(streamers, blocks, stats):
+    """``step_many(4)`` compiled (one graph of four block steps) against
+    eager, its capture's launches four eager blocks', timed a block;
+    returns the fields of the phase's line."""
+    many = {k: [torch.stack(blocks[4 * i:4 * i + 4]) for i in range(3)] for k in streamers}
+    m_eager = streamers["eager"].step_many(many["eager"][0], streamers["eager"].init_state())[0]
+    compiled = streamers["compiled"]
+    compiled.step_many(many["compiled"][0], compiled.init_state())  # warm-up
+    (m_compiled, _), call_s, reserved, captured4 = capturing_call(
+        lambda: compiled.step_many(many["compiled"][0], compiled.init_state()), "step_many(4)",
+        eager_run(stats, "stream_block", runs=4), stats, "step_many4_compiled")
+    m_err = check_compiled("step_many(4)", m_compiled, m_eager)
+    per_block = {k: [t / 4 for t in call_ms(lambda s=s, xs=many[k][1]: s.step_many(xs, s.init_state()))]
+                 for k, s in streamers.items()}
+    return {**{f"{k}_step_many4_ms_a_block": f"{statistics.median(per_block[k]):.3f}" for k in streamers},
+            "step_many4_rel_err": f"{m_err[0]:.3g}", "step_many4_bit_equal": m_err[1],
+            "step_many4_captured_launches": captured4, "step_many4_capturing_call_s": f"{call_s:.3f}",
+            "step_many4_capture_reserved_gib": f"{reserved:.3f}"}
 
 
 def serving_phase(smi, stats):
@@ -1435,19 +1547,21 @@ def synthetic_stems(num_tracks, length, generator):
     return torch.stack(stems)
 
 
-def fit_console(delay=False):
+def fit_console(delay=False, backend="exact"):
     """The fit console, ``mixing_console(16)`` (eq -> compressor -> gain a
     track, geq -> compressor on the bus, a reverb send: 70 nodes), with a
-    delay after each track's gain where asked (86 nodes)."""
+    delay after each track's gain where asked (86 nodes), its equalizers on
+    the IIR ``backend``."""
     chain = ("eq", "compressor", "gain", "delay") if delay else ("eq", "compressor", "gain")
-    return mixing_console(num_tracks=FIT_TRACKS, track_chain=chain)
+    return mixing_console(num_tracks=FIT_TRACKS, track_chain=chain, backend=backend)
 
 
-def fit_optimizer(device, delay=False, jit=True):
+def fit_optimizer(device, delay=False, jit=True, backend="exact", fuse=False):
     """The packaged fit loop on the fit console with its defaults
-    (MR-STFT loss, Adam lr 1e-2), parameters drawn from seed 1."""
-    return GraphParameterOptimizer(*fit_console(delay), generator=torch.Generator().manual_seed(1),
-                                   device=device, jit=jit)
+    (MR-STFT loss, Adam lr 1e-2), parameters drawn from seed 1 (on the
+    unfused graph, whatever ``fuse``)."""
+    return GraphParameterOptimizer(*fit_console(delay, backend), generator=torch.Generator().manual_seed(1),
+                                   device=device, jit=jit, fuse=fuse)
 
 
 def compressor_stages(plan):
@@ -1724,6 +1838,91 @@ def predictor_phase(smi, stats, stems, target):
         launches=launches, card=repr(smi))
 
 
+def fsm_processors():
+    """The bench.py console's processors with their equalizers on the
+    default IIR backend, the frequency-sampled FIR (fsm)."""
+    return bench_processors(backend="fsm")
+
+
+def fused_types(G, processors):
+    """``{fused type: (processor class, nodes)}`` of a fused graph."""
+    return {t: (type(p).__name__, sum(G.nodes[n]["node_type"] == t for n in G.nodes))
+            for t, p in processors.items() if t.startswith("fused(")}
+
+
+def fsm_serve_phase(args, smi, stats):
+    """Phase 21: the console on fsm equalizers served at full width: its
+    FIR chains, three eager requests (#1 and #2 once each), the compiled
+    request against eager (phase 12's checks), the card against the CPU,
+    and the fsm render's own distance from the exact console's on the same
+    parameters (the FSM approximation's gap, printed, not gated)."""
+    console = serve_phase(args, smi, stats, "fsm_serve", "request_fsm", fsm_processors)
+    types = fused_types(console.fused_graph, console.fused_processors)
+    say("fsm_serve", fused_types=types)
+    check(types.get("fused(eq+geq)") == ("FusedFIRChain", 9), f"fsm: eq -> geq runs fused as {types}")
+    check(types.get("fused(eq+gain)") == ("FusedFIRChain", 1), f"fsm: the master eq -> gain fused as {types}")
+    compiled_request_phase(args, smi, stats, "request_fsm", fsm_processors)
+    render_card_vs_cpu("fsm_card_vs_cpu", fsm_processors)
+    exact = bench_console(CHAINS, seed=0, device="cuda")
+    x = torch.randn(BATCH, CHAINS, 2, AUDIO_LEN, generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda")
+    with torch.inference_mode():
+        y = {name: make_render_fn(c.fused_processors, c.plan, jit=False)(x, c.params)[0]
+             for name, c in (("fsm", console), ("exact", exact))}
+    say("fsm_serve", fsm_vs_exact_db=f"{db(y['fsm'] - y['exact'], y['exact']):.1f}",
+        note="the FSM approximation's own gap (4000-tap sampled FIRs), not gated")
+
+
+def fused_delay_phase(args, smi, stats, stems, target):
+    """Phase 24: the fit console with a delay after each track's gain,
+    ``GraphParameterOptimizer(fuse=True)`` on the exact and the fsm
+    backends: gain -> delay folds into FusedFIRChain on the 16 tracks; one
+    eager ``render_current`` (#2 once a compressor stage) and one eager step
+    (#5 and #6 once a compressor stage); the fused render against the
+    unfused one (``fuse=False``, the same parameters) within FUSED_REL of
+    max|ref|; the compiled step captured (its launches one eager step's)
+    and timed."""
+    for backend in ("exact", "fsm"):
+        unfused = fit_optimizer("cuda", delay=True, jit=False, backend=backend)
+        fused = fit_optimizer("cuda", delay=True, jit=False, backend=backend, fuse=True)
+        types = fused_types(fused.G, fused.processors)
+        check(types == {"fused(gain+delay)": ("FusedFIRChain", FIT_TRACKS)},
+              f"fused delay console ({backend}): fused types {types}")
+        stages = compressor_stages(fused.render_data)
+        reference = unfused.render_current(stems)
+        bal.reset_launch_counts()
+        out = fused.render_current(stems)
+        total, audio = fused.step(stems, target)
+        path = "step_fused_delay" if backend == "exact" else "step_fused_delay_fsm"
+        launches = read_launches(path, 1, stats, FUSED_DELAY_STEP, {name: stages for name in FUSED_DELAY_STEP})
+        check(bool(torch.isfinite(out).all()) and bool(torch.isfinite(total)),
+              f"fused delay console ({backend}): non-finite render or loss")
+        err = rel_err(out, reference)
+        check(err <= FUSED_REL, f"fused delay console ({backend}): fused vs unfused render at {err:.3g}"
+                                f" of max|ref| > {FUSED_REL}")
+        del unfused
+        compiled = fit_optimizer("cuda", delay=True, backend=backend, fuse=True)
+        compiled.step(stems, target)  # warm-up: eager, on a side stream
+        expected = {name: stages if name in FUSED_DELAY_STEP[1:] else 0 for name in KERNELS}
+        (_, c_audio), call_s, reserved, captured = capturing_call(
+            lambda: compiled.step(stems, target), f"fused delay step ({backend})", expected, stats,
+            f"{path}_compiled")
+        compiled_ms = call_ms(lambda: compiled.step(stems, target))
+        eager_ms = call_ms(lambda: fused.step(stems, target), calls=3)
+        compiled_peak = peak_gib(lambda: compiled.step(stems, target))
+        say("fused_delay", backend=backend, nodes=fused.G.number_of_nodes(), fused_types=types,
+            compressor_stages=stages, fused_vs_unfused_rel=f"{err:.3g}", loss=f"{audio.item():.6f}",
+            radii_reg=f"{(total - audio).item():.4f}", launches=launches, captured_launches=captured,
+            compiled_ms=[round(t, 3) for t in compiled_ms],
+            compiled_median_ms=f"{statistics.median(compiled_ms):.3f}",
+            eager_ms=[round(t, 3) for t in eager_ms], eager_warm_median_ms=f"{statistics.median(eager_ms[1:]):.3f}",
+            capture_s=f"{compiled._update.capture_seconds[-1]:.3f}", capturing_call_s=f"{call_s:.3f}",
+            capture_reserved_gib=f"{reserved:.3f}", compiled_peak_gib=f"{compiled_peak:.3f}", card=repr(smi))
+        if args.profile:
+            profile_run(lambda: compiled.step(stems, target), args.profile, f"{path}_compiled", smi)
+        del fused, compiled
+
+
 def kernel_row(name, source, replaces, stats):
     """The kernel's entry of the ``{"kernels": [...]}`` line."""
     s = stats[name]
@@ -1838,59 +2037,16 @@ def main():
     check(exact_db <= -60.0, f"exact IIR cascade at {exact_db:.1f} dB > -60 dB")
 
     # 5. serve the full-width console
-    console = bench_console(CHAINS, seed=0, device="cuda")
-    render = make_render_fn(console.fused_processors, console.plan, jit=False)
-    requests = []
-    for seed in (1, 2, 3):
-        g = torch.Generator(device="cuda").manual_seed(seed)
-        requests.append(torch.randn(BATCH, CHAINS, 2, AUDIO_LEN, generator=g, device="cuda"))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    bal.reset_launch_counts()
-    request_ms = []
-    with torch.inference_mode():
-        for x in requests:
-            ms, (y, _, _) = device_ms(lambda x=x: render(x, console.params), reps=1)
-            check(y.shape == (BATCH, 1, 2, AUDIO_LEN), f"output shape {tuple(y.shape)}")
-            check(bool(torch.isfinite(y).all()), "non-finite output")
-            request_ms.append(ms)
-    launches = read_launches("request", len(requests), stats, SERVE_KERNELS)
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    say("serve", requests=len(request_ms), request_ms=[round(t, 3) for t in request_ms],
-        median_ms=f"{statistics.median(request_ms):.3f}", peak_mem_gib=f"{peak_gb:.2f}",
-        launches=launches, card=repr(smi))
-    if args.profile:
-        with torch.inference_mode():
-            profile_run(lambda: render(requests[-1], console.params), args.profile, "request", smi)
-    del console, render, requests, y
+    serve_phase(args, smi, stats, "serve", "request", bench_processors)
 
     # 6. train the full-width console: three gradient steps
-    trainer = bench_trainer(CHAINS, seed=0, device="cuda", jit=False)
-    g = torch.Generator(device="cuda").manual_seed(7)
-    x = console_input((BATCH, CHAINS, 2, AUDIO_LEN), g, "cuda")
-    target = torch.randn(BATCH, 1, 2, AUDIO_LEN, generator=g, device="cuda")
-    fields = train_steps(trainer, x, target)
-    launches = read_launches("step", fields["steps"], stats, TRAIN_KERNELS)
-    say("train", **fields, launches=launches, card=repr(smi))
-    if args.profile:
-        profile_run(lambda: trainer.step(x, target), args.profile, "step", smi)
-    del trainer, x, target
+    train_phase(args, smi, stats, "train", "step", bench_processors)
 
     # 7. the card's loss and gradients against the port's CPU path
     grad_card_vs_cpu("grad_card_vs_cpu", bench_processors)
 
     # 8. the served console, card against the port's CPU path
-    x = torch.from_numpy(np.random.default_rng(4).standard_normal((1, CHAINS, 2, 2**14)).astype(np.float32))
-    outs = {}
-    for device in ("cuda", "cpu"):
-        c = bench_console(CHAINS, seed=5, device=device)
-        with torch.inference_mode():
-            outs[device] = make_render_fn(c.fused_processors, c.plan, jit=False)(
-                x.to(device), c.params)[0].cpu()
-    card_db = db(outs["cuda"] - outs["cpu"], outs["cpu"])
-    say("card_vs_cpu", db=f"{card_db:.1f}")
-    check(bool(torch.isfinite(outs["cuda"]).all()), "non-finite card output")
-    check(card_db <= -60.0, f"card vs CPU at {card_db:.1f} dB > -60 dB")
+    render_card_vs_cpu("card_vs_cpu", bench_processors)
 
     # 9. stream the full-width console block by block
     stream_phase(args, smi, stats)
@@ -1921,6 +2077,18 @@ def main():
     delay_phase(args, smi, stats, stems, target, fit_busy)
     predictor_phase(smi, stats, stems, target)
     say("fit", phases_17_20_s=f"{time.perf_counter() - phases_at:.1f}")
+
+    # 21-24. the console on fsm equalizers served, trained and streamed, and
+    # the fused-delay fit console
+    phases_at = time.perf_counter()
+    fsm_serve_phase(args, smi, stats)
+    train_phase(args, smi, stats, "fsm_train", "step_fsm", fsm_processors)
+    compiled_step_phase(args, smi, stats, "step_fsm", "step_fsm", fsm_processors)
+    grad_card_vs_cpu("fsm_grad_card_vs_cpu", fsm_processors)
+    stream_phase(args, smi, stats, "fsm_stream", "stream_block_fsm", fsm_processors)
+    compiled_stream_phase(args, smi, stats, "stream_block_fsm", fsm_processors, step_many=False)
+    fused_delay_phase(args, smi, stats, stems, target)
+    say("fsm", phases_21_24_s=f"{time.perf_counter() - phases_at:.1f}")
 
     for name in KERNELS:
         check(name in NO_PATH or "launches" in stats[name], f"{name} ran on no path")

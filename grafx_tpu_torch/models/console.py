@@ -159,10 +159,14 @@ def bench_graph(num_chains=17):
     return G
 
 
-def bench_processors():
+def bench_processors(backend="exact"):
+    """``bench.py``'s processors; ``backend`` is the equalizers' IIR
+    backend (``"fsm"``, the reference's default, makes every eq and geq an
+    FIR-LTI node, and serial eq -> geq and eq -> gain runs fold into
+    ``FusedFIRChain``s)."""
     return {
-        "eq": ParametricEqualizer(num_filters=6, backend="exact"),
-        "geq": GraphicEqualizer(scale="bark", backend="exact"),
+        "eq": ParametricEqualizer(num_filters=6, backend=backend),
+        "geq": GraphicEqualizer(scale="bark", backend=backend),
         "compressor": Compressor(energy_smoother="ballistics"),
         "noisegate": NoiseGate(energy_smoother="iir_exact"),
         "gain": StereoGain(),

@@ -19,7 +19,14 @@ block-wise streaming (``state_in``/``return_state``).
 Exact to float32: every contraction must run in full float32.  On a GPU
 that means no TF32 (``torch.backends.cuda.matmul.allow_tf32`` False);
 the data path refuses to run otherwise.
+
+The frequency-sampling (FSM) approximation, the default backend of
+``IIRFilter`` in both packages, samples the cascade's DTFT at
+``fir_len // 2 + 1`` bins and takes the FIR by an inverse real FFT
+(:func:`iir_fsm_fir`); :func:`biquad_scan` is the sequential test oracle.
 """
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -70,8 +77,77 @@ def exactness_check_db(L=2**15, N=4, K=24, r_hi=0.999, seed=0, device="cpu"):
     )
 
 
+# ---------------------------------------------------------------------------
+# Frequency-sampling method (FSM)
+# ---------------------------------------------------------------------------
+
+
+def fsm_delay_phasors(order, fir_len, device=None):
+    """DFT-bin phasors ``exp(-j w k)`` for delays ``k = 0..order``, shape
+    ``(order + 1, fir_len // 2 + 1)``: the phase in float32, in
+    ``grafx_tpu``'s order of operations, then a complex64 ``exp``."""
+    k = torch.arange(order + 1, dtype=torch.float32, device=device)[:, None]
+    bins = torch.arange(fir_len // 2 + 1, dtype=torch.float32, device=device)[None, :]
+    phase = 2.0 * math.pi * k * bins / fir_len
+    return torch.exp(-1j * phase)
+
+
+def iir_fsm_response(Bs, As, delays):
+    """Sampled DTFT ``(..., K, F)`` of each biquad of ``(..., K, 3)``
+    coefficient stacks, from :func:`fsm_delay_phasors` ``(3, F)``."""
+    num = torch.sum(Bs[..., None] * delays, dim=-2)
+    den = torch.sum(As[..., None] * delays, dim=-2)
+    return num / den
+
+
+def _product_over_sections(response):
+    """``prod`` over the section axis (-2) as a pairwise tree of
+    multiplies: ``torch.prod``'s backward reads a zero count on the host,
+    which a CUDA-graph capture refuses."""
+    while response.shape[-2] > 1:
+        even = response.shape[-2] // 2 * 2
+        paired = response[..., 0:even:2, :] * response[..., 1:even:2, :]
+        response = torch.cat([paired, response[..., even:, :]], dim=-2)
+    return response[..., 0, :]
+
+
+def iir_fsm_fir(Bs, As, fir_len):
+    """The FIR ``(..., fir_len)`` that frequency-samples the biquad cascade
+    ``(..., K, 3)`` at ``fir_len // 2 + 1`` bins (its time-aliased impulse
+    response); differentiable through torch's complex autograd."""
+    delays = fsm_delay_phasors(2, fir_len, device=Bs.device)
+    response = _product_over_sections(iir_fsm_response(Bs, As, delays))
+    return torch.fft.irfft(response, n=fir_len)
+
+
+# ---------------------------------------------------------------------------
+# Exact sequential scan (the correctness oracle; tests only)
+# ---------------------------------------------------------------------------
+
+
 def _normalize(Bs, As):
     return Bs / As[..., :1], As / As[..., :1]
+
+
+def biquad_scan(x, Bs, As):
+    """The biquad cascade by a plain loop over time (transposed direct
+    form II), one section after another: slow and exact, the test oracle
+    of the other backends.  ``x`` is ``(N, L)``, ``Bs``/``As`` ``(N, K,
+    3)`` (un-normalized allowed)."""
+    b, a = _normalize(Bs, As)
+    y = x
+    for k in range(b.shape[-2]):
+        b0, b1, b2 = b[:, k, 0], b[:, k, 1], b[:, k, 2]
+        a1, a2 = a[:, k, 1], a[:, k, 2]
+        s1 = s2 = torch.zeros_like(y[:, 0])
+        out = []
+        for n in range(y.shape[-1]):
+            xn = y[:, n]
+            yn = b0 * xn + s1
+            s1, s2 = b1 * xn - a1 * yn + s2, b2 * xn - a2 * yn
+            out.append(yn)
+        y = torch.stack(out, dim=-1)
+    return y
 
 
 def _compensated_disc(a1, a2):

@@ -1,10 +1,12 @@
-"""Parametric and graphic equalizers (the port of the biquad equalizers
-of :mod:`grafx_tpu.processors.eq`; reference: src/grafx/processors/
-eq.py:217-436)."""
+"""Equalizers: zero-phase FIR, parametric and graphic (the port of
+:mod:`grafx_tpu.processors.eq`; reference: src/grafx/processors/
+eq.py:25-436)."""
 
 import torch
 from torch import nn
 
+from grafx_tpu_torch.processors.core.convolution import convolve
+from grafx_tpu_torch.processors.core.fir import ZeroPhaseFIR, ZeroPhaseFilterBankFIR
 from grafx_tpu_torch.processors.core.geq import GraphicEqualizerBiquad
 from grafx_tpu_torch.processors.core.iir import IIRFilter
 from grafx_tpu_torch.processors.core.midside import lr_to_ms, ms_to_lr
@@ -15,6 +17,94 @@ from grafx_tpu_torch.processors.filter import (
     PeakingFilter,
     _IIRStreamMixin,
 )
+
+
+class _ZeroPhaseMixin:
+    """A zero-phase FIR needs ``L_h // 2`` samples of lookahead, which a
+    causal block stream cannot give."""
+
+    def stream_init(self, num_channels, block_len, **params):
+        raise NotImplementedError(
+            f"{type(self).__name__} is zero-phase (non-causal); block-wise"
+            " streaming supports causal processors only."
+        )
+
+
+class ZeroPhaseFIREqualizer(_ZeroPhaseMixin, nn.Module):
+    """Single-channel zero-phase FIR EQ from a log-magnitude response
+    (reference: eq.py:25-79; deprecated in favor of
+    :class:`NewZeroPhaseFIREqualizer`)."""
+
+    def __init__(self, num_magnitude_bins=1024):
+        super().__init__()
+        self.num_magnitude_bins = num_magnitude_bins
+        self.fir = ZeroPhaseFIR(num_magnitude_bins)
+
+    def forward(self, input_signals, log_magnitude):
+        return convolve(input_signals, self.fir(log_magnitude)[:, None, :], mode="zerophase")
+
+    def fir_kernel(self, log_magnitude):
+        """FIR-LTI capability (render/fuse.py): ``(h, shift, aux)`` such
+        that this processor equals a shift-cropped causal convolution."""
+        fir = self.fir(log_magnitude)[:, None, :]
+        return fir, fir.shape[-1] // 2, None
+
+    def parameter_size(self):
+        return {"log_magnitude": self.num_magnitude_bins}
+
+
+class NewZeroPhaseFIREqualizer(_ZeroPhaseMixin, nn.Module):
+    """Zero-phase FIR EQ with channel modes and an optional triangular
+    filterbank parameterization (reference: eq.py:82-214)."""
+
+    def __init__(
+        self,
+        num_frequency_bins=1024,
+        processor_channel="mono",
+        use_filterbank=False,
+        filterbank_kwargs=None,
+        window="hann",
+        window_kwargs=None,
+        eps=1e-7,
+        **_ignored,
+    ):
+        super().__init__()
+        if processor_channel not in ("mono", "stereo", "midside"):
+            raise ValueError(f"Invalid processor_channel: {processor_channel}")
+        self.num_frequency_bins = num_frequency_bins
+        self.processor_channel = processor_channel
+        self.use_filterbank = use_filterbank
+        self.fir = ZeroPhaseFilterBankFIR(
+            num_frequency_bins=num_frequency_bins,
+            use_filterbank=use_filterbank,
+            filterbank_kwargs=filterbank_kwargs or {},
+            window=window,
+            window_kwargs=window_kwargs or {},
+            eps=eps,
+        )
+
+    def forward(self, input_signals, log_magnitude):
+        fir = self.fir(log_magnitude)
+        if self.processor_channel == "midside":
+            return ms_to_lr(convolve(lr_to_ms(input_signals), fir, mode="zerophase"))
+        return convolve(input_signals, fir, mode="zerophase")
+
+    def fir_kernel(self, log_magnitude):
+        """FIR-LTI capability (channel-diagonal modes only: midside applies
+        distinct M/S filters, a 2 x 2 matrix convolution in L/R)."""
+        if self.processor_channel == "midside":
+            raise NotImplementedError(
+                "midside zero-phase EQ is not channel-diagonal; not fusable"
+            )
+        fir = self.fir(log_magnitude)
+        return fir, fir.shape[-1] // 2, None
+
+    def parameter_size(self):
+        n_bins = (
+            self.fir.filterbank.num_filters if self.use_filterbank else self.num_frequency_bins
+        )
+        n_channels = 1 if self.processor_channel == "mono" else 2
+        return {"log_magnitude": (n_channels, n_bins)}
 
 
 class _EqualizerStreamMixin(_IIRStreamMixin):

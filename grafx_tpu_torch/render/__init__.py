@@ -5,7 +5,9 @@ from grafx_tpu_torch.render.compiled import CapturedFunction, check_capturable
 from grafx_tpu_torch.render.fuse import (
     FusedBiquadChain,
     FusedDynamicsChain,
+    FusedFIRChain,
     fuse_parameters,
+    fuse_serial_fir,
     fuse_serial_lti,
 )
 from grafx_tpu_torch.render.graph import make_render_fn, render_grafx
@@ -17,11 +19,13 @@ __all__ = [
     "CapturedFunction",
     "FusedBiquadChain",
     "FusedDynamicsChain",
+    "FusedFIRChain",
     "RenderData",
     "StreamRenderer",
     "check_capturable",
     "compute_render_order",
     "fuse_parameters",
+    "fuse_serial_fir",
     "fuse_serial_lti",
     "make_render_fn",
     "prepare_render",

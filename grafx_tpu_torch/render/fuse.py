@@ -8,8 +8,13 @@ the rationale and measurements live there).
   gain products (:class:`FusedDynamicsChain`); a gate -> compressor pair
   runs both recursions in one walk over time (streamed, the members'
   gains compose, each carrying its smoother state).
-* **FIR** — FIR nodes are classified, but the composed-IR chain is not
-  ported yet: fusing a FIR run raises.
+* **FIR** — FIR-LTI processors (gains, delays, reverbs, zero-phase EQs,
+  fsm-backend biquad cascades, containers of such) compose their impulse
+  responses by short convolutions, and the chain applies ONE
+  shift-cropped convolution to the audio (:class:`FusedFIRChain`).  For
+  members with zero-phase lookahead (``shift > 0``) the fused chain is
+  the ideal LTI composition: it equals the per-node render of the signal
+  zero-padded at the start (see :mod:`grafx_tpu.render.fuse`).
 
 Use::
 
@@ -27,11 +32,12 @@ from torch import nn
 from grafx_tpu_torch.data.configs import UTILITY_TYPES, NodeConfigs
 from grafx_tpu_torch.data.graph import GRAFX
 from grafx_tpu_torch.ops.ballistics import ballistics_gain_pair_core
+from grafx_tpu_torch.ops.fftconv import conv_stream_apply, conv_stream_init, fft_convolve
 from grafx_tpu_torch.processors.core.iir import IIRFilter
-from grafx_tpu_torch.processors.core.utils import lti_kind_of
+from grafx_tpu_torch.processors.core.utils import lti_kind_of, reject_noise_key
 from grafx_tpu_torch.render.order.graph import compute_render_order
 from grafx_tpu_torch.render.order.tensor import node_id_from_render_order
-from grafx_tpu_torch.utils import tree_map
+from grafx_tpu_torch.utils import tree_leaves, tree_map
 
 
 class _FusedChain(nn.Module):
@@ -45,6 +51,25 @@ class _FusedChain(nn.Module):
 
     def parameter_size(self):
         return {name: proc.parameter_size() for name, proc in self.members}
+
+
+def compose_fir_kernels(members, nested_params):
+    """Compose ``[(name, processor), ...]`` FIR-LTI members into one
+    ``(h, shift, intermediates)`` kernel: IRs convolve, shifts add, aux
+    dicts nest by member name (shared by :class:`FusedFIRChain` and the
+    containers' FIR capability)."""
+    h, shift, intermediates = None, 0, {}
+    for name, proc in members:
+        hi, si, aux = proc.fir_kernel(**nested_params[name])
+        shift += si
+        if aux:
+            intermediates[name] = aux
+        if h is None:
+            h = hi
+        else:
+            h_len = h.shape[-1] + hi.shape[-1] - 1
+            h = fft_convolve(h, hi, mode="full")[..., :h_len]
+    return h, shift, intermediates
 
 
 def compose_biquad_kernels(members, nested_params):
@@ -67,10 +92,47 @@ def compose_biquad_kernels(members, nested_params):
     return cat(Bs_list), cat(As_list), gain
 
 
+class FusedFIRChain(_FusedChain):
+    """A fused serial run of FIR-LTI processors: the members' IRs compose
+    (short convolutions), then ONE shift-cropped convolution touches the
+    audio.  Members' aux losses (a delay's ``radii_reg``) are merged and
+    re-emitted."""
+
+    def forward(self, input_signals, noise_key=None, **nested_params):
+        reject_noise_key(noise_key, "FusedFIRChain")
+        h, shift, intermediates = compose_fir_kernels(self.members, nested_params)
+        out = fft_convolve(input_signals, h, mode=("shift", shift))
+        return (out, intermediates) if intermediates else out
+
+    # -- streaming -----------------------------------------------------
+
+    def stream_init(self, num_channels, block_len, noise_key=None, **nested_params):
+        """Compose the chain's IR once and stream its one convolution (an
+        overlap-add tail, or UPOLS for a long IR).  A chain with
+        zero-phase members (``shift > 0``) needs lookahead and raises."""
+        reject_noise_key(noise_key, "FusedFIRChain")
+        h, shift, _ = compose_fir_kernels(self.members, nested_params)
+        if shift:
+            raise NotImplementedError(
+                f"fused chain has {shift} samples of zero-phase lookahead;"
+                " block-wise streaming supports causal chains only."
+            )
+        state, conv = conv_stream_init(h, num_channels, block_len)
+        return state, {"conv": conv}
+
+    def stream_step(self, x, state, cache):
+        return conv_stream_apply(x, state, cache["conv"])
+
+
 def _member_block_sizes(proc):
+    """Exact-backend block sizes used inside ``proc`` (recursing into
+    containers, so that a fused chain adopts the largest member block)."""
     bq = getattr(proc, "biquad", None)
     if bq is not None and getattr(bq, "exact_block_size", None):
         return [bq.exact_block_size]
+    inner = getattr(proc, "processors", None)
+    if isinstance(inner, dict):
+        return [b for p in inner.values() for b in _member_block_sizes(p)]
     return []
 
 
@@ -235,6 +297,7 @@ class FusedDynamicsChain(_FusedChain):
 
 
 _FUSED_CLASS = {
+    "fir": FusedFIRChain,
     "iir": FusedBiquadChain,
     "dynamics": FusedDynamicsChain,
 }
@@ -249,6 +312,12 @@ def _lti_kind(node_type, processors):
     if k is None and getattr(proc, "dynamics_fusable", False):
         k = "dynamics"
     return k
+
+
+def fuse_serial_fir(G, processors, min_run=2):
+    """Fold maximal serial runs of FIR-LTI nodes: the ``kinds=("fir",)``
+    slice of :func:`fuse_serial_lti`, kept as the original entry point."""
+    return fuse_serial_lti(G, processors, min_run=min_run, kinds=("fir",))
 
 
 def fuse_serial_lti(
@@ -394,11 +463,6 @@ def fuse_serial_lti(
 
     if not runs:
         return G, dict(processors)
-    if any(k == "fir" for k, _, _ in runs):
-        raise NotImplementedError(
-            "this graph has a serial FIR run; FusedFIRChain is not ported"
-            " yet (ROADMAP.md). Leave 'fir' out of kinds."
-        )
 
     # --- composite types ------------------------------------------------
     processors_fused = dict(processors)
@@ -548,7 +612,7 @@ def fuse_parameters(params, G, G_fused, processors_fused, method="beam"):
                     )
                     absent[:, i] = 1.0 - keep
                 nested[mname] = sub
-                device = next(iter(sub.values())).device
+                device = next((leaf.device for leaf in tree_leaves(sub)), device)
             if "_absent" in proc.parameter_size():
                 nested["_absent"] = torch.as_tensor(absent, device=device)
             out[t2] = nested
