@@ -6,7 +6,10 @@ and through serving.py's exported programs, run the packaged fit loop
 MultitapDelay and the neural parameter predictor), serve, train and
 stream the console on the default IIR backend (the frequency-sampled
 FIRs, fused into FusedFIRChains), fit the gain -> delay console fused,
-and check every hand-written kernel on the way.
+serve, train and stream the console with the filtered-noise reverb (on
+keys) and with the feedback delay network, hold each new processor
+class against the CPU at full width, and check every hand-written kernel
+on the way.
 
 Run from the root of the repository, on a machine with the card:
 
@@ -26,7 +29,9 @@ before the result line):
    smoother's forward with residuals #8, its adjoint #9 and the reverse
    scan #10 at N = 2, 8, 17, 68 and L = 64, 128, 200, 4096, 4109, timed
    at the factorized console's frame calls, with the host's ms to enqueue
-   a call, and at 68 x 2^17, #9 also checked there). The adjoints' chunked reverse walk: each line of #4,
+   a call, and at 68 x 2^17, #9 and #10 also checked there, #10 also
+   timed over chunk lengths 64-1024). The adjoints' chunked reverse walk
+   (#10 is the same walk with its coefficient read): each line of #4,
    #6 and #9 prints its chunk length and count; #4 (68 rows) and #6 (8
    rows) are also held at forced chunk lengths (one tile, 256, the whole
    row, their own pick) on L = 4109 and 2^17 + 13, and timed at their
@@ -130,11 +135,34 @@ before the result line):
     one eager ``render_current`` (#2 once a compressor stage) and one
     eager step (#5 and #6 once a compressor stage), the fused render
     within 3e-5 of max|ref| of the unfused one; the compiled step
-    captured (its launches one eager step's) and timed.
+    captured (its launches one eager step's) and timed;
+25. noise console: bench.py's console with ``FilteredNoiseShapingReverb()``
+    (60000 taps, 12 bands, midside, pseudo-random) and
+    ``PiecewiseTanhDistortion()``: three eager requests as in phase 5;
+    requests compiled with a fresh key each (``rng``, a captured
+    argument) beside eager on the same keys, each within 1e-6, the same
+    key rendering the same and a new key another; card vs CPU on one key;
+    three eager steps as in phase 6 (the distortion's hardness and
+    threshold may get no gradient: its input stays below the threshold at
+    init), three compiled beside three eager as in phase 13 (the eager
+    trainer's keyless crop pinned to the capture's), the loss and every
+    gradient card vs CPU; the console streamed on a key as in phases 9
+    and 15 (without ``step_many``), against the one-shot render on that
+    key;
+26. FDN console: the same with ``FeedbackDelayNetwork()`` (30000 taps, 6
+    lines, stereo) and ``ChebyshevDistortion()``, where a new key leaves
+    the render as it was (nothing draws noise);
+27. library: each new class at 68 x 2 x 2^17 (the filtered-noise, FDN and
+    per-call STFT reverbs, the stereo tools, the three distortions) card
+    vs CPU on the same parameters and key (<= -60 dB) with its device ms,
+    ``PowerDistortion``'s gradient where a third of its input is exactly
+    0 (finite, card vs CPU), ``DryWet`` with its weight through
+    ``common_parameters`` and rng through a ``SerialChain`` rendered card
+    vs CPU (the same key the same render, a new key another).
 
-Phases 5-11 (and the eager runs of 21-24) run the eager paths
+Phases 5-11 (and the eager runs of 21-26) run the eager paths
 (``jit=False``), whose launch counts count every run.  A replay runs
-exactly the launches its capture made, so phases 12-16 and 21-24 set
+exactly the launches its capture made, so phases 12-16 and 21-26 set
 every count to 0 just before each capturing call (the request, the
 steps, the stream block, ``step_many(4)`` and the loaded render and
 stream steps), read them just after, and check that they equal one eager
@@ -143,8 +171,10 @@ under ``launches_per_run`` (``request_compiled``, ``step_compiled``,
 ``step_factorized_compiled``, ``stream_block_compiled``,
 ``step_many4_compiled``, ``load_render``, ``load_stream_step``,
 ``load_stream_step4``; and the eager ``request_fsm``, ``step_fsm``,
-``stream_block_fsm``, ``step_fused_delay`` and ``step_fused_delay_fsm``
-with each one's ``_compiled``).
+``stream_block_fsm``, ``step_fused_delay`` and ``step_fused_delay_fsm``,
+``request_noise``, ``step_noise``, ``stream_block_noise``,
+``request_fdn``, ``step_fdn`` and ``stream_block_fdn`` with each one's
+``_compiled``).
 
 The line before the last is ``{"kernels": [...]}``: per kernel its
 errors, times, launches on its path and per run of each path, and its
@@ -164,10 +194,14 @@ delay-console step (``fit_step_compiled``, ``delay_step_compiled``),
 from whose busy times the delays' share of the step is derived; and in
 phases 21-24 the same for the fsm paths (``request_fsm``, ``step_fsm``,
 ``stream_block_fsm``, each also ``_compiled``, and
-``step_fused_delay_compiled``, ``step_fused_delay_fsm_compiled``).
+``step_fused_delay_compiled``, ``step_fused_delay_fsm_compiled``); in
+phases 25 and 26 the same for their consoles (``request_noise``,
+``step_noise``, ``stream_block_noise``, ``request_fdn``, ``step_fdn``,
+``stream_block_fdn``, each also ``_compiled``).
 """
 
 import argparse
+import copy
 import functools
 import json
 import os
@@ -181,7 +215,7 @@ import numpy as np
 import torch
 
 from grafx_tpu_torch.checkpoint import PARAMS_FILE, load_parameters, load_session, save_session
-from grafx_tpu_torch.data import convert_to_tensor
+from grafx_tpu_torch.data import GRAFX, NodeConfigs, convert_to_tensor
 from grafx_tpu_torch.models import (
     GraphParameterOptimizer,
     ParameterPredictor,
@@ -196,11 +230,27 @@ from grafx_tpu_torch.models.predictor import features_per_type
 from grafx_tpu_torch.ops import _cuda
 from grafx_tpu_torch.ops import ballistics as bal
 from grafx_tpu_torch.ops.iir import exactness_check_db
-from grafx_tpu_torch.processors import FactorizedCompressor
+from grafx_tpu_torch import random
+from grafx_tpu_torch.processors import (
+    ChebyshevDistortion,
+    DryWet,
+    FactorizedCompressor,
+    FeedbackDelayNetwork,
+    FilteredNoiseShapingReverb,
+    MidSideToStereo,
+    MonoToStereo,
+    PiecewiseTanhDistortion,
+    PowerDistortion,
+    SerialChain,
+    SideGainImager,
+    STFTMaskedNoiseReverb,
+    StereoGain,
+    StereoToMidSide,
+)
 from grafx_tpu_torch.ops.losses import mse_loss, multi_resolution_stft_loss
 from grafx_tpu_torch.render import StreamRenderer, make_render_fn, prepare_render, reorder_for_fast_render
 from grafx_tpu_torch.serving import export_render, export_stream_step, load_render, load_stream_step
-from grafx_tpu_torch.utils import tree_items, tree_leaves
+from grafx_tpu_torch.utils import create_empty_parameters, tree_items, tree_leaves, tree_map
 
 GAIN_SRC = "grafx_tpu_torch/csrc/ballistics_gain.cu"
 GRAD_SRC = "grafx_tpu_torch/csrc/ballistics_grad.cu"
@@ -856,10 +906,8 @@ def check_smoother(label, case, stats):
     errs["ballistics_fwd"] = ferr
     errs["ballistics_bwd"], du_err, du_scale, rel = check_smoother_bwd(
         label, got["ballistics_bwd"], ref["ballistics_bwd"], d.shape)
-    gh, gh_ref = got["reverse_scan"], ref["reverse_scan"]
-    gh_err, gh_scale = max_err(gh, gh_ref), gh_ref.abs().max().item()
-    check(gh_err <= DU_REL * gh_scale, f"reverse_scan {label}: gh err {gh_err} > {DU_REL} x {gh_scale}")
-    errs["reverse_scan"] = gh_err
+    errs["reverse_scan"], gh_err, gh_scale = check_scan(label, got["reverse_scan"],
+                                                        ref["reverse_scan"])
     for name, e in errs.items():
         stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], e)
     say("kernels", case=f"smoother {label}", fwd_err=f"{ferr:.3g}", du_err=f"{du_err:.3g}",
@@ -867,10 +915,23 @@ def check_smoother(label, case, stats):
         gh_scale=f"{gh_scale:.3g}", **chunking(d.shape))
 
 
+def check_scan(label, gh, gh_ref):
+    """Hold #10's ``gh`` against its plain version's: within DU_REL of
+    max|ref| (the adjoint walk's du gate; #10 is that chunked walk with
+    the coefficient read), bit for bit where one chunk walks the row.
+    Returns ``(max abs err, max abs err, max|ref|)``."""
+    gh_err, gh_scale = max_err(gh, gh_ref), gh_ref.abs().max().item()
+    check(gh_err <= DU_REL * gh_scale, f"reverse_scan {label}: gh err {gh_err} > {DU_REL} x {gh_scale}")
+    if chunking(tuple(gh.shape))["chunks"] == 1:
+        check(torch.equal(gh, gh_ref), f"reverse_scan {label}: one chunk, gh differs from the plain scan's")
+    return gh_err, gh_err, gh_scale
+
+
 def check_smoother_bwd_at(label, case, stats):
-    """#9 alone against its plain version on #8's residual (a shape whose
-    plain #8 and #10 would take too long)."""
-    u, zi, at, rt, g, _ = case
+    """#9 and #10 against their plain versions on one case (a shape whose
+    plain #8 would take too long), #9 on #8's residual; then #10 timed
+    over the chunk lengths of SWEEP_CHUNKS."""
+    u, zi, at, rt, g, a = case
     _, d = bal.ballistics_fwd(u, zi, at, rt)
     got, ref = bal.ballistics_bwd(d, g, at, rt), bal.ballistics_bwd_plain(d, g, at, rt)
     torch.cuda.synchronize()
@@ -878,6 +939,20 @@ def check_smoother_bwd_at(label, case, stats):
     stats["ballistics_bwd"]["max_abs_err"] = max(stats["ballistics_bwd"]["max_abs_err"], err)
     say("kernels", case=f"ballistics_bwd {label}", du_err=f"{du_err:.3g}", du_scale=f"{du_scale:.3g}",
         grad_rel_err=f"{rel:.3g}", **chunking(d.shape))
+    gh = bal.reverse_scan(a, g)
+    err, gh_err, gh_scale = check_scan(label, gh, bal.reverse_scan_plain(a, g))
+    stats["reverse_scan"]["max_abs_err"] = max(stats["reverse_scan"]["max_abs_err"], err)
+    say("kernels", case=f"reverse_scan {label}", gh_err=f"{gh_err:.3g}", gh_scale=f"{gh_scale:.3g}",
+        **chunking(d.shape))
+    shape = tuple(d.shape)
+    for chunk in SWEEP_CHUNKS:
+        kern = functools.partial(bal.reverse_scan, a, g, chunk=chunk)
+        kern()  # warm-up
+        ms = device_ms(kern, reps=5)[0]
+        stats["reverse_scan"]["chunk_sweep"].append({"shape": list(shape), "ms": ms,
+                                                     **chunking(shape, chunk)})
+        say("kernels", sweep="reverse_scan", shape=shape, kernel_ms=f"{ms:.3f}",
+            **chunking(shape, chunk))
 
 
 def time_smoother(case, stats, plain, main):
@@ -894,7 +969,8 @@ def time_smoother(case, stats, plain, main):
         host = host_ms(kern, reps=100) if plain else None
         plain_ms = device_ms(ref, reps=1)[0] if plain else None
         bound_ms, bound_by = bound(name, *shape)
-        more = chunking(shape) if name == "ballistics_bwd" else walk_stage(name, shape)
+        more = (chunking(shape) if name in ("ballistics_bwd", "reverse_scan")
+                else walk_stage(name, shape))
         if main:
             stats[name].update(ms=ms, plain_ms=plain_ms, shape=shape, device_busy_ms=busy,
                                host_ms=host, **more)
@@ -998,43 +1074,49 @@ def serve_phase(args, smi, stats, phase, path, make_processors):
     return console
 
 
-def train_phase(args, smi, stats, phase, path, make_processors):
-    """Phases 6 and 22: three eager gradient steps of ``bench_trainer(17)``
-    on ``make_processors()`` at (4, 17, 2, 2^17), #3-#6 once each a step
-    and nothing else."""
+def train_phase(args, smi, stats, phase, path, make_processors, nonzero=lambda leaf: True):
+    """Phases 6, 22, 25 and 26: three eager gradient steps of
+    ``bench_trainer(17)`` on ``make_processors()`` at (4, 17, 2, 2^17),
+    #3-#6 once each a step and nothing else (``nonzero`` as for
+    :func:`train_steps`)."""
     trainer = bench_trainer(CHAINS, seed=0, device="cuda", processors=make_processors(), jit=False)
     g = torch.Generator(device="cuda").manual_seed(7)
     x = console_input((BATCH, CHAINS, 2, AUDIO_LEN), g, "cuda")
     target = torch.randn(BATCH, 1, 2, AUDIO_LEN, generator=g, device="cuda")
-    fields = train_steps(trainer, x, target)
+    fields = train_steps(trainer, x, target, nonzero=nonzero)
     launches = read_launches(path, fields["steps"], stats, TRAIN_KERNELS, TRAIN_STEP)
     say(phase, **fields, launches=launches, card=repr(smi))
     if args.profile:
         profile_run(lambda: trainer.step(x, target), args.profile, path, smi)
 
 
-def render_card_vs_cpu(phase, make_processors):
-    """Phases 8 and 21: the served console on ``make_processors()`` at
-    batch 1, L = 2^14, on the card against the port's CPU path, <= -60 dB."""
+def render_card_vs_cpu(phase, make_processors, key_seed=None):
+    """Phases 8, 21, 25 and 26: the served console on ``make_processors()``
+    at batch 1, L = 2^14, on the card against the port's CPU path, on the
+    key ``PRNGKey(key_seed)`` where one is given, <= -60 dB."""
     x = torch.from_numpy(np.random.default_rng(4).standard_normal((1, CHAINS, 2, 2**14)).astype(np.float32))
     outs = {}
     for device in ("cuda", "cpu"):
         c = bench_console(CHAINS, seed=5, device=device, processors=make_processors())
+        key = None if key_seed is None else random.PRNGKey(key_seed, device=device)
         with torch.inference_mode():
             outs[device] = make_render_fn(c.fused_processors, c.plan, jit=False)(
-                x.to(device), c.params)[0].cpu()
+                x.to(device), c.params, rng=key)[0].cpu()
     card_db = db(outs["cuda"] - outs["cpu"], outs["cpu"])
     say(phase, db=f"{card_db:.1f}")
     check(bool(torch.isfinite(outs["cuda"]).all()), f"{phase}: non-finite card output")
     check(card_db <= -60.0, f"{phase}: card vs CPU at {card_db:.1f} dB > -60 dB")
 
 
-def stream_phase(args, smi, stats, phase="stream", path="stream_block", make_processors=bench_processors):
-    """Phases 9 and 23: the console on ``make_processors()`` streamed in
-    blocks, against its one-shot render."""
+def stream_phase(args, smi, stats, phase="stream", path="stream_block", make_processors=bench_processors,
+                 key_seed=None):
+    """Phases 9, 23, 25 and 26: the console on ``make_processors()``
+    streamed in blocks (``StreamRenderer(rng=PRNGKey(key_seed))`` where a
+    seed is given), against its one-shot render on the same key."""
     console = bench_console(CHAINS, seed=0, device="cuda", processors=make_processors())
+    key = None if key_seed is None else random.PRNGKey(key_seed, device="cuda")
     streamer = StreamRenderer(console.fused_processors, console.plan, console.params,
-                              block_len=BLOCK_LEN, jit=False)
+                              block_len=BLOCK_LEN, jit=False, rng=key)
     g = torch.Generator(device="cuda").manual_seed(9)
     x = console_input((CHAINS, 2, AUDIO_LEN), g, "cuda")
     x_blocks = list(x.split(BLOCK_LEN, dim=-1))
@@ -1064,7 +1146,8 @@ def stream_phase(args, smi, stats, phase="stream", path="stream_block", make_pro
         launches=launches, card=repr(smi))
 
     with torch.inference_mode():
-        full = make_render_fn(console.fused_processors, console.plan, jit=False)(x, console.params)[0]
+        full = make_render_fn(console.fused_processors, console.plan, jit=False)(
+            x, console.params, rng=key)[0]
         many, _ = streamer.step_many(torch.stack(x_blocks[:4]), streamer.init_state())
     peak_db = 20.0 * torch.log10((streamed - full).abs().max() / full.abs().max()).item()
     check(peak_db <= -60.0, f"{phase}: stream vs one-shot render at {peak_db:.1f} dB (max-abs/peak) > -60 dB")
@@ -1332,7 +1415,9 @@ def compiled_step_phase(args, smi, stats, path, eager_path, make_processors):
     and three of ``jit=False`` from the same start: losses and every leaf
     within COMPILED_REL after each step; the capture's launches equal to
     an eager step's (``eager_path``); warm steps of each timed, peaks,
-    capture seconds."""
+    capture seconds.  A keyless pseudo-random reverb draws a new crop on
+    each eager call and keeps its capture's in every replay, so the eager
+    trainer's third step draws its second crop again (``pin_crops``)."""
     g = torch.Generator(device="cuda").manual_seed(7)
     x = console_input((BATCH, CHAINS, 2, AUDIO_LEN), g, "cuda")
     target = torch.randn(BATCH, 1, 2, AUDIO_LEN, generator=g, device="cuda")
@@ -1340,6 +1425,10 @@ def compiled_step_phase(args, smi, stats, path, eager_path, make_processors):
     compiled = bench_trainer(CHAINS, seed=0, device="cuda", processors=make_processors())
     worst, bit_equal = 0.0, True
     for step in range(3):
+        if step == 1:
+            pinned = pin_crops(eager.processors)
+        elif step == 2:
+            pinned()
         total, audio = eager.step(x, target)
         if step == 1:
             (c_total, c_audio), call_s, reserved, captured = capturing_call(
@@ -1367,20 +1456,21 @@ def compiled_step_phase(args, smi, stats, path, eager_path, make_processors):
 
 
 def compiled_stream_phase(args, smi, stats, path="stream_block", make_processors=bench_processors,
-                          step_many=True):
+                          step_many=True, key_seed=None):
     """Phase 15: the stream of phase 9 through ``StreamRenderer(jit=True)``
     and ``jit=False`` in turns, block by block (block 1 warms the compiled
     step, block 2 captures it): each block against eager, device and wall
     ms a block, real-time factors; ``step_many(4)`` compiled (one graph of
     four block steps) against eager and timed a block; each capture's
     launches equal to one eager block's (four for ``step_many(4)``).
-    Phase 23 runs it on the fsm console (``path``), without
-    ``step_many``."""
+    Phases 23, 25 and 26 run it on their consoles (``path``), without
+    ``step_many``, 25 and 26 with both streamers on ``PRNGKey(key_seed)``."""
     console = bench_console(CHAINS, seed=0, device="cuda", processors=make_processors())
+    key = None if key_seed is None else random.PRNGKey(key_seed, device="cuda")
     streamers = {"eager": StreamRenderer(console.fused_processors, console.plan, console.params,
-                                         block_len=BLOCK_LEN, jit=False),
+                                         block_len=BLOCK_LEN, jit=False, rng=key),
                  "compiled": StreamRenderer(console.fused_processors, console.plan, console.params,
-                                            block_len=BLOCK_LEN)}
+                                            block_len=BLOCK_LEN, rng=key)}
     x = console_input((CHAINS, 2, AUDIO_LEN), torch.Generator(device="cuda").manual_seed(9), "cuda")
     blocks = list(x.split(BLOCK_LEN, dim=-1))
     states = {k: s.init_state() for k, s in streamers.items()}
@@ -1923,6 +2013,212 @@ def fused_delay_phase(args, smi, stats, stems, target):
         del fused, compiled
 
 
+def pin_crops(processors):
+    """Save the host draw state of every keyless pseudo-random reverb in
+    ``processors`` (a fused chain's members included); the returned call
+    restores it, so that their next draws repeat."""
+    reverbs = [m for p in processors.values() for m in p.modules()
+               if isinstance(m, FilteredNoiseShapingReverb)]
+    saved = [copy.deepcopy(r._crop_rng) for r in reverbs]
+
+    def restore():
+        for r, state in zip(reverbs, saved):
+            r._crop_rng = copy.deepcopy(state)
+
+    return restore
+
+
+def noise_processors():
+    """Phase 25's console: bench.py's processors, exact backend, with the
+    filtered-noise reverb (its defaults: ir_len 60000, 12 bands, midside,
+    pseudo-random) and the piecewise tanh distortion."""
+    return {**bench_processors(), "reverb": FilteredNoiseShapingReverb(),
+            "dist": PiecewiseTanhDistortion()}
+
+
+def fdn_processors():
+    """Phase 26's console: bench.py's processors with the feedback delay
+    network (ir_len 30000, 6 lines, stereo) and the Chebyshev distortion."""
+    return {**bench_processors(), "reverb": FeedbackDelayNetwork(), "dist": ChebyshevDistortion()}
+
+
+def keyed_request_phase(args, smi, stats, phase, path, make_processors, noisy):
+    """Phases 25 and 26: the console's request through
+    ``make_render_fn(jit=True)`` with a fresh key each request (the key is
+    a captured argument) beside ``jit=False`` on the same keys: each replay
+    within COMPILED_REL of eager; the same key renders the same (within
+    COMPILED_REL: the mix stages add with atomics) and a new key another
+    render where the console draws noise (``noisy``), the same where it
+    does not; the capture's launches one eager request's; warm calls of
+    each timed with fresh keys, peaks."""
+    console = bench_console(CHAINS, seed=0, device="cuda", processors=make_processors())
+    eager = make_render_fn(console.fused_processors, console.plan, jit=False)
+    compiled = make_render_fn(console.fused_processors, console.plan)
+    x = torch.randn(BATCH, CHAINS, 2, AUDIO_LEN, generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda")
+    keys = [random.fold_in(random.PRNGKey(25, device="cuda"), i) for i in range(4 + 2 * WARM_CALLS)]
+    params = console.params
+    with torch.inference_mode():
+        compiled(x, params, rng=keys[0])  # warm-up: eager, on a side stream
+        (y0, _, _), call_s, reserved, captured = capturing_call(
+            lambda: compiled(x, params, rng=keys[1]), phase, eager_run(stats, path), stats,
+            f"{path}_compiled")
+        replays = [compiled(x, params, rng=k)[0] for k in keys[1:4]]
+        refs = [eager(x, params, rng=k)[0] for k in keys[1:4]]
+        errs = [check_compiled(f"{phase} request {k}", y, r) for k, (y, r) in enumerate(zip(replays, refs))]
+        same = rel_err(replays[0], y0)
+        check(same <= COMPILED_REL, f"{phase}: the same key rendered {same:.3g} of max|ref| apart")
+        other = rel_err(replays[1], replays[0])
+        if noisy:
+            check(other > 1e-3, f"{phase}: a new key left the render as it was ({other:.3g})")
+        else:
+            check(other <= COMPILED_REL, f"{phase}: a new key changed a render that draws no noise")
+        fresh = iter(keys[4:])
+        eager_ms = call_ms(lambda: eager(x, params, rng=next(fresh)))
+        compiled_ms = call_ms(lambda: compiled(x, params, rng=next(fresh)))
+        peaks = peak_gib(lambda: eager(x, params, rng=keys[0])), peak_gib(lambda: compiled(x, params, rng=keys[0]))
+        check(all(bool(torch.isfinite(y).all()) for y in replays), f"{phase}: non-finite replay")
+    say("compiled", path=path, **ms_fields(eager_ms, compiled_ms),
+        max_rel_err=f"{max(e for e, _ in errs):.3g}", same_key_rel=f"{same:.3g}",
+        new_key_rel=f"{other:.3g}", captured_launches=captured,
+        capture_s=f"{compiled.capture_seconds[-1]:.3f}", capturing_call_s=f"{call_s:.3f}",
+        capture_reserved_gib=f"{reserved:.3f}", eager_peak_gib=f"{peaks[0]:.3f}",
+        compiled_peak_gib=f"{peaks[1]:.3f}", card=repr(smi))
+    if args.profile:
+        with torch.inference_mode():
+            profile_run(lambda: compiled(x, params, rng=keys[0]), args.profile, f"{path}_compiled", smi)
+
+
+def console_phases(args, smi, stats, tag, make_processors, noisy, key_seed, nonzero=lambda leaf: True):
+    """Phases 25 and 26: the console on ``make_processors()`` served
+    (eager requests, #1 and #2 once each; compiled requests on fresh keys;
+    card vs CPU on one key), trained (eager steps, #3-#6 once each, every
+    leaf where ``nonzero`` with a nonzero gradient; compiled steps against
+    eager; the loss and gradients card vs CPU) and streamed on a key
+    (eager, #7 twice a block, against the one-shot render on that key;
+    compiled against eager)."""
+    serve_phase(args, smi, stats, f"{tag}_serve", f"request_{tag}", make_processors)
+    keyed_request_phase(args, smi, stats, f"{tag}_request", f"request_{tag}", make_processors, noisy)
+    render_card_vs_cpu(f"{tag}_card_vs_cpu", make_processors, key_seed=key_seed)
+    train_phase(args, smi, stats, f"{tag}_train", f"step_{tag}", make_processors, nonzero)
+    compiled_step_phase(args, smi, stats, f"step_{tag}", f"step_{tag}", make_processors)
+    grad_card_vs_cpu(f"{tag}_grad_card_vs_cpu", make_processors)
+    stream_phase(args, smi, stats, f"{tag}_stream", f"stream_block_{tag}", make_processors,
+                 key_seed=key_seed)
+    compiled_stream_phase(args, smi, stats, f"stream_block_{tag}", make_processors, step_many=False,
+                          key_seed=key_seed)
+
+
+LIBRARY_ROWS, LIBRARY_LEN = BATCH * CHAINS, AUDIO_LEN  # 68 x 2 x 2^17, as phase 27 runs each class
+
+
+def library_cases():
+    """Phase 27's ``(name, processor factory, channels in, keyed)``: each
+    class this slice ported, at its defaults."""
+    return [
+        ("FilteredNoiseShapingReverb", FilteredNoiseShapingReverb, 2, True),
+        ("FeedbackDelayNetwork", FeedbackDelayNetwork, 2, False),
+        ("STFTMaskedNoiseReverb(fixed_noise=False)",
+         functools.partial(STFTMaskedNoiseReverb, fixed_noise=False), 2, True),
+        ("SideGainImager", SideGainImager, 2, False),
+        ("MonoToStereo", MonoToStereo, 1, False),
+        ("StereoToMidSide", StereoToMidSide, 2, False),
+        ("PiecewiseTanhDistortion", PiecewiseTanhDistortion, 2, False),
+        ("PowerDistortion", PowerDistortion, 2, False),
+        ("ChebyshevDistortion", ChebyshevDistortion, 2, False),
+    ]
+
+
+def library_phase(smi):
+    """Phase 27: each class of this slice at 68 x 2 x 2^17 (MonoToStereo on
+    one channel; MidSideToStereo on StereoToMidSide's two outlets), on the
+    card against the port's CPU path on the same parameters and key, <=
+    -60 dB, with its device ms; PowerDistortion's gradient at input that is
+    a third exact zeros, finite on the card and against the CPU's; and two
+    renders card vs CPU: DryWet(PiecewiseTanhDistortion) with its weight
+    through ``common_parameters``, and rng through a SerialChain (gain ->
+    filtered-noise reverb), whose same key renders the same and new key
+    another."""
+    rng = np.random.default_rng(27)
+    for name, make, channels, keyed in library_cases():
+        procs = {d: make().to(d) for d in ("cuda", "cpu")}
+        x = torch.from_numpy(
+            (0.5 * rng.standard_normal((LIBRARY_ROWS, channels, LIBRARY_LEN))).astype(np.float32))
+        params = {k: torch.from_numpy((0.5 * rng.standard_normal(
+            (LIBRARY_ROWS,) + ((v,) if isinstance(v, int) else tuple(v)))).astype(np.float32))
+            for k, v in procs["cpu"].parameter_size().items()}
+        outs, ms = {}, None
+        for d, proc in procs.items():
+            kw = {"noise_key": random.PRNGKey(27, device=d)} if keyed else {}
+            p = {k: v.to(d) for k, v in params.items()}
+            with torch.inference_mode():
+                call = functools.partial(proc, x.to(d), **p, **kw)
+                out = call()
+                if d == "cuda":
+                    ms = device_ms(call, reps=3)[0]
+                outs[d] = [y.cpu() for y in (out if isinstance(out, list) else [out])]
+        if name == "StereoToMidSide":
+            with torch.inference_mode():
+                outs = {d: outs[d] + [MidSideToStereo()(*[y.to(d) for y in outs[d]]).cpu()] for d in outs}
+        card_db = max(db(a - b, b) for a, b in zip(outs["cuda"], outs["cpu"]))
+        check(all(bool(torch.isfinite(y).all()) for y in outs["cuda"]), f"library: {name} non-finite on the card")
+        check(card_db <= -60.0, f"library: {name} card vs CPU at {card_db:.1f} dB > -60 dB")
+        say("library", cls=name, shape=(LIBRARY_ROWS, channels, LIBRARY_LEN), card_vs_cpu_db=f"{card_db:.1f}",
+            card_ms=f"{ms:.3f}", card=repr(smi))
+        del procs, outs
+
+    # PowerDistortion's gradient where the input is exactly 0
+    x = (0.5 * rng.standard_normal((LIBRARY_ROWS, 2, LIBRARY_LEN))).astype(np.float32)
+    x[:, :, ::3] = 0.0
+    w = rng.standard_normal((LIBRARY_ROWS, 10)).astype(np.float32) * 0.3
+    g = (0.1 * rng.standard_normal((LIBRARY_ROWS, 1))).astype(np.float32)
+    grads = {}
+    for d in ("cuda", "cpu"):
+        xt = torch.tensor(x, device=d, requires_grad=True)
+        wt, gt = torch.tensor(w, device=d, requires_grad=True), torch.tensor(g, device=d, requires_grad=True)
+        PowerDistortion()(xt, wt, gt).square().sum().backward()
+        grads[d] = [t.grad.cpu() for t in (xt, wt, gt)]
+    check(all(bool(torch.isfinite(t).all()) for t in grads["cuda"]), "library: PowerDistortion gradient at 0 non-finite")
+    grad_db = max(db(a - b, b) for a, b in zip(grads["cuda"], grads["cpu"]))
+    check(grad_db <= -60.0, f"library: PowerDistortion gradient card vs CPU at {grad_db:.1f} dB > -60 dB")
+    say("library", cls="PowerDistortion gradient, a third of the input exactly 0",
+        card_vs_cpu_db=f"{grad_db:.1f}", finite=True)
+    del grads
+
+    # DryWet through common_parameters, and rng through a container
+    x = torch.from_numpy((0.5 * rng.standard_normal((BATCH, 1, 2, LIBRARY_LEN))).astype(np.float32))
+    for label, make, common, keys in (
+        ("drywet_common_parameters",
+         lambda: {"fx": DryWet(PiecewiseTanhDistortion(), external_param=True)}, True, (None,)),
+        ("rng_through_container",
+         lambda: {"fx": SerialChain({"gain": StereoGain(), "rev": FilteredNoiseShapingReverb(
+             processor_channel="stereo")})}, False, (3, 3, 4)),
+    ):
+        outs = {}
+        for d in ("cuda", "cpu"):
+            G = GRAFX(config=NodeConfigs(["fx"]))
+            G.add_serial_chain(["in", "fx", "fx", "out"])
+            procs = {k: v.to(d) for k, v in make().items()}
+            plan = prepare_render(reorder_for_fast_render(convert_to_tensor(G), method="greedy"))
+            params = tree_map(lambda v: v.to(d), create_empty_parameters(
+                procs, G, std=0.5, generator=torch.Generator().manual_seed(27)))
+            kw = {"common_parameters": {"drywet_weight": torch.linspace(
+                -2.0, 2.0, G.number_of_nodes(), device=d)[:, None]}} if common else {}
+            render = make_render_fn(procs, plan, jit=False)
+            with torch.inference_mode():
+                outs[d] = [render(x.to(d), params, rng=None if k is None else random.PRNGKey(k, device=d),
+                                  **kw)[0].cpu() for k in keys]
+        card_db = max(db(a - b, b) for a, b in zip(outs["cuda"], outs["cpu"]))
+        check(card_db <= -60.0, f"library: {label} card vs CPU at {card_db:.1f} dB > -60 dB")
+        fields = {}
+        if len(keys) == 3:
+            same, other = rel_err(outs["cuda"][1], outs["cuda"][0]), rel_err(outs["cuda"][2], outs["cuda"][0])
+            check(same == 0.0 and other > 1e-3,
+                  f"library: {label}: same key {same:.3g} apart, new key {other:.3g} apart")
+            fields = dict(same_key_rel=f"{same:.3g}", new_key_rel=f"{other:.3g}")
+        say("library", render=label, shape=tuple(x.shape), card_vs_cpu_db=f"{card_db:.1f}", **fields)
+
+
 def kernel_row(name, source, replaces, stats):
     """The kernel's entry of the ``{"kernels": [...]}`` line."""
     s = stats[name]
@@ -2089,6 +2385,20 @@ def main():
     compiled_stream_phase(args, smi, stats, "stream_block_fsm", fsm_processors, step_many=False)
     fused_delay_phase(args, smi, stats, stems, target)
     say("fsm", phases_21_24_s=f"{time.perf_counter() - phases_at:.1f}")
+
+    # 25-27. the rest of the processor library: the noise console and the
+    # FDN console served, trained and streamed, then each new class alone
+    phases_at = time.perf_counter()
+    # the piecewise distortion's input stays below its threshold at the
+    # parameters' init (sigmoid(0) = 0.5; max |x| 0.10 on a 5-chain CPU
+    # render), where its hardness and threshold have no gradient
+    console_phases(args, smi, stats, "noise", noise_processors, noisy=True, key_seed=11,
+                   nonzero=lambda leaf: leaf not in ("dist/log_hardness", "dist/z_threshold"))
+    console_phases(args, smi, stats, "fdn", fdn_processors, noisy=False, key_seed=12)
+    say("library", phases_25_26_s=f"{time.perf_counter() - phases_at:.1f}")
+    phases_at = time.perf_counter()
+    library_phase(smi)
+    say("library", phase_27_s=f"{time.perf_counter() - phases_at:.1f}")
 
     for name in KERNELS:
         check(name in NO_PATH or "launches" in stats[name], f"{name} ran on no path")

@@ -20,23 +20,6 @@ constexpr float kEps = 1e-5f;
 
 using Tile = float[kTile][kTile + 1];  // +1: row and column reads hit 32 banks
 
-// Starts the copy of the (rows x 32) tile of x at time t0 into shared
-// memory: lane j copies sample t0 + j of each row.  Samples past the
-// edges are zeros.
-__device__ __forceinline__ void fetch_tile(Tile& t, const float* x, int row0,
-                                           int rows, long long len, long long t0,
-                                           int lane) {
-  const bool in_time = t0 + lane < len;
-#pragma unroll
-  for (int i = 0; i < kTile; ++i) {
-    if (i < rows && in_time) {
-      __pipeline_memcpy_async(&t[i][lane], x + (row0 + i) * len + t0 + lane, sizeof(float));
-    } else {
-      t[i][lane] = 0.0f;
-    }
-  }
-}
-
 // One step of the ballistics recursion from state s, oma = 1 - at and
 // omr = 1 - rt: u > s ? oma s + at u : omr s + rt u, the arithmetic of
 // every forward walk, with its roundings spelled out, so that walks in

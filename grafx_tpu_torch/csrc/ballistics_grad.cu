@@ -77,8 +77,15 @@
 // by its two launches.
 // grafx_reverse_scan is the general first-order reverse recurrence
 // gh[n] = g[n] + a[n] gh[n+1] (gh[L] = 0) with the coefficient at n itself,
-// not at n + 1 as the ballistics adjoint carries it: rscan_kernel, the
-// same ring staging tiles of a and g, one FMA a sample on the chain.
+// not at n + 1 as the ballistics adjoint carries it.  It is the same
+// chunked walk (rwalk_kernel<., kScan = true>, carry_kernel) with the
+// coefficient a read from its tile where the adjoint decides 1 - c from d:
+// a chunk's map is gh at its first sample = local + (the product of its a)
+// x gh entering, one FMA a sample on the chain.  Its bytes are a and g in,
+// gh out (12 a sample); the local walk reads a and g once more (20 in all:
+// 0.053 ms at 68 x 2^17 at 3.35 TB/s).  One chunk is the old whole-row
+// walk (32 rows a warp, 68 rows on 3 of 132 SMs: 9.456 ms at 68 x 2^17 on
+// the H100, PERF.md) bit for bit.
 
 #include "ballistics.cuh"
 
@@ -86,7 +93,6 @@ namespace {
 
 using namespace grafx;
 
-constexpr int kRStages = 4;  // rscan_kernel's ring: two tiles (a and g) a stage
 constexpr int kWalkStages = 3;  // rwalk_kernel's: two tiles (g, d) a stage, 25 KB, 8 warps an SM
 constexpr int kElemThreads = 256;
 constexpr unsigned kFullWarp = 0xffffffffu;
@@ -144,6 +150,9 @@ __device__ __forceinline__ void fetch_chunk_tiles(Tile& tg, Tile& td, const floa
 // one lane per (row, chunk) virtual row v = row * chunks + chunk, each
 // walk entering its chunk with the factor 1 - c of the next chunk's first
 // sample (0 after the last chunk).  carry is (2, n, chunks).
+// kScan: the plain recurrence gh = g + a gh of grafx_reverse_scan, with d
+// read as the coefficients a (at, rt, the sums and dzi unused): the local
+// walk's product is that of the chunk's a, and the re-walk writes gh.
 //   kLocal: walks from gh = 0; writes carry[0][v] = gh at the chunk's
 //     first sample and carry[1][v] = the product of its carry factors.
 //   else: walks from gh = carry[0][v] (0 where chunks == 1; carry may then
@@ -153,7 +162,7 @@ __device__ __forceinline__ void fetch_chunk_tiles(Tile& tg, Tile& td, const floa
 //     samples to part_at / part_rt [row * tiles + tile], and (1 - c[0])
 //     gh[0] to dzi where dzi is not null.
 // Samples past L are zeros, so gh stays 0 there.
-template <bool kLocal>
+template <bool kLocal, bool kScan>
 __global__ void __launch_bounds__(kTile)
 rwalk_kernel(const float* g, const float* __restrict__ d, float* out,
              const float* __restrict__ at_, const float* __restrict__ rt_,
@@ -171,9 +180,11 @@ rwalk_kernel(const float* g, const float* __restrict__ d, float* out,
   const long long start = k * chunk;
   const long long base = row * len + start;
   const int clen = live ? (int)min((long long)chunk, len - start) : 0;
-  const float at = live ? at_[row] : 0.0f, rt = live ? rt_[row] : 0.0f;
+  const float at = !kScan && live ? at_[row] : 0.0f, rt = !kScan && live ? rt_[row] : 0.0f;
   float gh = 0.0f, omc = 0.0f, prod = 1.0f;
-  if (live && k + 1 < chunks) omc = 1.0f - (d[row * len + start + chunk] > 0.0f ? at : rt);
+  if (!kScan && live && k + 1 < chunks) {
+    omc = 1.0f - (d[row * len + start + chunk] > 0.0f ? at : rt);
+  }
   if (!kLocal && live && chunks > 1) gh = carry[v];
 
   const long long tiles = (len + kTile - 1) / kTile;
@@ -195,6 +206,16 @@ rwalk_kernel(const float* g, const float* __restrict__ d, float* out,
     float sa = 0.0f, sr = 0.0f;
 #pragma unroll
     for (int i = kTile - 1; i >= 0; --i) {
+      if (kScan) {
+        const float a = td[lane][i];
+        gh = fmaf(a, gh, tg[lane][i]);
+        if (kLocal) {
+          prod *= a;
+        } else {
+          tg[lane][i] = gh;
+        }
+        continue;
+      }
       const float dd = td[lane][i];
       const bool att = dd > 0.0f;
       const float c = att ? at : rt;
@@ -215,7 +236,7 @@ rwalk_kernel(const float* g, const float* __restrict__ d, float* out,
         const long long b = __shfl_sync(kFullWarp, base, i) + t0 + lane;
         if (t0 + lane < __shfl_sync(kFullWarp, clen, i)) out[b] = tg[i][lane];
       }
-      if (live && start + t0 < len) {
+      if (!kScan && live && start + t0 < len) {
         const long long tile = (start + t0) / kTile;
         part_at[row * tiles + tile] = sa;
         part_rt[row * tiles + tile] = sr;
@@ -231,7 +252,7 @@ rwalk_kernel(const float* g, const float* __restrict__ d, float* out,
   if (kLocal) {
     carry[v] = gh;
     carry[vrows + v] = prod;
-  } else if (dzi != nullptr && k == 0) {
+  } else if (!kScan && dzi != nullptr && k == 0) {
     dzi[row] = omc * gh;
   }
 }
@@ -269,54 +290,6 @@ carry_kernel(float* __restrict__ carry, int n, long long chunks) {
     const float next = __shfl_down_sync(kFullWarp, ghs, 1);
     if (k < chunks) b[k] = lane == kTile - 1 ? x : next;
     x = __shfl_sync(kFullWarp, ghs, 0);
-  }
-}
-
-// gh[n] = g[n] + a[n] gh[n+1] over each row, from gh[L] = 0 (gh may be g).
-// A 4-deep ring of (32 rows x 32 samples) tiles; samples past L are zeros,
-// so the state entering the last real sample is exactly 0.
-__global__ void __launch_bounds__(kTile)
-rscan_kernel(const float* a, const float* g, float* gh, int n, long long len) {
-  __shared__ Tile aring[kRStages];
-  __shared__ Tile gring[kRStages];
-  const int lane = threadIdx.x;
-  const int row0 = blockIdx.x * kTile;
-  const int rows = min(kTile, n - row0);
-  float s = 0.0f;
-
-  const long long tiles = (len + kTile - 1) / kTile;
-#pragma unroll
-  for (int k = 0; k < kRStages; ++k) {
-    if (k < tiles) {
-      const long long t0 = (tiles - 1 - k) * kTile;
-      fetch_tile(aring[k], a, row0, rows, len, t0, lane);
-      fetch_tile(gring[k], g, row0, rows, len, t0, lane);
-    }
-    __pipeline_commit();
-  }
-  for (long long k = 0; k < tiles; ++k) {
-    Tile& ta = aring[k % kRStages];
-    Tile& tg = gring[k % kRStages];
-    const long long tile = tiles - 1 - k;
-    const long long t0 = tile * kTile;
-    __pipeline_wait_prior(kRStages - 1);
-    __syncwarp();
-#pragma unroll
-    for (int j = kTile - 1; j >= 0; --j) {
-      s = fmaf(ta[lane][j], s, tg[lane][j]);
-      tg[lane][j] = s;
-    }
-    __syncwarp();
-    if (t0 + lane < len) {
-      for (int i = 0; i < rows; ++i) gh[(row0 + i) * len + t0 + lane] = tg[i][lane];
-    }
-    __syncwarp();
-    if (k + kRStages < tiles) {
-      const long long tn = (tile - kRStages) * kTile;
-      fetch_tile(ta, a, row0, rows, len, tn, lane);
-      fetch_tile(tg, g, row0, rows, len, tn, lane);
-    }
-    __pipeline_commit();
   }
 }
 
@@ -461,7 +434,9 @@ dim3 elem_grid(int n, long long len) {
 
 // The chunked reverse walk (rwalk_kernel, carry_kernel): chunk is a
 // positive multiple of 32; carry is (2, n, ceil(len / chunk)) scratch, or
-// null where one chunk covers the row.
+// null where one chunk covers the row.  kScan: grafx_reverse_scan's walk,
+// d the coefficients.
+template <bool kScan>
 cudaError_t rwalk(const float* g, const float* d, float* out, const float* at,
                   const float* rt, float* part_at, float* part_rt, float* dzi, float* carry,
                   int n, long long len, int chunk, cudaStream_t s) {
@@ -471,15 +446,15 @@ cudaError_t rwalk(const float* g, const float* d, float* out, const float* at,
   const long long blocks = ((long long)n * chunks + kTile - 1) / kTile;
   if (blocks > 0x7fffffffLL || (chunks > 1 && carry == nullptr)) return cudaErrorInvalidValue;
   if (chunks > 1) {
-    rwalk_kernel<true><<<(unsigned)blocks, kTile, 0, s>>>(g, d, nullptr, at, rt, nullptr, nullptr,
-                                                          nullptr, carry, n, len, chunk, chunks);
+    rwalk_kernel<true, kScan><<<(unsigned)blocks, kTile, 0, s>>>(
+        g, d, nullptr, at, rt, nullptr, nullptr, nullptr, carry, n, len, chunk, chunks);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     carry_kernel<<<n, kTile, 0, s>>>(carry, n, chunks);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  rwalk_kernel<false><<<(unsigned)blocks, kTile, 0, s>>>(g, d, out, at, rt, part_at, part_rt,
-                                                         dzi, carry, n, len, chunk, chunks);
+  rwalk_kernel<false, kScan><<<(unsigned)blocks, kTile, 0, s>>>(
+      g, d, out, at, rt, part_at, part_rt, dzi, carry, n, len, chunk, chunks);
   return cudaGetLastError();
 }
 
@@ -516,8 +491,8 @@ int grafx_gain_bwd(const float* u, const float* d, const float* ylast, const flo
   gain_bwd_elem<<<elem_grid(n, len), kElemThreads, 0, s>>>(u, d, ylast, gg, c, du,
                                                            partials + 2 * pn, kind, n, len);
   if ((err = cudaGetLastError())) return (int)err;
-  if ((err = rwalk(du, d, du, c, c + n, partials, partials + pn, grads, carry, n, len, chunk,
-                   s))) {
+  if ((err = rwalk<false>(du, d, du, c, c + n, partials, partials + pn, grads, carry, n, len,
+                          chunk, s))) {
     return (int)err;
   }
   return (int)reduce(partials, grads + n, 5, n, tiles, s);
@@ -551,16 +526,16 @@ int grafx_gain_pair_bwd(const float* u, const float* d_a, const float* d_b,
   pair_bwd_b<<<grid, kElemThreads, 0, s>>>(u, d_a, d_b, lasts, gg, consts, ga, du, dec,
                                            partials + 7 * pn, kind_a, kind_b, n, len);
   if ((err = cudaGetLastError())) return (int)err;
-  if ((err = rwalk(dec, d_b, dec, b, b + n, partials + 5 * pn, partials + 6 * pn, nullptr,
-                   carry, n, len, chunk, s))) {
+  if ((err = rwalk<false>(dec, d_b, dec, b, b + n, partials + 5 * pn, partials + 6 * pn,
+                          nullptr, carry, n, len, chunk, s))) {
     return (int)err;
   }
   // du <- g1, walked in place; dec <- dec ga^2, added last
   pair_bwd_a<<<grid, kElemThreads, 0, s>>>(u, d_a, lasts, ga, du, dec, consts,
                                            partials + 2 * pn, kind_a, n, len);
   if ((err = cudaGetLastError())) return (int)err;
-  if ((err = rwalk(du, d_a, du, a, a + n, partials, partials + pn, nullptr, carry, n, len,
-                   chunk, s))) {
+  if ((err = rwalk<false>(du, d_a, du, a, a + n, partials, partials + pn, nullptr, carry, n,
+                          len, chunk, s))) {
     return (int)err;
   }
   const long long size = (long long)n * len;
@@ -583,8 +558,8 @@ int grafx_ballistics_bwd(const float* d, const float* g, const float* consts, fl
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long tiles = (len + kTile - 1) / kTile;
   const long long pn = (long long)n * tiles;
-  if ((err = rwalk(g, d, du, consts, consts + n, partials, partials + pn, grads, carry, n, len,
-                   chunk, s))) {
+  if ((err = rwalk<false>(g, d, du, consts, consts + n, partials, partials + pn, grads, carry,
+                          n, len, chunk, s))) {
     return (int)err;
   }
   return (int)reduce(partials, grads + n, 2, n, tiles, s);
@@ -596,25 +571,31 @@ int grafx_ballistics_bwd(const float* d, const float* g, const float* consts, fl
 int grafx_walk_blocks_per_sm(int* blocks, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  int local = 0, rewalk = 0;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&local, rwalk_kernel<true>, kTile, 0)) ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&rewalk, rwalk_kernel<false>, kTile, 0))) {
+  int local = 0, rewalk = 0, scan_local = 0, scan_rewalk = 0;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&local, rwalk_kernel<true, false>,
+                                                           kTile, 0)) ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&rewalk, rwalk_kernel<false, false>,
+                                                           kTile, 0)) ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&scan_local, rwalk_kernel<true, true>,
+                                                           kTile, 0)) ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&scan_rewalk,
+                                                           rwalk_kernel<false, true>, kTile, 0))) {
     return (int)err;
   }
-  *blocks = min(local, rewalk);
+  *blocks = min(min(local, rewalk), min(scan_local, scan_rewalk));
   return 0;
 }
 
-// gh[n] = g[n] + a[n] gh[n+1], gh[L] = 0; a, g and gh (n, len).
-int grafx_reverse_scan(const float* a, const float* g, float* gh, int n, long long len,
-                       int device, void* stream) {
+// gh[n] = g[n] + a[n] gh[n+1], gh[L] = 0; a, g and gh (n, len); carry and
+// chunk as for grafx_gain_bwd.
+int grafx_reverse_scan(const float* a, const float* g, float* gh, float* carry, int n,
+                       long long len, int chunk, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (bad_shape(n, len, 0)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(n, len, 0, chunk)) return (int)cudaErrorInvalidValue;
   if (n <= 0 || len <= 0) return 0;
-  rscan_kernel<<<(n + kTile - 1) / kTile, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, g, gh, n, len);
-  return (int)cudaGetLastError();
+  return (int)rwalk<true>(g, a, gh, nullptr, nullptr, nullptr, nullptr, nullptr, carry, n, len,
+                          chunk, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

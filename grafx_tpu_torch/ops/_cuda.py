@@ -53,8 +53,8 @@ _SOURCES = {
         "grafx_gain_pair_bwd": [_p] * 11 + [_i, _ll, _i, _i, _i, _i, _p],
         # d, g, consts, du, grads, partials, carry, n, len, chunk, device, stream
         "grafx_ballistics_bwd": [_p] * 7 + [_i, _ll, _i, _i, _p],
-        # a, g, gh, n, len, device, stream
-        "grafx_reverse_scan": [_p] * 3 + [_i, _ll, _i, _p],
+        # a, g, gh, carry, n, len, chunk, device, stream
+        "grafx_reverse_scan": [_p] * 4 + [_i, _ll, _i, _i, _p],
         # blocks (out), device
         "grafx_walk_blocks_per_sm": [ctypes.POINTER(_i), _i],
     },

@@ -291,6 +291,39 @@ def _reverse_walk_chunked(g, d, at, rt, chunk):
     return c * gh, dat, drt, omc[:, 0] * gh[:, 0]
 
 
+def _reverse_scan_chunked(a, g, chunk):
+    """:func:`reverse_scan_plain` as the CUDA kernel decomposes it over
+    chunks of ``chunk`` samples (:func:`walk_chunk` validates and clamps
+    it): each chunk walks from ``gh = 0`` keeping its ``gh`` at its first
+    sample and the product of its ``a``; from the last chunk back, ``gh``
+    entering chunk k is ``x[k-1] = local[k] + prod[k] x[k]``, ``x[C-1] =
+    0``; each chunk walks again from its ``x``.  One chunk is
+    :func:`reverse_scan_plain` bit for bit.  Used by the tests only."""
+    n, length = g.shape
+    chunk = walk_chunk(n, length, chunk)
+    chunks = -(-length // chunk)
+    pad = chunks * chunk - length
+    ap = F.pad(a, (0, pad)).reshape(n, chunks, chunk)
+    gp = F.pad(g, (0, pad)).reshape(n, chunks, chunk)
+
+    def walk(seed):
+        gh = torch.empty_like(gp)
+        st, prod = seed, torch.ones_like(seed)
+        for j in range(chunk - 1, -1, -1):
+            st = torch.addcmul(gp[:, :, j], ap[:, :, j], st)
+            gh[:, :, j] = st
+            prod = prod * ap[:, :, j]
+        return gh, prod
+
+    local, prod = walk(gp.new_zeros(n, chunks))
+    x = torch.empty_like(prod)
+    st = g.new_zeros(n)
+    for k in range(chunks - 1, -1, -1):
+        x[:, k] = st
+        st = torch.addcmul(local[:, k, 0], prod[:, k], st)
+    return walk(x)[0].reshape(n, -1)[:, :length]
+
+
 def _knee_terms(y, th, hk, kind):
     x = torch.log(y + _EPS) - th[:, None]
     return x, _knee_f(x, hk[:, None], kind), _knee_fp(x, hk[:, None], kind)
@@ -817,21 +850,26 @@ def ballistics_bwd(d, g, at, rt, chunk=None):
     return (du, *grads.unbind(0))
 
 
-def reverse_scan(a, g):
+def reverse_scan(a, g, chunk=None):
     """The first-order reverse recurrence ``gh[n] = g[n] + a[n] gh[n+1]``
     with ``gh[L] = 0`` over ``(N, L)`` rows (replaces ``_bwd_kernel``, the
-    kernel of ``grafx_tpu.ops.ballistics_tpu.reverse_scan_pallas``).
+    kernel of ``grafx_tpu.ops.ballistics_tpu.reverse_scan_pallas``).  On
+    the card it is the adjoints' chunked reverse walk with the coefficient
+    read (:func:`_reverse_scan_chunked` mirrors it); ``chunk`` as for
+    :func:`ballistics_gain_bwd`.
 
     Returns:
         ``(N, L)`` ``gh``.
     """
     name = "reverse_scan"
+    chunk = _walk_chunk(a, chunk)
     if _device(a, name) == "cpu":
         return reverse_scan_plain(a, g)
     a, g = _rows(name, a, g)
     gh = torch.empty_like(g)
+    carry = _carry(a, chunk)
     _run(name, "grafx_reverse_scan", a, a.data_ptr(), g.data_ptr(), gh.data_ptr(),
-         a.shape[0], a.shape[1])
+         _ptr(carry), a.shape[0], a.shape[1], chunk)
     reverse_scan.launches += 1
     return gh
 

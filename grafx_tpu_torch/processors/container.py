@@ -7,8 +7,9 @@ Aux losses travel as the second element of a returned tuple (the render
 executor's ``intermediates`` side channel).  Each container streams
 (``stream_init`` / ``stream_step``) and joins LTI fusion where its members
 do (``lti_kind``, ``fir_kernel``, ``biquad_kernel``; render/fuse.py).
-The port threads no RNG yet: a ``noise_key`` other than ``None`` raises,
-as the reverb's does.
+A container takes the render executor's ``noise_key`` and hands member
+``i`` that takes one ``fold_in(noise_key, i)``, so stochastic processors
+keep per-call noise at any depth of nesting, as in ``grafx_tpu``.
 """
 
 import math
@@ -17,19 +18,30 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from grafx_tpu_torch.processors.core.utils import lti_kind_of, reject_noise_key, rms_difference
+from grafx_tpu_torch import random
+from grafx_tpu_torch.processors.core.utils import accepts_noise_key, lti_kind_of, rms_difference
 
 
 def _split_output(out):
     return out if isinstance(out, tuple) else (out, None)
 
 
-def _inner_stream_init(processor, num_channels, block_len, params):
+def _maybe_key(processor, noise_key, i=0):
+    """Keyword arguments that hand member ``i`` its key,
+    ``fold_in(noise_key, i)``, where it takes one (``processor`` a
+    processor or its ``fir_kernel``)."""
+    if noise_key is None or not accepts_noise_key(processor):
+        return {}
+    return {"noise_key": random.fold_in(noise_key, i)}
+
+
+def _inner_stream_init(processor, num_channels, block_len, params, noise_key, i):
     """Streaming dispatch for a wrapped processor: a stateful one gets
-    ``stream_init``; a memoryless one is called on each block
-    (render/streaming.py)."""
+    ``stream_init`` (with member ``i``'s key where it takes one); a
+    memoryless one is called on each block (render/streaming.py)."""
     if hasattr(processor, "stream_init"):
-        state, cache = processor.stream_init(num_channels, block_len, **params)
+        kwargs = {**params, **_maybe_key(processor, noise_key, i)}
+        state, cache = processor.stream_init(num_channels, block_len, **kwargs)
         return state, ("stream", cache)
     return None, ("call", dict(params))
 
@@ -58,16 +70,18 @@ class DryWet(nn.Module):
         self.external_param = external_param
 
     def forward(self, input_signals, drywet_weight, noise_key=None, **processor_kwargs):
-        reject_noise_key(noise_key, type(self).__name__)
-        out, intermediates = _split_output(self.processor(input_signals, **processor_kwargs))
+        out, intermediates = _split_output(
+            self.processor(input_signals, **processor_kwargs,
+                           **_maybe_key(self.processor, noise_key))
+        )
         w = torch.sigmoid(drywet_weight).reshape(-1, 1, 1)
         mixed = w * out + (1.0 - w) * input_signals
         return mixed if intermediates is None else (mixed, intermediates)
 
     def stream_init(self, num_channels, block_len, drywet_weight=None, noise_key=None,
                     **processor_kwargs):
-        reject_noise_key(noise_key, type(self).__name__)
-        state, cache = _inner_stream_init(self.processor, num_channels, block_len, processor_kwargs)
+        state, cache = _inner_stream_init(self.processor, num_channels, block_len,
+                                          processor_kwargs, noise_key, 0)
         return state, {"inner": cache, "w": drywet_weight}
 
     def stream_step(self, x, state, cache):
@@ -92,7 +106,9 @@ class DryWet(nn.Module):
         return "fir" if lti_kind_of(self.processor) == "fir" else None
 
     def fir_kernel(self, drywet_weight, noise_key=None, **processor_kwargs):
-        reject_noise_key(noise_key, type(self).__name__)
+        # the key itself, not a fold: grafx_tpu's DryWet.fir_kernel hands it on as is
+        if noise_key is not None and accepts_noise_key(self.processor.fir_kernel):
+            processor_kwargs = {**processor_kwargs, "noise_key": noise_key}
         h_wet, shift, aux = self.processor.fir_kernel(**processor_kwargs)
         w = torch.sigmoid(drywet_weight).reshape(-1, 1, 1)
         dry = F.pad(1.0 - w, (shift, h_wet.shape[-1] - shift - 1))  # (1 - w) d_shift
@@ -110,20 +126,21 @@ class SerialChain(nn.Module):
         self.member_modules = nn.ModuleList(self.processors.values())
 
     def forward(self, input_signals, noise_key=None, **processors_kwargs):
-        reject_noise_key(noise_key, type(self).__name__)
         out = input_signals
         intermediates = {}
-        for k, processor in self.processors.items():
-            out, inter = _split_output(processor(out, **processors_kwargs[k]))
+        for i, (k, processor) in enumerate(self.processors.items()):
+            out, inter = _split_output(
+                processor(out, **processors_kwargs[k], **_maybe_key(processor, noise_key, i))
+            )
             if inter is not None:
                 intermediates[k] = inter
         return out, intermediates
 
     def stream_init(self, num_channels, block_len, noise_key=None, **kwargs):
-        reject_noise_key(noise_key, type(self).__name__)
         states, caches = {}, {}
-        for k, processor in self.processors.items():
-            states[k], caches[k] = _inner_stream_init(processor, num_channels, block_len, kwargs[k])
+        for i, (k, processor) in enumerate(self.processors.items()):
+            states[k], caches[k] = _inner_stream_init(processor, num_channels, block_len,
+                                                      kwargs[k], noise_key, i)
         return states, caches
 
     def stream_step(self, x, state, cache):
@@ -150,8 +167,7 @@ class SerialChain(nn.Module):
     def fir_kernel(self, noise_key=None, **processors_kwargs):
         from grafx_tpu_torch.render.fuse import compose_fir_kernels
 
-        reject_noise_key(noise_key, type(self).__name__)
-        return compose_fir_kernels(list(self.processors.items()), processors_kwargs)
+        return compose_fir_kernels(list(self.processors.items()), processors_kwargs, noise_key)
 
     def biquad_kernel(self, **processors_kwargs):
         from grafx_tpu_torch.render.fuse import compose_biquad_kernels
@@ -185,11 +201,13 @@ class ParallelMix(nn.Module):
         return F.softplus(parallel_weights) * self.mult
 
     def forward(self, input_signals, parallel_weights, noise_key=None, **processors_kwargs):
-        reject_noise_key(noise_key, type(self).__name__)
         weights = self._weights(parallel_weights)
         out, intermediates = 0, {}
         for i, (k, processor) in enumerate(self.processors.items()):
-            y, inter = _split_output(processor(input_signals, **processors_kwargs[k]))
+            y, inter = _split_output(
+                processor(input_signals, **processors_kwargs[k],
+                          **_maybe_key(processor, noise_key, i))
+            )
             if inter is not None:
                 intermediates[k] = inter
             out = out + y * weights[..., i, None, None]
@@ -197,10 +215,10 @@ class ParallelMix(nn.Module):
 
     def stream_init(self, num_channels, block_len, parallel_weights=None, noise_key=None,
                     **kwargs):
-        reject_noise_key(noise_key, type(self).__name__)
         states, caches = {}, {}
-        for k, processor in self.processors.items():
-            states[k], caches[k] = _inner_stream_init(processor, num_channels, block_len, kwargs[k])
+        for i, (k, processor) in enumerate(self.processors.items()):
+            states[k], caches[k] = _inner_stream_init(processor, num_channels, block_len,
+                                                      kwargs[k], noise_key, i)
         return states, {"inner": caches, "parallel_weights": parallel_weights}
 
     def stream_step(self, x, state, cache):
@@ -223,11 +241,12 @@ class ParallelMix(nn.Module):
         return "fir" if all(lti_kind_of(p) == "fir" for p in self.processors.values()) else None
 
     def fir_kernel(self, parallel_weights, noise_key=None, **kwargs):
-        reject_noise_key(noise_key, type(self).__name__)
         weights = self._weights(parallel_weights)
         kernels, intermediates = [], {}
-        for k, processor in self.processors.items():
-            h, s, aux = processor.fir_kernel(**kwargs[k])
+        for i, (k, processor) in enumerate(self.processors.items()):
+            h, s, aux = processor.fir_kernel(
+                **kwargs[k], **_maybe_key(processor.fir_kernel, noise_key, i)
+            )
             if aux:
                 intermediates[k] = aux
             kernels.append((h, s))
@@ -254,8 +273,10 @@ class GainStagingRegularization(nn.Module):
         self.key = key
 
     def forward(self, input_signals, noise_key=None, **processor_kwargs):
-        reject_noise_key(noise_key, type(self).__name__)
-        out, intermediates = _split_output(self.processor(input_signals, **processor_kwargs))
+        out, intermediates = _split_output(
+            self.processor(input_signals, **processor_kwargs,
+                           **_maybe_key(self.processor, noise_key))
+        )
         intermediates = {} if intermediates is None else dict(intermediates)
         if self.key in intermediates:
             raise ValueError(f"the wrapped processor already reports {self.key!r}")
@@ -265,8 +286,7 @@ class GainStagingRegularization(nn.Module):
     def stream_init(self, num_channels, block_len, noise_key=None, **kwargs):
         # the gain-staging loss is training-time only: a stream passes
         # through the wrapped processor
-        reject_noise_key(noise_key, type(self).__name__)
-        return _inner_stream_init(self.processor, num_channels, block_len, kwargs)
+        return _inner_stream_init(self.processor, num_channels, block_len, kwargs, noise_key, 0)
 
     def stream_step(self, x, state, cache):
         return _inner_stream_step(self.processor, x, state, cache)

@@ -29,16 +29,6 @@ def accepts_noise_key(processor):
     return "noise_key" in sig.parameters
 
 
-def reject_noise_key(noise_key, owner):
-    """Raise unless ``noise_key`` is ``None``: the port threads no RNG yet
-    (ROADMAP.md, queue 1), so ``owner`` cannot forward a key."""
-    if noise_key is not None:
-        raise NotImplementedError(
-            f"{owner} got a noise_key, which needs RNG threading; that is not"
-            " ported yet (ROADMAP.md, queue 1). Pass None."
-        )
-
-
 _MISSING = object()
 
 

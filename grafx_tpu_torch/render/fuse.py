@@ -34,7 +34,8 @@ from grafx_tpu_torch.data.graph import GRAFX
 from grafx_tpu_torch.ops.ballistics import ballistics_gain_pair_core
 from grafx_tpu_torch.ops.fftconv import conv_stream_apply, conv_stream_init, fft_convolve
 from grafx_tpu_torch.processors.core.iir import IIRFilter
-from grafx_tpu_torch.processors.core.utils import lti_kind_of, reject_noise_key
+from grafx_tpu_torch.processors.core.utils import accepts_noise_key, lti_kind_of
+from grafx_tpu_torch.random import fold_in
 from grafx_tpu_torch.render.order.graph import compute_render_order
 from grafx_tpu_torch.render.order.tensor import node_id_from_render_order
 from grafx_tpu_torch.utils import tree_leaves, tree_map
@@ -53,14 +54,18 @@ class _FusedChain(nn.Module):
         return {name: proc.parameter_size() for name, proc in self.members}
 
 
-def compose_fir_kernels(members, nested_params):
+def compose_fir_kernels(members, nested_params, noise_key=None):
     """Compose ``[(name, processor), ...]`` FIR-LTI members into one
     ``(h, shift, intermediates)`` kernel: IRs convolve, shifts add, aux
     dicts nest by member name (shared by :class:`FusedFIRChain` and the
-    containers' FIR capability)."""
+    containers' FIR capability).  Member ``i`` whose ``fir_kernel`` takes
+    a ``noise_key`` gets ``fold_in(noise_key, i)``."""
     h, shift, intermediates = None, 0, {}
-    for name, proc in members:
-        hi, si, aux = proc.fir_kernel(**nested_params[name])
+    for i, (name, proc) in enumerate(members):
+        kw = dict(nested_params[name])
+        if noise_key is not None and accepts_noise_key(proc.fir_kernel):
+            kw["noise_key"] = fold_in(noise_key, i)
+        hi, si, aux = proc.fir_kernel(**kw)
         shift += si
         if aux:
             intermediates[name] = aux
@@ -99,8 +104,7 @@ class FusedFIRChain(_FusedChain):
     re-emitted."""
 
     def forward(self, input_signals, noise_key=None, **nested_params):
-        reject_noise_key(noise_key, "FusedFIRChain")
-        h, shift, intermediates = compose_fir_kernels(self.members, nested_params)
+        h, shift, intermediates = compose_fir_kernels(self.members, nested_params, noise_key)
         out = fft_convolve(input_signals, h, mode=("shift", shift))
         return (out, intermediates) if intermediates else out
 
@@ -110,8 +114,7 @@ class FusedFIRChain(_FusedChain):
         """Compose the chain's IR once and stream its one convolution (an
         overlap-add tail, or UPOLS for a long IR).  A chain with
         zero-phase members (``shift > 0``) needs lookahead and raises."""
-        reject_noise_key(noise_key, "FusedFIRChain")
-        h, shift, _ = compose_fir_kernels(self.members, nested_params)
+        h, shift, _ = compose_fir_kernels(self.members, nested_params, noise_key)
         if shift:
             raise NotImplementedError(
                 f"fused chain has {shift} samples of zero-phase lookahead;"

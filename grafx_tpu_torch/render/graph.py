@@ -12,7 +12,9 @@ on the card it replays a CUDA graph (:mod:`.compiled`).
 
 import torch
 
+from grafx_tpu_torch import random
 from grafx_tpu_torch.data.configs import UTILITY_TYPES
+from grafx_tpu_torch.processors.core.utils import accepts_noise_key
 from grafx_tpu_torch.render.compiled import CapturedFunction
 from grafx_tpu_torch.render.core import (
     aggregate_tensor,
@@ -83,6 +85,8 @@ def render_grafx(
     input_signals,
     per_type_parameters,
     render_data,
+    common_parameters=None,
+    rng=None,
     return_buffer=False,
 ):
     """Render an audio graph.
@@ -94,6 +98,15 @@ def render_grafx(
         per_type_parameters: nested dict, type -> name -> tensor whose
             dim 0 is the node batch, on the device of ``input_signals``.
         render_data: the static :class:`RenderData` plan.
+        common_parameters: an optional dict of tensors whose dim 0 is the
+            graph's ``|V|`` nodes, shared by every node type: each stage
+            reads its nodes' rows (``stage.dest_write``) as keyword
+            arguments (e.g. ``DryWet``'s external ``drywet_weight``).
+        rng: an optional key (:mod:`grafx_tpu_torch.random`) on the
+            device of ``input_signals``.  Stage ``i`` whose processor takes
+            a ``noise_key`` gets ``fold_in(rng, i)``, as in ``grafx_tpu``:
+            the same key renders the same noise, a new key new noise.
+            Without it such processors draw their own default noise.
         return_buffer: also assemble the ``(.., num_buffers, C, L)``
             signal buffer (a full copy of every node's output).
 
@@ -107,6 +120,9 @@ def render_grafx(
             " ported yet."
         )
     ndim = input_signals.dim()
+    rng_types = (
+        {t for t, p in processors.items() if accepts_noise_key(p)} if rng is not None else set()
+    )
 
     # Per-type precompute (docs/processors.md): a processor exposing
     # ``precompute(**params)`` builds its parameter-dependent kernels
@@ -133,6 +149,10 @@ def render_grafx(
             k: expand_tensor_or_tensor_dict(v, expand=batch_size, dim=0)
             for k, v in precomputed.items()
         }
+        if common_parameters is not None:
+            common_parameters = expand_tensor_or_tensor_dict(
+                common_parameters, expand=batch_size, dim=0
+            )
     else:
         raise ValueError(f"input_signals has {ndim} dims; expected 3 or 4.")
 
@@ -169,6 +189,13 @@ def render_grafx(
                 dim=node_dim,
                 postprocess=postprocess,
             )
+            common_i = {}
+            if common_parameters is not None:
+                common_i = read_tensor_or_tensor_dict(
+                    common_parameters, stage.dest_write, dim=node_dim, postprocess=postprocess
+                )
+            if node_type in rng_types:
+                common_i = {**common_i, "noise_key": random.fold_in(rng, i)}
             if node_type in precomputed:
                 cache_i = read_tensor_or_tensor_dict(
                     precomputed[node_type],
@@ -177,10 +204,10 @@ def render_grafx(
                     postprocess=postprocess,
                 )
                 output = processors[node_type](
-                    *stage_inputs, **parameters, _cache=cache_i
+                    *stage_inputs, **parameters, **common_i, _cache=cache_i
                 )
             else:
-                output = processors[node_type](*stage_inputs, **parameters)
+                output = processors[node_type](*stage_inputs, **parameters, **common_i)
             if isinstance(output, tuple):
                 output_signals, intermediates = output
                 intermediates_list.append(intermediates)
@@ -216,24 +243,30 @@ def render_grafx(
 
 def make_render_fn(processors, render_data, jit=True):
     """Build a render closure over static (processors, plan) with
-    signature ``f(input_signals, per_type_parameters, return_buffer=False)``
-    (the counterpart of :func:`grafx_tpu.render.graph.make_render_fn`).
+    signature ``f(input_signals, per_type_parameters,
+    common_parameters=None, rng=None, return_buffer=False)`` (the
+    counterpart of :func:`grafx_tpu.render.graph.make_render_fn`).
 
     With ``jit`` (the default, as in ``grafx_tpu``) a call on the card
     replays a CUDA graph captured per input shapes and parameter tree
     (:class:`~grafx_tpu_torch.render.compiled.CapturedFunction`: the
     first call with a new signature runs eagerly, the second captures),
-    with the parameters passed in, and returns fresh tensors; it refuses
-    parameters that need autograd (pass ``jit=False`` to differentiate
-    through the render).  On the CPU both run the same eager code.
+    with the parameters, the common parameters and the key passed in, and
+    returns fresh tensors: a replay with a new ``rng`` draws new noise.
+    It refuses parameters that need autograd (pass ``jit=False`` to
+    differentiate through the render).  On the CPU both run the same
+    eager code.
     """
 
-    def render_fn(input_signals, per_type_parameters, return_buffer=False):
+    def render_fn(input_signals, per_type_parameters, common_parameters=None, rng=None,
+                  return_buffer=False):
         return render_grafx(
             processors,
             input_signals,
             per_type_parameters,
             render_data,
+            common_parameters=common_parameters,
+            rng=rng,
             return_buffer=return_buffer,
         )
 

@@ -40,6 +40,7 @@ import inspect
 
 import torch
 
+from grafx_tpu_torch import random
 from grafx_tpu_torch.data.configs import UTILITY_TYPES
 from grafx_tpu_torch.render.compiled import CapturedFunction
 from grafx_tpu_torch.render.core import aggregate_tensor, read_tensor_or_tensor_dict
@@ -57,8 +58,13 @@ class StreamRenderer:
         block_len: audio samples per block.  Must be a multiple of every
             exact-IIR filter's ``exact_block_size`` (checked here).
         num_channels: audio channels (2 for stereo graphs).
-        rng, common_parameters: not ported yet; anything but ``None``
-            raises.
+        rng: an optional key (:mod:`grafx_tpu_torch.random`) for
+            stochastic processors: stage ``i`` whose ``stream_init`` takes
+            a ``noise_key`` gets ``fold_in(rng, i)``, as the one-shot
+            render hands it, so its noise is drawn once, at init.
+        common_parameters: optional ``common_parameters`` (as for
+            :func:`render_grafx`), frozen like ``parameters``; a tensor in
+            place of a dict is a ``DryWet``'s ``drywet_weight``.
         jit: on the card, replay a CUDA graph of the block step captured
             per block and state shapes (the first call of a shape runs
             eagerly, the second captures), and of ``step_many``'s k steps
@@ -79,11 +85,6 @@ class StreamRenderer:
         common_parameters=None,
         jit=True,
     ):
-        if rng is not None or common_parameters is not None:
-            raise NotImplementedError(
-                "streaming with rng or common_parameters is not ported yet"
-                " (ROADMAP.md, queue 1)."
-            )
         if render_data.method == "one-by-one":
             raise ValueError("streaming requires a scheduled plan (beam/greedy/fixed).")
         self.processors = processors
@@ -115,6 +116,13 @@ class StreamRenderer:
                 params_i = read_tensor_or_tensor_dict(
                     parameters.get(node_type, {}), stage.parameter_read, dim=0
                 )
+                if common_parameters is not None:
+                    common_i = read_tensor_or_tensor_dict(
+                        common_parameters, stage.dest_write, dim=0
+                    )
+                    if not isinstance(common_i, dict):
+                        common_i = {"drywet_weight": common_i}
+                    params_i = {**params_i, **common_i}
                 if not hasattr(proc, "stream_init"):
                     self._caches[i] = ("call", params_i)  # memoryless
                     continue
@@ -134,6 +142,10 @@ class StreamRenderer:
                             " a multi-inlet stateful processor must"
                             " accept (sig_1, ..., sig_k, state, cache)."
                         )
+                if rng is not None and "noise_key" in inspect.signature(
+                    proc.stream_init
+                ).parameters:
+                    params_i = {**params_i, "noise_key": random.fold_in(rng, i)}
                 state, cache = proc.stream_init(num_channels, block_len, **params_i)
                 self._init_states[i] = state
                 self._caches[i] = ("stream", cache)

@@ -352,6 +352,29 @@ def test_reverse_walk_chunked_matches_serial(spec, L, N):
             assert torch.equal(v, r), name
 
 
+@pytest.mark.parametrize("N", [1, 8, 68])
+@pytest.mark.parametrize("L", [64, 200, 4096, 4109])
+@pytest.mark.parametrize("spec", [32, 64, 256, "L", ">L"])
+def test_reverse_scan_chunked_matches_serial(spec, L, N):
+    """#10's decomposition (the chunked walk with the coefficient read)
+    against the serial scan: gh within 1e-6 of max|ref| (the adjoint
+    walk's du bound), rows of zeros exactly 0, and one chunk bit for bit.
+    Coefficients up to 0.999, so that gh carries across many chunks."""
+    chunk = _chunk(spec, L)
+    rng = np.random.RandomState(N + L + 1)
+    a = rng.uniform(0.05, 0.999, (N, L))
+    g = rng.randn(N, L)
+    g[3::4] = 0.0
+    a, g = (torch.tensor(np.asarray(v, np.float32)) for v in (a, g))
+    ref = bal.reverse_scan_plain(a, g)
+    got = bal._reverse_scan_chunked(a, g, chunk)
+    assert got.shape == ref.shape
+    assert (got - ref).abs().max() <= 1e-6 * ref.abs().max()
+    assert bool((got[3::4] == 0).all())
+    if chunk >= L:
+        assert torch.equal(got, ref)
+
+
 def test_walk_chunk_picks_and_checks_the_chunk_length():
     """The console's shapes on an H100's resident virtual rows (68 pair
     rows and 8 bus rows of 2^17, the factorized compressor's 68 x 128

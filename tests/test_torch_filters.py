@@ -146,19 +146,22 @@ def test_zero_phase_fir_kernel_and_refusals():
         tproc.stream_init(2, 1024, **{k: torch.tensor(v) for k, v in p.items()})
 
 
-def test_third_octave_fsm_gap_is_the_band_design():
-    """The third-octave GEQ on fsm: from grafx_tpu's own coefficients the
-    port's render is within REL; end to end the two differ by 2.0e-5 of
-    max|ref| (ROADMAP.md queue 3): the band design's exp and sqrt differ
-    in the last bit between XLA and torch (1.8e-7 in the coefficients),
-    and the 19.7 Hz band's pole pair sits close enough to z = 1 to
-    amplify that to 6e-5 of the sampled response."""
-    kwargs = {"scale": "third_octave", "processor_channel": "stereo"}
-    jproc, tproc = both("GraphicEqualizer", kwargs)
-    x, p = inputs(tproc)
-    ref = np.asarray(jproc(jnp.asarray(x), jnp.asarray(p["log_gains"])))
-    Bs, As = (torch.tensor(np.asarray(c)) for c in jproc.geq(jnp.asarray(p["log_gains"])))
-    got = tproc.biquad(torch.tensor(x), Bs, As).numpy()
-    assert max_rel(got, ref) <= REL, max_rel(got, ref)
-    end_to_end = tproc(torch.tensor(x), torch.tensor(p["log_gains"])).numpy()
-    assert max_rel(end_to_end, ref) <= 1e-4, max_rel(end_to_end, ref)
+def test_geq_fsm_matches_eager_grafx_tpu():
+    """The GEQ on fsm, on the third-octave and the bark scale: within REL
+    of grafx_tpu's op-by-op (eager) result, and against its jitted one
+    within the reference's own jit-vs-eager spread + REL.  XLA's fused
+    program differs from grafx_tpu's own eager ops by 2.0e-5 of max|ref|
+    on the third-octave scale (1.1e-5 on bark): its band design's exp and
+    sqrt round differently near z = 1, where the 19.7 Hz band's poles
+    amplify that; the port is within 3.2e-6 of the eager result."""
+    for scale in ("third_octave", "bark"):
+        kwargs = {"scale": scale, "processor_channel": "stereo"}
+        jproc, tproc = both("GraphicEqualizer", kwargs)
+        x, p = inputs(tproc)
+        args = (jnp.asarray(x), jnp.asarray(p["log_gains"]))
+        eager = np.asarray(jproc(*args))
+        jitted = np.asarray(jax.jit(lambda x, g: jproc(x, g))(*args))
+        got = tproc(torch.tensor(x), torch.tensor(p["log_gains"])).numpy()
+        assert max_rel(got, eager) <= REL, (scale, max_rel(got, eager))
+        spread = max_rel(jitted, eager)
+        assert max_rel(got, jitted) <= spread + REL, (scale, max_rel(got, jitted), spread)

@@ -224,7 +224,8 @@ def test_fuse_serial_fir_is_the_fir_slice():
 )
 def test_container_matches_grafx_tpu_and_streams(make):
     """Each container's output and aux losses against grafx_tpu's, its
-    stream against its one-shot output, and a noise_key refused."""
+    stream against its one-shot output, and its output on a noise_key
+    against grafx_tpu's on the same key."""
     jproc, tproc = make(jp), make(tp)
     assert jproc.parameter_size() == tproc.parameter_size()
     rng = np.random.default_rng(4)
@@ -247,8 +248,16 @@ def test_container_matches_grafx_tpu_and_streams(make):
             yb, state = tproc.stream_step(xb, state, cache)
             blocks.append(yb)
     assert max_rel(torch.cat(blocks, dim=-1).numpy(), y.detach().numpy()) <= FUSED_REL
-    with pytest.raises(NotImplementedError, match="noise_key"):
-        tproc(torch.tensor(x), **parameters_from_numpy(p), noise_key=0)
+    # a noise_key (once refused, before RNG threading) passes through to
+    # the members that take one, as in grafx_tpu: equal on the same key
+    from grafx_tpu_torch import random as tr
+
+    jkey = jax.random.PRNGKey(5)
+    out_j = jproc(jnp.asarray(x), **jax.tree.map(jnp.asarray, p), noise_key=jkey)
+    out = tproc(torch.tensor(x), **parameters_from_numpy(p),
+                noise_key=tr.key_from_numpy(np.asarray(jkey)))
+    (y_j, _), (y, _) = (o if isinstance(o, tuple) else (o, None) for o in (out_j, out))
+    assert max_rel(y.detach().numpy(), np.asarray(y_j)) <= JAX_REL
 
 
 @pytest.mark.parametrize("backend", ["exact", "fsm"])

@@ -351,10 +351,28 @@ def test_processor_stream_matches_grafx_tpu(name):
 
 
 def test_reverb_stream_refuses_noise_key():
-    proc = tp.STFTMaskedNoiseReverb(ir_len=3000)
-    params = {k: torch.zeros((1, *v)) for k, v in proc.parameter_size().items()}
-    with pytest.raises(NotImplementedError, match="noise_key"):
-        proc.stream_init(2, BLOCK, noise_key=0, **params)
+    """A per-stream noise_key (once refused, before RNG threading): the
+    reverb with per-call noise streamed from its stream_init on a key,
+    against grafx_tpu's stream on the same key, and against its own
+    one-shot forward on that key."""
+    from grafx_tpu_torch import random as tr
+
+    ours = tp.STFTMaskedNoiseReverb(ir_len=3000, fixed_noise=False)
+    theirs = jp.STFTMaskedNoiseReverb(ir_len=3000, fixed_noise=False)
+    rng = np.random.RandomState(11)
+    params = {k: (0.5 * rng.randn(2, *v)).astype(np.float32)
+              for k, v in ours.parameter_size().items()}
+    x = rng.randn(2, 2, L).astype(np.float32)
+    jkey = jax.random.PRNGKey(2**31 + 7)
+    tkey = tr.key_from_numpy(np.asarray(jkey))
+    tparams = {k: torch.tensor(v) for k, v in params.items()}
+    with torch.no_grad():
+        got = _stream_processor(ours, torch.tensor(x), {**tparams, "noise_key": tkey})
+        one_shot = ours(torch.tensor(x), **tparams, noise_key=tkey).numpy()
+    ref = _stream_processor(theirs, jnp.asarray(x),
+                            {**{k: jnp.asarray(v) for k, v in params.items()}, "noise_key": jkey})
+    assert db(got - ref, ref) <= -60.0, db(got - ref, ref)
+    assert peak_rel(got, one_shot) < 5e-4
 
 
 def test_truncated_smoother_does_not_stream():
@@ -513,9 +531,26 @@ def test_stream_renderer_rejects_bad_blocks_and_options():
     streamer = StreamRenderer(procs, plan, params, block_len=BLOCK)
     with pytest.raises(ValueError, match="block length"):
         streamer(torch.zeros(1, 2, 512), streamer.init_state())
-    for option in ({"rng": 0}, {"common_parameters": {}}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            StreamRenderer(procs, plan, params, block_len=BLOCK, **option)
+    # rng and common_parameters (once refused, before RNG threading): on a
+    # graph with no stochastic stage the stream equals grafx_tpu's with
+    # the same options
+    from grafx_tpu_torch import random as tr
+
+    x = np.random.RandomState(12).randn(1, 2, 2 * BLOCK).astype(np.float32)
+    jprocs = {"eq": jp.ParametricEqualizer(num_filters=4, backend="exact", exact_block_size=128)}
+    G = JGRAFX(config=JNodeConfigs(sorted(jprocs)))
+    G.add_serial_chain(["in", "eq", "out"])
+    jplan = j_prepare(j_reorder(j_convert(G), method="beam"))
+    jparams = {"eq": {k: jnp.asarray(v.numpy()) for k, v in params["eq"].items()}}
+    for option, joption in (({"rng": tr.PRNGKey(3)}, {"rng": jax.random.PRNGKey(3)}),
+                            ({"common_parameters": {}}, {"common_parameters": {}})):
+        streamer = StreamRenderer(procs, plan, params, block_len=BLOCK, **option)
+        jstreamer = JStreamRenderer(jprocs, jplan, jparams, block_len=BLOCK, **joption)
+        state, jstate = streamer.init_state(), jstreamer.init_state()
+        for xb in np.split(x, 2, axis=-1):
+            y, state = streamer(torch.tensor(xb), state)
+            jy, jstate = jstreamer(jnp.asarray(xb), jstate)
+            assert db(y.numpy() - np.asarray(jy), np.asarray(jy)) <= -60.0, option
 
 
 class _Ducker(nn.Module):
