@@ -8,8 +8,10 @@ stream the console on the default IIR backend (the frequency-sampled
 FIRs, fused into FusedFIRChains), fit the gain -> delay console fused,
 serve, train and stream the console with the filtered-noise reverb (on
 keys) and with the feedback delay network, hold each new processor
-class against the CPU at full width, and check every hand-written kernel
-on the way.
+class against the CPU at full width, render the console under every
+schedule (one-by-one included), into the array buffer and batched with
+``batch_grafx``, time the convolution forms, and check every
+hand-written kernel on the way.
 
 Run from the root of the repository, on a machine with the card:
 
@@ -158,7 +160,33 @@ before the result line):
     ``PowerDistortion``'s gradient where a third of its input is exactly
     0 (finite, card vs CPU), ``DryWet`` with its weight through
     ``common_parameters`` and rng through a ``SerialChain`` rendered card
-    vs CPU (the same key the same render, a new key another).
+    vs CPU (the same key the same render, a new key another);
+28. schedules: the exact console scheduled by ``"beam"``, ``"greedy"``,
+    ``"fixed"`` (the beam's type sequence as ``fixed_order``) and
+    ``"one-by-one"``: the host's set-up seconds (fusion, parameter
+    migration, conversion, scheduling, plan; the native C++ beam search
+    against the numpy one, which must agree), the stage count, three eager
+    requests each with #1 and #2 launched once a stage of their types
+    (one-by-one: once a node), each render within -120 dB of the beam
+    plan's on the same parameters (rebound to each schedule's rows);
+29. array buffer: the beam plan with ``buffer_mode="array"``, eager and
+    compiled (its capture one eager request's launches), within 1e-6 of
+    max|y| of ``"stages"``; a step of ``GraphParameterOptimizer(
+    method="one-by-one")`` on the beam trainer's parameters and inputs,
+    its loss and every gradient within -60 dB of the beam step's (#3-#6
+    once a node), its second step captured, timed beside the beam step;
+30. batched graphs: ``batch_grafx`` of four consoles (400 nodes) with
+    their own parameter seeds, fused and rendered from (68, 2, 2^17), each
+    console within -120 dB of its render alone (#1 and #2 once), with the
+    native and numpy beam searches' seconds on the batched graph;
+31. convolution forms: ``fft_convolve`` (one FFT) against
+    ``fft_convolve_os`` and ``fft_convolve_upols`` (and the overlap-save
+    block ``grafx_tpu`` would pick) at 68 x 2 x 2^17 with 30000 and 60000
+    taps and at 68 x 2 x 2^18 with 2000, within -100 dB of one another,
+    each timed by ``profiling.device_time_ms`` and by CUDA events;
+    ``FIRFilter(overlap_save=True)`` against ``False``; and
+    ``profiling.device_time_ms`` (a sum) beside ``device_busy_ms`` (a
+    union) on the compiled request.
 
 Phases 5-11 (and the eager runs of 21-26) run the eager paths
 (``jit=False``), whose launch counts count every run.  A replay runs
@@ -174,7 +202,9 @@ under ``launches_per_run`` (``request_compiled``, ``step_compiled``,
 ``stream_block_fsm``, ``step_fused_delay`` and ``step_fused_delay_fsm``,
 ``request_noise``, ``step_noise``, ``stream_block_noise``,
 ``request_fdn``, ``step_fdn`` and ``stream_block_fdn`` with each one's
-``_compiled``).
+``_compiled``; and phases 28-30's ``request_beam``, ``request_greedy``,
+``request_fixed``, ``request_one_by_one``, ``request_array_compiled``,
+``step_one_by_one`` (eager) and ``_compiled``, ``request_batched``).
 
 The line before the last is ``{"kernels": [...]}``: per kernel its
 errors, times, launches on its path and per run of each path, and its
@@ -214,8 +244,10 @@ import tempfile
 import numpy as np
 import torch
 
+from grafx_tpu_torch import profiling
+from grafx_tpu_torch._native import native_available
 from grafx_tpu_torch.checkpoint import PARAMS_FILE, load_parameters, load_session, save_session
-from grafx_tpu_torch.data import GRAFX, NodeConfigs, convert_to_tensor
+from grafx_tpu_torch.data import GRAFX, NodeConfigs, batch_grafx, convert_to_tensor
 from grafx_tpu_torch.models import (
     GraphParameterOptimizer,
     ParameterPredictor,
@@ -224,11 +256,12 @@ from grafx_tpu_torch.models import (
     bench_trainer,
     mixing_console,
 )
-from grafx_tpu_torch.models.console import bench_processors
+from grafx_tpu_torch.models.console import bench_graph, bench_processors
 from grafx_tpu_torch.models.optimize import OPT_STATE_FILE
 from grafx_tpu_torch.models.predictor import features_per_type
 from grafx_tpu_torch.ops import _cuda
 from grafx_tpu_torch.ops import ballistics as bal
+from grafx_tpu_torch.ops.fftconv import _auto_os_block, fft_convolve, fft_convolve_os, fft_convolve_upols
 from grafx_tpu_torch.ops.iir import exactness_check_db
 from grafx_tpu_torch import random
 from grafx_tpu_torch.processors import (
@@ -237,6 +270,7 @@ from grafx_tpu_torch.processors import (
     FactorizedCompressor,
     FeedbackDelayNetwork,
     FilteredNoiseShapingReverb,
+    FIRFilter,
     MidSideToStereo,
     MonoToStereo,
     PiecewiseTanhDistortion,
@@ -248,7 +282,17 @@ from grafx_tpu_torch.processors import (
     StereoToMidSide,
 )
 from grafx_tpu_torch.ops.losses import mse_loss, multi_resolution_stft_loss
-from grafx_tpu_torch.render import StreamRenderer, make_render_fn, prepare_render, reorder_for_fast_render
+from grafx_tpu_torch.render import (
+    StreamRenderer,
+    compute_render_order,
+    fuse_parameters,
+    fuse_serial_lti,
+    make_render_fn,
+    prepare_render,
+    reorder_for_fast_render,
+)
+from grafx_tpu_torch.render.fuse import _scheduled_type_rows
+from grafx_tpu_torch.render.order import beam_search
 from grafx_tpu_torch.serving import export_render, export_stream_step, load_render, load_stream_step
 from grafx_tpu_torch.utils import create_empty_parameters, tree_items, tree_leaves, tree_map
 
@@ -2219,6 +2263,353 @@ def library_phase(smi):
         say("library", render=label, shape=tuple(x.shape), card_vs_cpu_db=f"{card_db:.1f}", **fields)
 
 
+# phases 28-31: the rest of the render engine, the public surface's host
+# pieces and the convolution forms
+PAIR_TYPE = "fused(noisegate+compressor)"  # the console's gate -> compressor composite (#1, #3/#4)
+SCHEDULE_DB = -120.0  # a schedule's render against the beam plan's (and a batched render against its parts)
+STEP_DB = -60.0  # a one-by-one step's loss and gradients against the beam trainer's
+CONV_DB = -100.0  # the convolution forms against one another
+BATCHED_CONSOLES = 4
+# phase 31's shapes: (label, rows, channels, signal length, taps)
+CONV_CASES = (
+    ("console reverb", BATCH * CHAINS, 2, AUDIO_LEN, 30000),
+    ("filtered-noise reverb", BATCH * CHAINS, 2, AUDIO_LEN, 60000),
+    ("crossover FIR", BATCH * CHAINS, 2, 2 * AUDIO_LEN, 2000),
+)
+
+
+def median_s(fn, reps=5):
+    """Median host seconds of ``reps`` calls of ``fn``; its last result."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), out
+
+
+def rebind(params, G, method, **order_kwargs):
+    """``params`` of ``G`` (per-type rows bound to nodes by the beam
+    schedule, as ``fuse_parameters`` binds them) bound instead by
+    ``method``'s schedule, so that every node keeps its own values."""
+    src = _scheduled_type_rows(G, "beam")
+    dst = _scheduled_type_rows(G, method, **order_kwargs)
+    out = {}
+    for t, sub in params.items():
+        rows = {dst[n]: src[n] for n in G.nodes if G.nodes[n]["node_type"] == t}
+        idx = [rows[r] for r in range(len(rows))]
+        out[t] = tree_map(lambda a, idx=idx: a[torch.as_tensor(idx, device=a.device)], sub)
+    return out
+
+
+def stage_launches(plan):
+    """#1 and #2's launches in one request of a console plan: one a stage
+    of the pair composite and of the plain compressor."""
+    types = [s.node_type for s in plan.iter_list]
+    return {"ballistics_gain_pair_core": types.count(PAIR_TYPE),
+            "ballistics_gain_core": types.count("compressor")}
+
+
+def schedules_phase(smi, stats, device="cuda"):
+    """Phase 28: the exact console scheduled by ``"beam"``, ``"greedy"``,
+    ``"fixed"`` (the beam's own type sequence as ``fixed_order``) and
+    ``"one-by-one"``, with the host's set-up seconds (the native beam
+    search against the numpy one, both the same schedule), three eager
+    requests each, #1 and #2 once a stage of their types (one-by-one:
+    once a node; beam: once each), and each render against the beam
+    plan's, <= SCHEDULE_DB."""
+    check(native_available(), "the native scheduler did not build (g++)")
+    G, procs = bench_graph(CHAINS), bench_processors()
+    fuse_s, (G_f, procs_f) = median_s(lambda: fuse_serial_lti(
+        G, procs, kinds=("fir", "iir", "dynamics"), dynamics_pad="auto"))
+    params = create_empty_parameters(procs, G, generator=torch.Generator().manual_seed(0))
+    migrate_s, params_f = median_s(lambda: fuse_parameters(params, G, G_f, procs_f))
+    params_f = tree_map(lambda a: a.to(device), params_f)
+    for p in procs_f.values():
+        p.to(device)
+    beam_s = {}
+    for label, graph in (("unfused", G), ("fused", G_f)):
+        G_t = convert_to_tensor(graph)
+        native_s, native = median_s(lambda: beam_search(G_t, use_native=True))
+        numpy_s, numpy_ = median_s(lambda: beam_search(G_t, use_native=False))
+        check(all(np.array_equal(a, b) for a, b in zip(native, numpy_)),
+              f"schedules: native and numpy beam searches differ on the {label} console")
+        beam_s[label] = {"nodes": G_t.num_nodes, "native_s": f"{native_s:.6f}", "numpy_s": f"{numpy_s:.6f}"}
+    say("schedules", native_available=True, fuse_s=f"{fuse_s:.4f}", fuse_parameters_s=f"{migrate_s:.4f}",
+        beam_search=beam_s)
+    beam_seq, _ = compute_render_order(convert_to_tensor(G_f), method="beam")
+    requests = [torch.randn(BATCH, CHAINS, 2, AUDIO_LEN, generator=torch.Generator(device=device).manual_seed(s),
+                            device=device) for s in (1, 2, 3)]
+    ref = None
+    results = {}
+    for method, kw in (("beam", {}), ("greedy", {}), ("fixed", {"fixed_order": beam_seq}), ("one-by-one", {})):
+        convert_s, G_t = median_s(lambda: convert_to_tensor(G_f))
+        schedule_s, G_t = median_s(lambda: reorder_for_fast_render(G_t, method=method, **kw))
+        prepare_s, plan = median_s(lambda: prepare_render(G_t))
+        p = params_f if method == "beam" else rebind(params_f, G_f, method, **kw)
+        render = make_render_fn(procs_f, plan, jit=False)
+        path = "request_" + method.replace("-", "_")
+        expected = stage_launches(plan)
+        if method == "beam":
+            check(expected == SERVE_REQUEST, f"schedules: beam launches {expected}, not {SERVE_REQUEST}")
+        elif method == "one-by-one":
+            nodes = [G_f.nodes[n]["node_type"] for n in G_f.nodes]
+            check(expected == {"ballistics_gain_pair_core": nodes.count(PAIR_TYPE),
+                               "ballistics_gain_core": nodes.count("compressor")},
+                  f"schedules: one-by-one plan has stages {expected}, not one a node")
+        bal.reset_launch_counts()
+        request_ms, outs = [], []
+        with torch.inference_mode():
+            for x in requests:
+                ms, (y, _, _) = device_ms(lambda x=x: render(x, p), reps=1)
+                check(y.shape == (BATCH, 1, 2, AUDIO_LEN) and bool(torch.isfinite(y).all()),
+                      f"schedules: {method} output {tuple(y.shape)} not finite or of the wrong shape")
+                request_ms.append(ms)
+                outs.append(y)
+        launches = read_launches(path, len(requests), stats, SERVE_KERNELS, expected)
+        if ref is None:
+            ref = outs
+        err_db = max(db(y - r, r) for y, r in zip(outs, ref)) if method != "beam" else None
+        if err_db is not None:
+            check(err_db <= SCHEDULE_DB, f"schedules: {method} render vs beam at {err_db:.1f} dB > {SCHEDULE_DB}")
+        results[method] = statistics.median(request_ms)
+        say("schedules", method=method, stages=plan.max_order + 1, convert_s=f"{convert_s:.5f}",
+            schedule_s=f"{schedule_s:.5f}", prepare_s=f"{prepare_s:.5f}",
+            request_ms=[round(t, 3) for t in request_ms], median_ms=f"{results[method]:.3f}",
+            vs_beam_db="reference" if err_db is None else f"{err_db:.1f}", launches=launches,
+            card=repr(smi))
+        del outs
+    say("schedules", one_by_one_over_beam=f"{results['one-by-one'] / results['beam']:.2f}")
+
+
+def array_buffer_phase(smi, stats, device="cuda"):
+    """Phase 29: the beam plan rendered with ``buffer_mode="array"``, eager
+    and compiled, against ``"stages"`` (within COMPILED_REL of max|y|; the
+    capture launches one eager request's); then a gradient step of
+    ``GraphParameterOptimizer(method="one-by-one")`` against the beam
+    trainer's on the same parameters and inputs (the loss and every
+    gradient <= STEP_DB), and its second step captured (one eager
+    one-by-one step's launches) against the beam trainer's second."""
+    console = bench_console(CHAINS, seed=0, device=device)
+    stages = make_render_fn(console.fused_processors, console.plan, jit=False)
+    eager = make_render_fn(console.fused_processors, console.plan, jit=False, buffer_mode="array")
+    compiled = make_render_fn(console.fused_processors, console.plan, buffer_mode="array")
+    x = torch.randn(BATCH, CHAINS, 2, AUDIO_LEN, generator=torch.Generator(device=device).manual_seed(1),
+                    device=device)
+    params = console.params
+    with torch.inference_mode():
+        ref = stages(x, params)[0]
+        y_eager, _, buf = eager(x, params)
+        check(buf.shape == (BATCH, console.plan.num_buffers, 2, AUDIO_LEN),
+              f"array buffer of shape {tuple(buf.shape)}")
+        del buf
+        compiled(x, params)  # warm-up: eager, on a side stream
+        (y_compiled, _, _), call_s, reserved, captured = capturing_call(
+            lambda: compiled(x, params), "array buffer", eager_run(stats, "request"), stats,
+            "request_array_compiled")
+        errs = [check_compiled(f"array buffer {label}", y, ref)
+                for label, y in (("eager", y_eager), ("compiled", y_compiled))]
+        eager_ms = call_ms(lambda: eager(x, params))
+        compiled_ms = call_ms(lambda: compiled(x, params))
+        peak = peak_gib(lambda: eager(x, params))
+    say("array_buffer", **ms_fields(eager_ms, compiled_ms), eager_vs_stages_rel=f"{errs[0][0]:.3g}",
+        compiled_vs_stages_rel=f"{errs[1][0]:.3g}", captured_launches=captured,
+        capture_s=f"{compiled.capture_seconds[-1]:.3f}", eager_peak_gib=f"{peak:.3f}", card=repr(smi))
+    del console, stages, eager, compiled, x, ref, y_eager, y_compiled
+
+    g = torch.Generator(device=device).manual_seed(7)
+    x = console_input((BATCH, CHAINS, 2, AUDIO_LEN), g, device)
+    target = torch.randn(BATCH, 1, 2, AUDIO_LEN, generator=g, device=device)
+    beam = bench_trainer(CHAINS, seed=0, device=device, jit=False)
+    one = GraphParameterOptimizer(bench_graph(CHAINS), bench_processors(), loss_fn=mse_loss,
+                                  optimizer=lambda ps: torch.optim.SGD(ps, lr=1e-3),
+                                  generator=torch.Generator().manual_seed(0), fuse="pad-auto",
+                                  device=device, method="one-by-one")
+    with torch.no_grad():
+        for (_, a), (_, b) in zip(tree_items(one.params), tree_items(rebind(beam.params, one.G, "one-by-one"))):
+            a.copy_(b)
+    nodes = [one.G.nodes[n]["node_type"] for n in one.G.nodes]
+    per_node = {"ballistics_gain_pair_fwd": nodes.count(PAIR_TYPE), "ballistics_gain_pair_bwd": nodes.count(PAIR_TYPE),
+                "ballistics_gain_fwd": nodes.count("compressor"), "ballistics_gain_bwd": nodes.count("compressor")}
+    bal.reset_launch_counts()
+    ms, (_, loss_one) = device_ms(lambda: one.step(x, target), reps=1)  # eager, on a side stream
+    launches = read_launches("step_one_by_one", 1, stats, TRAIN_KERNELS, per_node)
+    _, loss_beam = beam.step(x, target)
+    grads = {}
+    for name, trainer in (("beam", beam), ("one", one)):
+        tree = tree_map(lambda q: torch.zeros_like(q) if q.grad is None else q.grad.detach().clone(),
+                        trainer.params)
+        grads[name] = tree if name == "one" else rebind(tree, one.G, "one-by-one")
+    loss_db = db((loss_one - loss_beam).double(), loss_beam.double())
+    leaf_db, zero = {}, 0
+    for (k, a), (_, b) in zip(tree_items(grads["one"]), tree_items(grads["beam"])):
+        if bool((b != 0).any()):
+            leaf_db[k] = db(a - b, b)
+        else:
+            check(bool((a == 0).all()), f"one-by-one step: gradient of {k} nonzero where the beam step's is zero")
+            zero += 1
+    check(loss_db <= STEP_DB, f"one-by-one step: loss vs beam at {loss_db:.1f} dB > {STEP_DB}")
+    worst = max(leaf_db, key=leaf_db.get)
+    check(leaf_db[worst] <= STEP_DB,
+          f"one-by-one step: gradient of {worst} vs beam at {leaf_db[worst]:.1f} dB > {STEP_DB}")
+    (_, loss_one2), call_s, reserved, captured = capturing_call(
+        lambda: one.step(x, target), "one-by-one step", eager_run(stats, "step_one_by_one"), stats,
+        "step_one_by_one_compiled")
+    _, loss_beam2 = beam.step(x, target)
+    loss2_db = db((loss_one2 - loss_beam2).double(), loss_beam2.double())
+    check(loss2_db <= STEP_DB, f"one-by-one captured step: loss vs beam at {loss2_db:.1f} dB > {STEP_DB}")
+    compiled_ms = call_ms(lambda: one.step(x, target), calls=3)
+    beam_ms = call_ms(lambda: beam.step(x, target), calls=3)
+    say("one_by_one_step", eager_first_step_ms=f"{ms:.3f}", loss_db=f"{loss_db:.1f}",
+        worst_leaf_db=f"{leaf_db[worst]:.1f}", worst_leaf=worst, leaves=len(leaf_db), zero_leaves=zero,
+        second_step_loss_db=f"{loss2_db:.1f}", launches=launches, captured_launches=captured,
+        capture_s=f"{one._update.capture_seconds[-1]:.3f}", compiled_ms=[round(t, 3) for t in compiled_ms],
+        beam_eager_ms=[round(t, 3) for t in beam_ms], card=repr(smi))
+
+
+def batched_parameters(params, graphs, GB):
+    """Per-type parameters of ``batch_grafx(graphs)`` (bound by its beam
+    schedule) from each graph's ``params[i]`` (bound by that graph's)."""
+    rows_b = _scheduled_type_rows(GB, "beam")
+    rows = [_scheduled_type_rows(G, "beam") for G in graphs]
+    offsets = [sum(G.number_of_nodes() for G in graphs[:i]) for i in range(len(graphs))]
+    out = {}
+    for t in params[0]:
+        picks = sorted((rows_b[n + offsets[i]], i, rows[i][n]) for i, G in enumerate(graphs)
+                       for n in G.nodes if G.nodes[n]["node_type"] == t)
+        out[t] = tree_map(lambda *leaves: torch.stack([leaves[i][r] for _, i, r in picks]),
+                          *[p[t] for p in params])
+    return out
+
+
+def batched_phase(smi, stats, device="cuda"):
+    """Phase 30: ``batch_grafx`` of BATCHED_CONSOLES exact consoles, each
+    with parameters from its own seed, fused and rendered as one graph
+    from a 3-dim input (one source a row) against each console rendered
+    alone (<= SCHEDULE_DB), #1 and #2 once each, with the native and numpy
+    beam searches' seconds on the batched graph."""
+    G0 = bench_graph(CHAINS)
+    graphs = [G0.copy() for _ in range(BATCHED_CONSOLES)]
+    batch_s, GB = median_s(lambda: batch_grafx(graphs))
+    check(GB.batch and GB.counter == [G0.number_of_nodes() * (i + 1) for i in range(BATCHED_CONSOLES)],
+          f"batch_grafx: counter {GB.counter}")
+    procs = bench_processors()
+    kw = dict(kinds=("fir", "iir", "dynamics"), dynamics_pad="auto")
+    GB_f, procs_bf = fuse_serial_lti(GB, procs, **kw)
+    G1_f, procs_1f = fuse_serial_lti(G0, procs, **kw)
+    params = [create_empty_parameters(procs, G, std=0.1, generator=torch.Generator().manual_seed(30 + i))
+              for i, G in enumerate(graphs)]
+    beam_s = {}
+    for label, graph in (("unfused", GB), ("fused", GB_f)):
+        G_t = convert_to_tensor(graph)
+        native_s, native = median_s(lambda: beam_search(G_t, use_native=True))
+        numpy_s, numpy_ = median_s(lambda: beam_search(G_t, use_native=False))
+        check(all(np.array_equal(a, b) for a, b in zip(native, numpy_)),
+              f"batched: native and numpy beam searches differ on the {label} graph")
+        beam_s[label] = {"nodes": G_t.num_nodes, "native_s": f"{native_s:.6f}", "numpy_s": f"{numpy_s:.6f}"}
+    plan_b = prepare_render(reorder_for_fast_render(convert_to_tensor(GB_f), method="beam"))
+    plan_1 = prepare_render(reorder_for_fast_render(convert_to_tensor(G1_f), method="beam"))
+    params_b = tree_map(lambda a: a.to(device),
+                        fuse_parameters(batched_parameters(params, graphs, GB), GB, GB_f, procs_bf))
+    for p in (*procs_bf.values(), *procs_1f.values()):
+        p.to(device)
+    x = torch.randn(BATCHED_CONSOLES * CHAINS, 2, AUDIO_LEN, device=device,
+                    generator=torch.Generator(device=device).manual_seed(30))
+    render_b = make_render_fn(procs_bf, plan_b, jit=False)
+    render_1 = make_render_fn(procs_1f, plan_1, jit=False)
+    with torch.inference_mode():
+        bal.reset_launch_counts()
+        batched_ms, (y, _, _) = device_ms(lambda: render_b(x, params_b), reps=1)
+        launches = read_launches("request_batched", 1, stats, SERVE_KERNELS, SERVE_REQUEST)
+        check(y.shape == (BATCHED_CONSOLES, 2, AUDIO_LEN), f"batched: output shape {tuple(y.shape)}")
+        alone_ms, errs = [], []
+        for i in range(BATCHED_CONSOLES):
+            p_i = tree_map(lambda a: a.to(device), fuse_parameters(params[i], graphs[i], G1_f, procs_1f))
+            ms, (y_i, _, _) = device_ms(lambda: render_1(x[i * CHAINS:(i + 1) * CHAINS], p_i), reps=1)
+            alone_ms.append(ms)
+            errs.append(db(y[i] - y_i[0], y_i[0]))
+    worst = max(errs)
+    check(bool(torch.isfinite(y).all()), "batched: non-finite output")
+    check(worst <= SCHEDULE_DB, f"batched: a console vs its render alone at {worst:.1f} dB > {SCHEDULE_DB}")
+    spread = max(rel_err(y[i], y[0]) for i in range(1, BATCHED_CONSOLES))
+    check(spread > 1e-3, "batched: the consoles' parameter seeds rendered the same")
+    say("batched", graphs=BATCHED_CONSOLES, nodes=GB.number_of_nodes(), fused_nodes=GB_f.number_of_nodes(),
+        batch_grafx_s=f"{batch_s:.5f}", beam_search=beam_s, stages=plan_b.max_order + 1,
+        batched_ms=f"{batched_ms:.3f}", alone_ms=[round(t, 3) for t in alone_ms],
+        vs_alone_db=[round(e, 1) for e in errs], launches=launches, card=repr(smi))
+
+
+def conv_forms_phase(smi, device="cuda"):
+    """Phase 31: ``fft_convolve`` (one full-length FFT, the port's
+    default) against ``fft_convolve_os`` and ``fft_convolve_upols`` at
+    CONV_CASES, the forms within CONV_DB of one another, each timed by
+    ``profiling.device_time_ms`` (the sum of its device ops, within 0.5-1.1
+    of the CUDA-event time of this work on one stream) and by CUDA events,
+    beside the form ``grafx_tpu`` would pick there
+    (``_auto_os_block``, tuned on the TPU); ``FIRFilter(overlap_save=True)``
+    against ``overlap_save=False``."""
+    gen = torch.Generator(device=device).manual_seed(31)
+    for label, rows, channels, length, taps in CONV_CASES:
+        x = torch.randn(rows, channels, length, generator=gen, device=device)
+        h = torch.randn(rows, channels, taps, generator=gen, device=device) / taps ** 0.5
+        pick = _auto_os_block(length, taps, 0)
+        forms = {"one_shot": lambda: fft_convolve(x, h, mode="causal"),
+                 "os": lambda: fft_convolve_os(x, h, mode="causal"),
+                 "upols": lambda: fft_convolve_upols(x, h, mode="causal")}
+        if pick is not None and pick[0] == "os":
+            forms["os_reference_block"] = lambda: fft_convolve_os(x, h, mode="causal", block=pick[1])
+        fields, outs = {}, {}
+        with torch.inference_mode():
+            for name, fn in forms.items():
+                outs[name] = fn()  # warm-up: cuFFT plans
+                summed = profiling.device_time_ms(fn)
+                ms = device_ms(fn, reps=5)[0]
+                # one stream: the call's device ops fit in its CUDA-event span
+                check(0.5 * ms <= summed <= 1.1 * ms,
+                      f"conv_forms: {label} {name}: device_time_ms {summed:.3f} against {ms:.3f} ms")
+                fields[name] = {"ms": f"{ms:.3f}", "device_time_ms": f"{summed:.3f}"}
+        ref = outs["one_shot"]
+        for name, y in outs.items():
+            check(bool(torch.isfinite(y).all()), f"conv_forms: {label} {name} non-finite")
+            if name != "one_shot":
+                err = db(y - ref, ref)
+                check(err <= CONV_DB, f"conv_forms: {label} {name} vs one-shot at {err:.1f} dB > {CONV_DB}")
+                fields[name]["vs_one_shot_db"] = f"{err:.1f}"
+        say("conv_forms", case=label, shape=(rows, channels, length), taps=taps,
+            reference_pick="one_shot" if pick is None else list(pick), forms=fields, card=repr(smi))
+        del x, h, outs, ref
+    x = torch.randn(BATCH * CHAINS, 2, AUDIO_LEN, generator=gen, device=device)
+    fir = 0.1 * torch.randn(BATCH * CHAINS, 1, 1023, generator=gen, device=device)
+    with torch.inference_mode():
+        ys = {flag: FIRFilter(overlap_save=flag)(x, fir) for flag in (False, True)}
+        ms = {flag: device_ms(lambda flag=flag: FIRFilter(overlap_save=flag)(x, fir), reps=5)[0]
+              for flag in (False, True)}
+    err = db(ys[True] - ys[False], ys[False])
+    check(err <= CONV_DB, f"conv_forms: FIRFilter(overlap_save=True) vs False at {err:.1f} dB > {CONV_DB}")
+    say("conv_forms", case="FIRFilter(fir_len=1023)", shape=tuple(x.shape), overlap_save_db=f"{err:.1f}",
+        one_shot_ms=f"{ms[False]:.3f}", overlap_save_ms=f"{ms[True]:.3f}", card=repr(smi))
+
+
+def device_time_cross_check(smi, device="cuda"):
+    """Phase 31's last line: ``profiling.device_time_ms`` (a sum of the
+    device ops' durations) against this script's ``device_busy_ms`` (the
+    union of their intervals) on two replays of the compiled request.  On
+    one replay the sum is never below the union; across two it may be by
+    their spread, so the gate is 0.95 of it."""
+    console = bench_console(CHAINS, seed=0, device=device)
+    compiled = make_render_fn(console.fused_processors, console.plan)
+    x = torch.randn(BATCH, CHAINS, 2, AUDIO_LEN, generator=torch.Generator(device=device).manual_seed(1),
+                    device=device)
+    with torch.inference_mode():
+        for _ in range(3):  # warm-up, capture, a replay
+            compiled(x, console.params)
+        summed = profiling.device_time_ms(lambda: compiled(x, console.params))
+        union = device_busy_ms(lambda: compiled(x, console.params), reps=1)
+    check(summed >= 0.95 * union, f"device_time_ms {summed:.3f} below 0.95 of the busy union {union:.3f}")
+    say("device_time", path="request_compiled", device_time_ms_sum=f"{summed:.3f}",
+        device_busy_ms_union=f"{union:.3f}", sum_over_union=f"{summed / union:.3f}", card=repr(smi))
+
+
 def kernel_row(name, source, replaces, stats):
     """The kernel's entry of the ``{"kernels": [...]}`` line."""
     s = stats[name]
@@ -2399,6 +2790,16 @@ def main():
     phases_at = time.perf_counter()
     library_phase(smi)
     say("library", phase_27_s=f"{time.perf_counter() - phases_at:.1f}")
+
+    # 28-31. the rest of the render engine: schedules, the array buffer and
+    # the one-by-one step, batched graphs, the convolution forms
+    phases_at = time.perf_counter()
+    schedules_phase(smi, stats)
+    array_buffer_phase(smi, stats)
+    batched_phase(smi, stats)
+    conv_forms_phase(smi)
+    device_time_cross_check(smi)
+    say("engine", phases_28_31_s=f"{time.perf_counter() - phases_at:.1f}")
 
     for name in KERNELS:
         check(name in NO_PATH or "launches" in stats[name], f"{name} ran on no path")

@@ -1,5 +1,6 @@
-"""Graph data layer: mutable graphs, tensor form, conversion."""
+"""Graph data layer: mutable graphs, tensor form, conversion, batching."""
 
+from grafx_tpu_torch.data.batch import batch_grafx
 from grafx_tpu_torch.data.configs import UTILITY_TYPES, NodeConfigs
 from grafx_tpu_torch.data.conversion import convert_to_tensor
 from grafx_tpu_torch.data.graph import GRAFX
@@ -10,5 +11,6 @@ __all__ = [
     "GRAFXTensor",
     "NodeConfigs",
     "UTILITY_TYPES",
+    "batch_grafx",
     "convert_to_tensor",
 ]

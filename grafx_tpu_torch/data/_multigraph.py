@@ -81,6 +81,17 @@ class MultiDiGraph:
     def __contains__(self, n):
         return n in self._node
 
+    def copy(self):
+        """A copy with its own graph, node and edge attribute dicts (their
+        values shared), as ``networkx``'s ``G.copy()``."""
+        H = self.__class__()
+        H.graph.update(self.graph)
+        for n, d in self._node.items():
+            H.add_node(n, **d)
+        for u, v, k, d in self.edges(data=True, keys=True):
+            H.add_edge(u, v, key=k, **d)
+        return H
+
     # -- edges ---------------------------------------------------------
 
     def add_edge(self, u, v, key=None, **attr):
@@ -149,6 +160,52 @@ class MultiDiGraph:
 
     def in_degree(self, n):
         return sum(len(kd) for kd in self._pred[n].values())
+
+
+def union_all(graphs):
+    """The union of graphs whose node sets are disjoint, as
+    ``networkx.union_all``: a graph of the first one's class, holding
+    every node and edge (keys kept) with its attributes, and the graph
+    attributes of each in turn (a later graph's value wins)."""
+    R, seen = None, set()
+    for i, G in enumerate(graphs):
+        nodes = set(G.nodes)
+        if i == 0:
+            R = G.__class__()
+        elif not seen.isdisjoint(nodes):
+            raise ValueError("The node sets of the graphs are not disjoint.")
+        seen |= nodes
+        R.graph.update(G.graph)
+        for n, d in G.nodes(data=True):
+            R.add_node(n, **d)
+        for u, v, k, d in G.edges(data=True, keys=True):
+            R.add_edge(u, v, key=k, **d)
+    if R is None:
+        raise ValueError("cannot apply union_all to an empty list")
+    return R
+
+
+def topological_sort(G):
+    """The nodes of a DAG in ``networkx.topological_sort``'s order:
+    generation by generation (Kahn's algorithm), each generation in the
+    order its nodes became ready, successors visited in insertion order.
+    Raises ``ValueError`` on a cycle."""
+    indegree = {v: G.in_degree(v) for v in G.nodes if G.in_degree(v) > 0}
+    generation = [v for v in G.nodes if G.in_degree(v) == 0]
+    order = []
+    while generation:
+        order += generation
+        ready = []
+        for node in generation:
+            for child, keydict in G._succ[node].items():
+                indegree[child] -= len(keydict)
+                if indegree[child] == 0:
+                    ready.append(child)
+                    del indegree[child]
+        generation = ready
+    if indegree:
+        raise ValueError("Graph contains a cycle")
+    return order
 
 
 def relabel_nodes(G, mapping):

@@ -1,11 +1,14 @@
 """FFT-based convolution on ``torch.fft``.
 
-The port of :func:`grafx_tpu.ops.fftconv.fft_convolve` and
-:class:`~grafx_tpu.ops.fftconv.FIRConvolution`.  The JAX package splits
-long convolutions into overlap-save or partitioned blocks because long
-1-D FFTs are slow on the TPU; here every convolution is one full-length
-FFT.  Both compute the same linear convolution, so the results agree to
-float32 round-off (the tests state the bound).
+The port of :mod:`grafx_tpu.ops.fftconv`.  The JAX package's
+:func:`fft_convolve` splits long convolutions into overlap-save or
+partitioned blocks (``_auto_os_block``) because long 1-D FFTs are slow on
+the TPU; here :func:`fft_convolve` is always one full-length FFT, and the
+blocked forms are their own functions: :func:`fft_convolve_os`
+(overlap-save) and :func:`fft_convolve_upols` (uniformly partitioned
+overlap-save), which ``FIRConvolution(overlap_save=True)`` and callers
+may pick.  All compute the same linear convolution, so the results agree
+to float32 round-off (the tests state the bound).
 
 Streaming (:func:`conv_stream_init` / :func:`conv_stream_apply`) carries
 a short filter's overlap-add tail, and a long filter's frequency-domain
@@ -17,11 +20,43 @@ import torch
 import torch.nn.functional as F
 
 _UPOLS_PART = 1 << 13  # the largest streaming partition (FFT size 2^14)
+# grafx_tpu's blocking rule (its AUTO_OS dispatch, tuned on the TPU):
+# FFT lengths above _AUTO_OS_LONG_FFT are blocked, never below
+# _AUTO_OS_MIN_NFFT points a block
+_AUTO_OS_LONG_FFT = 1 << 17
+_AUTO_OS_MIN_NFFT = 1 << 14
 
 
 def next_pow2(n: int) -> int:
     """Smallest power of two >= n."""
     return 1 << (int(n) - 1).bit_length()
+
+
+def _auto_os_block(x_len: int, h_len: int, shift: int):
+    """``grafx_tpu``'s blocked-convolution decision for these lengths:
+    ``None`` (one full-length FFT), ``("os", block)`` or ``("upols",
+    part)``.  The port's :func:`fft_convolve` does not follow it; it says
+    which form the reference would run (``chip_smoke.py`` times all three)."""
+    span = h_len + shift  # filter history + zero-phase lookahead
+    if next_pow2(x_len + span - 1) <= _AUTO_OS_LONG_FFT:
+        return None
+    if next_pow2(span) > _UPOLS_PART:
+        return ("upols", _UPOLS_PART)
+    nfft = max(2 * next_pow2(span), _AUTO_OS_MIN_NFFT)
+    block = nfft - (span - 1)  # the largest alias-free hop (not a power of two)
+    if -(-x_len // block) < 2:
+        return None
+    return ("os", block)
+
+
+def _shift(mode, h_len, name):
+    if isinstance(mode, tuple) and mode[0] == "shift":
+        return int(mode[1])
+    if mode == "causal":
+        return 0
+    if mode == "zerophase":
+        return h_len // 2
+    raise ValueError(f"Unsupported {name} mode: {mode}")
 
 
 def compute_pad_len(x_len: int, h_len: int, pad_mode: str = "pow2") -> int:
@@ -72,16 +107,90 @@ def fft_convolve(x, h, mode="zerophase", pad_mode="pow2"):
 
 class FIRConvolution:
     """A stateless FIR convolution mirroring the reference API
-    (reference: core/convolution.py:17-106)."""
+    (reference: core/convolution.py:17-106).  ``overlap_save`` routes a
+    causal convolution to :func:`fft_convolve_os`; the reference's
+    ``flashfftconv`` / ``max_input_len`` are accepted and ignored, as in
+    ``grafx_tpu``."""
 
-    def __init__(self, mode="causal", pad_mode="pow2"):
+    def __init__(self, mode="causal", pad_mode="pow2", overlap_save=False,
+                 **_ignored_backend_kwargs):
         if mode not in ("causal", "zerophase"):
             raise ValueError(f"Unsupported convolution mode: {mode}")
         self.mode = mode
         self.pad_mode = pad_mode
+        self.overlap_save = overlap_save
 
     def __call__(self, input_signals, fir):
+        if self.overlap_save and self.mode == "causal":
+            return fft_convolve_os(input_signals, fir)
         return fft_convolve(input_signals, fir, mode=self.mode, pad_mode=self.pad_mode)
+
+
+def fft_convolve_os(x, h, mode="causal", block=None):
+    """Overlap-save blocked FFT convolution, cropped to ``L_x``: many
+    transforms of ``next_pow2(block + L_h - 1 + shift)`` points in place
+    of one long one; the same linear convolution as :func:`fft_convolve`.
+
+    Args:
+        x: ``(..., L_x)``; h: ``(..., L_h)`` (leading dims broadcast).
+        mode: ``"causal"``, ``"zerophase"`` or ``("shift", s)``.
+        block: output hop per block (any length: the FFT length confines
+            the circular wrap-around to each block's discarded leading
+            samples); default ``max(next_pow2(L_h), 4096)``.
+    """
+    L, Lh = x.shape[-1], h.shape[-1]
+    shift = _shift(mode, Lh, "overlap-save")
+    if block is None:
+        block = max(next_pow2(Lh), 4096)
+    nfft = next_pow2(block + Lh - 1 + shift)
+    nb = -(-L // block)
+    pad_tail = nb * block - L + shift + (nfft - block - Lh + 1)
+    xp = F.pad(x, (Lh - 1, pad_tail))
+    # block k reads xp[k * block : k * block + nfft]: a strided view
+    segs = xp.unfold(-1, nfft, block)[..., :nb, :]  # (..., nb, nfft)
+    X = torch.fft.rfft(segs, n=nfft)
+    H = torch.fft.rfft(h, n=nfft)[..., None, :]
+    start = Lh - 1 + shift
+    y = torch.fft.irfft(X * H, n=nfft)[..., start : start + block]
+    # leading dims broadcast between x and h: flatten on the broadcast shape
+    return y.reshape(y.shape[:-2] + (nb * block,))[..., :L]
+
+
+def fft_convolve_upols(x, h, mode="causal", part=8192):
+    """Uniformly partitioned overlap-save (UPOLS): the filter in ``m``
+    chunks of ``part`` taps, the signal in hops of ``part`` (transforms
+    of ``2 * part`` points whatever ``L_h`` is); output segment ``k`` is
+    ``irfft(sum_j X[k - j] H[j])``.  The same linear convolution as
+    :func:`fft_convolve`.
+
+    Args:
+        x: ``(..., L_x)``; h: ``(..., L_h)`` (leading dims broadcast).
+        mode: ``"causal"``, ``"zerophase"`` or ``("shift", s)``.
+        part: chunk and hop length.
+
+    Returns:
+        ``(..., L_x)`` convolved signals.
+    """
+    L, Lh = x.shape[-1], h.shape[-1]
+    shift = _shift(mode, Lh, "UPOLS")
+    C, nfft = part, 2 * part
+    m = -(-Lh // C)
+    nb = -(-(L + shift) // C)
+    xp = F.pad(x, (C, nb * C - L))  # (nb + 1) * C samples
+    # segment k holds x[kC - C : kC + C]: two views of the hop grid
+    S = xp.reshape(xp.shape[:-1] + (nb + 1, C))
+    X = torch.fft.rfft(torch.cat([S[..., :-1, :], S[..., 1:, :]], dim=-1), n=nfft)
+    H = torch.fft.rfft(F.pad(h, (0, m * C - Lh)).reshape(h.shape[:-1] + (m, C)), n=nfft)
+    # Y[k] = sum_j X[k - j] H[j]; the segment axis padded in front, so
+    # that segments before the signal's start read zeros
+    Xp = F.pad(X, (0, 0, m - 1, 0))
+    Y = None
+    for j in range(m):
+        term = Xp[..., m - 1 - j : m - 1 - j + nb, :] * H[..., j : j + 1, :]
+        Y = term if Y is None else Y + term
+    y = torch.fft.irfft(Y, n=nfft)[..., C:]  # (..., nb, C): the valid halves
+    y = y.reshape(y.shape[:-2] + (nb * C,))
+    return y[..., shift : shift + L]
 
 
 def conv_stream_zero_tail(lead_shape, h_len, dtype=torch.float32, device=None):

@@ -33,7 +33,7 @@ class TruncatedOnePoleIIRFilter(nn.Module):
             alpha`` case with initial state 0.
     """
 
-    def __init__(self, iir_len=16384, exact=False):
+    def __init__(self, iir_len=16384, exact=False, **_ignored_backend_kwargs):
         super().__init__()
         self.iir_len = iir_len
         self.exact = exact

@@ -27,12 +27,12 @@ from grafx_tpu_torch.ops.ballistics import ballistics_gain_core
 from grafx_tpu_torch.processors.core.envelope import Ballistics, TruncatedOnePoleIIRFilter
 
 
-def _make_smoother(kind, iir_len):
+def _make_smoother(kind, iir_len, **backend_kwargs):
     match kind:
         case "iir":
-            return TruncatedOnePoleIIRFilter(iir_len=iir_len)
+            return TruncatedOnePoleIIRFilter(iir_len=iir_len, **backend_kwargs)
         case "iir_exact":
-            return TruncatedOnePoleIIRFilter(exact=True)
+            return TruncatedOnePoleIIRFilter(exact=True, **backend_kwargs)
         case "ballistics":
             return Ballistics()
         case None:
@@ -71,12 +71,13 @@ class Compressor(nn.Module):
         gain_smooth_in_log=False,
         knee="quadratic",
         iir_len=16384,
+        **backend_kwargs,
     ):
         super().__init__()
         self.energy_smoother = energy_smoother
-        self.energy_smoother_module = _make_smoother(energy_smoother, iir_len)
+        self.energy_smoother_module = _make_smoother(energy_smoother, iir_len, **backend_kwargs)
         self.gain_smoother = gain_smoother
-        self.gain_smoother_module = _make_smoother(gain_smoother, iir_len)
+        self.gain_smoother_module = _make_smoother(gain_smoother, iir_len, **backend_kwargs)
         if knee not in ("hard", "quadratic", "exponential"):
             raise ValueError(f"Unknown knee: {knee}")
         self.knee = knee
@@ -324,13 +325,13 @@ class FactorizedCompressor(Compressor):
     """
 
     def __init__(self, frame_len=1024, gain_smoother=None, gain_smooth_in_log=False,
-                 knee="quadratic", iir_len=16384):
+                 knee="quadratic", **backend_kwargs):
         super().__init__(
             energy_smoother="ballistics",
             gain_smoother=gain_smoother,
             gain_smooth_in_log=gain_smooth_in_log,
             knee=knee,
-            iir_len=iir_len,
+            **backend_kwargs,
         )
         self.frame_len = frame_len
         self.energy_smoother_module = _FrameSmoother(frame_len)
@@ -347,9 +348,9 @@ class ApproxCompressor(nn.Module):
     """Deprecated v0.5 compressor: IIR envelope + quadratic knee
     (reference: dynamics.py:8-120)."""
 
-    def __init__(self, iir_len=16384):
+    def __init__(self, iir_len=16384, **backend_kwargs):
         super().__init__()
-        self.env_follower = IIREnvelopeFollower(iir_len=iir_len)
+        self.env_follower = IIREnvelopeFollower(iir_len=iir_len, **backend_kwargs)
 
     def forward(self, input_signals, z_alpha, log_threshold, log_ratio, log_knee=None):
         log_energy = self.env_follower(input_signals, z_alpha)
@@ -363,9 +364,9 @@ class ApproxCompressor(nn.Module):
 class ApproxNoiseGate(nn.Module):
     """Deprecated v0.5 noise gate (reference: dynamics.py:123-210)."""
 
-    def __init__(self, freq_sample_n=16384):
+    def __init__(self, freq_sample_n=16384, **backend_kwargs):
         super().__init__()
-        self.env_follower = IIREnvelopeFollower(iir_len=freq_sample_n)
+        self.env_follower = IIREnvelopeFollower(iir_len=freq_sample_n, **backend_kwargs)
 
     def forward(self, input_signals, z_alpha, log_threshold, log_ratio, log_knee):
         log_energy = self.env_follower(input_signals, z_alpha)
@@ -423,8 +424,9 @@ class IIREnvelopeFollower(BaseEnvelopeFollower):
     """Envelope follower with truncated one-pole smoothing
     (reference: dynamics.py:773-779)."""
 
-    def __init__(self, detect_with="energy", iir_len=16384):
-        super().__init__(TruncatedOnePoleIIRFilter(iir_len=iir_len), detect_with=detect_with)
+    def __init__(self, detect_with="energy", iir_len=16384, **backend_kwargs):
+        super().__init__(TruncatedOnePoleIIRFilter(iir_len=iir_len, **backend_kwargs),
+                         detect_with=detect_with)
 
     def forward(self, signal, z_alpha):
         return super().forward(signal, z_alpha=z_alpha)

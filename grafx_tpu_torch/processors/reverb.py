@@ -83,6 +83,7 @@ class STFTMaskedNoiseReverb(nn.Module):
         hop_length=192,
         fixed_noise=True,
         gain_envelope=False,
+        **_ignored,
     ):
         super().__init__()
         if processor_channel not in ("mono", "stereo", "midside", "pseudo_midside"):
@@ -233,6 +234,7 @@ class FilteredNoiseShapingReverb(nn.Module):
         use_fade_in=False,
         min_decay_ms=50,
         max_decay_ms=2000,
+        **_ignored,
     ):
         super().__init__()
         self.num_bands = num_bands
@@ -381,7 +383,7 @@ class FeedbackDelayNetwork(nn.Module):
               3167, 3469, 3727, 4001]
 
     def __init__(self, ir_len=30000, num_delays=6, delay_lengths=None,
-                 processor_channel="stereo"):
+                 processor_channel="stereo", **_ignored):
         super().__init__()
         if delay_lengths is None:
             delay_lengths = self.PRIMES[:num_delays]

@@ -1,6 +1,14 @@
-"""Signal-row reads, fan-in aggregation and batch expansion for the
-render executor (the port of :mod:`grafx_tpu.render.core`, for the
-``"stages"`` buffer mode: there is no threaded signal buffer to write)."""
+"""Signal buffers, row reads and writes, fan-in aggregation and batch
+expansion for the render executor (the port of
+:mod:`grafx_tpu.render.core`).
+
+The ``"array"`` buffer is written out of place (``slice_scatter``,
+``index_copy``), as ``grafx_tpu``'s functional ``.at[].set``: a
+processor may keep a view of the rows it read for its backward pass, and
+an in-place write into the same tensor would make autograd refuse it or
+differentiate the wrong values.  A ``"one-by-one"`` plan keeps a Python
+list of per-node tensors, so node outputs may differ in length.
+"""
 
 import functools
 
@@ -24,6 +32,34 @@ def _index_tensor(idx, device):
     return _cached_index_tensor(idx, device)
 
 
+def _access_rows(access):
+    if access.method == "slice":
+        return list(range(access.idx[0], access.idx[1]))
+    return list(access.idx)
+
+
+def create_signal_buffer(method, num_buffers, input_signals):
+    """The signal buffer with the input rows filled (reference:
+    core.py:6-33): ``(num_buffers, C, L)`` for a 3-dim input, ``(B,
+    num_buffers, C, L)`` for a 4-dim one.
+
+    For ``"one-by-one"`` it is a list of ``num_buffers`` rows, each the
+    input row's ``(1, C, L)`` (``(B, 1, C, L)`` for a 4-dim input) or
+    ``None`` until a stage writes it.
+    """
+    ndim = input_signals.dim()
+    if ndim not in (3, 4):
+        raise ValueError(f"input_signals must be 3- or 4-dim, got {ndim}")
+    node_dim = ndim - 3
+    num_sources = input_signals.shape[node_dim]
+    if method == "one-by-one":
+        rows = list(input_signals.split(1, dim=node_dim))
+        return rows + [None] * (num_buffers - num_sources)
+    shape = list(input_signals.shape)
+    shape[node_dim] = num_buffers - num_sources
+    return torch.cat([input_signals, input_signals.new_zeros(shape)], dim=node_dim)
+
+
 def read_tensor(x, access, dim=0):
     """Read rows of a tensor along ``dim`` per a static access pattern."""
     if access.method == "slice":
@@ -42,8 +78,32 @@ def read_tensor_or_tensor_dict(x, access, dim=0, postprocess=None):
             k: read_tensor_or_tensor_dict(v, access, dim=dim, postprocess=postprocess)
             for k, v in x.items()
         }
+    if isinstance(x, list):  # one-by-one buffer
+        rows = [x[i] for i in _access_rows(access)]
+        return rows[0] if len(rows) == 1 else torch.cat(rows, dim=dim)
     y = read_tensor(x, access, dim=dim)
     return postprocess(y) if postprocess is not None else y
+
+
+def write_tensor(method, buf, y, access, dim=0):
+    """Write ``y`` into the buffer's rows ``access`` along ``dim``; returns
+    the new buffer (reference: core.py:68-84).  An array buffer is never
+    written in place (module docstring); a one-by-one list is, one entry
+    a row."""
+    if access.method == "none":
+        return buf  # e.g. MIMO "out" nodes own no buffer rows
+    if method == "one-by-one":
+        for p, r in enumerate(_access_rows(access)):
+            buf[r] = y.narrow(dim, p, 1)
+        return buf
+    if access.method not in ("slice", "index"):
+        raise ValueError(f"Unavailable write method: {access.method}")
+    rows = _access_rows(access)
+    # broadcast as .at[].set does (a mono outlet into a stereo buffer)
+    y = y.expand(buf.shape[:dim] + (len(rows),) + buf.shape[dim + 1 :])
+    if access.method == "slice":
+        return buf.slice_scatter(y, dim=dim, start=access.idx[0], end=access.idx[1])
+    return buf.index_copy(dim, _index_tensor(access.idx, buf.device), y)
 
 
 def aggregate_tensor(x, aggregation, dim=0):

@@ -523,11 +523,11 @@ def fuse_serial_lti(
     return G2, processors_fused
 
 
-def _padded_only_stage_nodes(G_fused, method="beam"):
+def _padded_only_stage_nodes(G_fused, method="beam", **order_kwargs):
     """Original-graph node ids whose padded composite stage holds NO
     genuine run (the ``dynamics_pad="auto"`` demotion criterion)."""
     fused_from = G_fused.graph.get("fused_from", {})
-    _, render_order = compute_render_order(G_fused, method=method)
+    _, render_order = compute_render_order(G_fused, method=method, **order_kwargs)
     stages = {}
     for n, order in zip(sorted(G_fused.nodes), render_order):
         t = G_fused.nodes[n]["node_type"]
@@ -542,10 +542,10 @@ def _padded_only_stage_nodes(G_fused, method="beam"):
     return demote
 
 
-def _scheduled_type_rows(G, method):
+def _scheduled_type_rows(G, method, **order_kwargs):
     """Within-type parameter row of every node of ``G`` under the
     scheduled (``reorder_for_fast_render``) node order."""
-    _, render_order = compute_render_order(G, method=method)
+    _, render_order = compute_render_order(G, method=method, **order_kwargs)
     new_id = np.asarray(node_id_from_render_order(render_order))
     nodes = sorted(G.nodes)  # convert_to_tensor's node enumeration
     rows = {}
@@ -558,7 +558,7 @@ def _scheduled_type_rows(G, method):
     return rows
 
 
-def fuse_parameters(params, G, G_fused, processors_fused, method="beam"):
+def fuse_parameters(params, G, G_fused, processors_fused, method="beam", **order_kwargs):
     """Migrate per-type parameters from ``G`` to its fused rewrite.
 
     Parameter rows bind to nodes by their within-type order in the
@@ -572,6 +572,9 @@ def fuse_parameters(params, G, G_fused, processors_fused, method="beam"):
         G: the original graph.
         G_fused, processors_fused: the output of :func:`fuse_serial_lti`.
         method: the scheduling method used with both graphs.
+        **order_kwargs: the scheduler's own arguments (a beam's
+            ``width``/``depth``, ``fixed_order``), as passed to
+            ``reorder_for_fast_render``.
     """
     fused_from = G_fused.graph.get("fused_from")
     if fused_from is None:
@@ -582,8 +585,8 @@ def fuse_parameters(params, G, G_fused, processors_fused, method="beam"):
             " returned by fuse_serial_lti."
         )
 
-    orig_row = _scheduled_type_rows(G, method)
-    fused_row = _scheduled_type_rows(G_fused, method)
+    orig_row = _scheduled_type_rows(G, method, **order_kwargs)
+    fused_row = _scheduled_type_rows(G_fused, method, **order_kwargs)
 
     def gather(tree, rows):
         return tree_map(lambda a: a[torch.as_tensor(rows, device=a.device)], tree)

@@ -1,13 +1,21 @@
 """The render executor: run a static render plan.
 
-The port of :mod:`grafx_tpu.render.graph` in its ``"stages"`` buffer
-mode: every stage's output stays its own tensor and reads resolve into
-them as slices (after ``reorder_for_fast_render`` most reads are one
-view, no copy).  Under ``jax.jit`` the assembled signal buffer is free
-when unused; eager torch would really build it (about 400 MB per request
-on the ``bench.py`` console), so it is assembled only on request.
-:func:`make_render_fn` compiles the render, as ``grafx_tpu``'s does:
-on the card it replays a CUDA graph (:mod:`.compiled`).
+The port of :mod:`grafx_tpu.render.graph`, with its three buffer modes:
+
+* ``"stages"``: every stage's output stays its own tensor and reads
+  resolve into them as slices (after ``reorder_for_fast_render`` most
+  reads are one view, no copy).  Under ``jax.jit`` the assembled signal
+  buffer is free when unused; eager torch would really build it (about
+  400 MB per request on the ``bench.py`` console), so it is assembled
+  only on request;
+* ``"array"``: one ``(.., num_buffers, C, L)`` buffer, written out of
+  place stage by stage as ``grafx_tpu``'s functional buffer is;
+* a ``"one-by-one"`` plan renders into a list of per-node tensors,
+  whatever mode is asked for, so a node may change its signal's length.
+
+:func:`make_render_fn` compiles the render, as ``grafx_tpu``'s does: on
+the card it replays a CUDA graph (:mod:`.compiled`); a one-by-one plan
+runs eagerly, as ``grafx_tpu`` skips ``jax.jit`` for it.
 """
 
 import torch
@@ -17,10 +25,13 @@ from grafx_tpu_torch.data.configs import UTILITY_TYPES
 from grafx_tpu_torch.processors.core.utils import accepts_noise_key
 from grafx_tpu_torch.render.compiled import CapturedFunction
 from grafx_tpu_torch.render.core import (
+    _access_rows,
     aggregate_tensor,
+    create_signal_buffer,
     expand_tensor_or_tensor_dict,
     flatten_batch_and_node,
     read_tensor_or_tensor_dict,
+    write_tensor,
 )
 
 
@@ -38,8 +49,9 @@ def _row_sources(render_data):
             if r in row_src:
                 raise ValueError(
                     f"Render plan writes buffer row {r} twice (stages"
-                    f" {row_src[r][0]} and {j}); the stages executor"
-                    " requires single-assignment rows."
+                    f" {row_src[r][0]} and {j}); 'stages' buffer mode"
+                    " requires single-assignment rows — use"
+                    " buffer_mode='array' for plans that reuse rows."
                 )
             row_src[r] = (j, p)
     return row_src
@@ -74,18 +86,15 @@ def _read_rows_from_stages(stage_outputs, rows, row_src, dim,
     return torch.cat(parts, dim=dim)
 
 
-def _access_rows(access):
-    if access.method == "slice":
-        return list(range(access.idx[0], access.idx[1]))
-    return list(access.idx)
-
-
 def render_grafx(
     processors,
     input_signals,
     per_type_parameters,
     render_data,
     common_parameters=None,
+    parameters_grad=True,
+    input_signal_grad=False,
+    buffer_mode="auto",
     rng=None,
     return_buffer=False,
 ):
@@ -107,18 +116,27 @@ def render_grafx(
             a ``noise_key`` gets ``fold_in(rng, i)``, as in ``grafx_tpu``:
             the same key renders the same noise, a new key new noise.
             Without it such processors draw their own default noise.
-        return_buffer: also assemble the ``(.., num_buffers, C, L)``
-            signal buffer (a full copy of every node's output).
+        parameters_grad, input_signal_grad: accepted and ignored, as in
+            ``grafx_tpu`` (autograd follows ``requires_grad``).
+        buffer_mode: ``"stages"``, ``"array"`` or ``"auto"`` (``"array"``
+            for a one-by-one plan, else ``"stages"``); a one-by-one plan
+            always renders into its list of rows (module docstring).
+            Outputs are the same in every mode.
+        return_buffer: in ``"stages"`` mode, also assemble the ``(..,
+            num_buffers, C, L)`` signal buffer (a full copy of every
+            node's output); the other modes return theirs always.
 
     Returns:
         ``(output_signals, intermediates_list, signal_buffer)``;
-        ``signal_buffer`` is ``None`` unless ``return_buffer``.
+        ``signal_buffer`` is ``None`` in ``"stages"`` mode unless
+        ``return_buffer``, and a list for a one-by-one plan.
     """
-    if render_data.method == "one-by-one":
-        raise NotImplementedError(
-            "one-by-one plans need the array-buffer executor, which is not"
-            " ported yet."
-        )
+    if buffer_mode not in ("auto", "stages", "array"):
+        raise ValueError(f"Unknown buffer_mode: {buffer_mode}")
+    method = render_data.method
+    if buffer_mode == "auto":
+        buffer_mode = "array" if method == "one-by-one" else "stages"
+    use_stages = buffer_mode == "stages" and method != "one-by-one"
     ndim = input_signals.dim()
     rng_types = (
         {t for t, p in processors.items() if accepts_noise_key(p)} if rng is not None else set()
@@ -163,8 +181,12 @@ def render_grafx(
             f" got {input_signals.shape[node_dim]}."
         )
 
-    row_src = _row_sources(render_data)
-    stage_outputs = [input_signals]
+    if use_stages:
+        row_src = _row_sources(render_data)
+        stage_outputs = [input_signals]
+        signal_buffer = None
+    else:
+        signal_buffer = create_signal_buffer(method, render_data.num_buffers, input_signals)
     intermediates_list = []
     output_signals = None
 
@@ -173,9 +195,12 @@ def render_grafx(
 
         stage_inputs = []
         for read, aggregate in zip(stage.source_reads, stage.aggregations):
-            sig = _read_rows_from_stages(
-                stage_outputs, _access_rows(read), row_src, node_dim
-            )
+            if use_stages:
+                sig = _read_rows_from_stages(
+                    stage_outputs, _access_rows(read), row_src, node_dim
+                )
+            else:
+                sig = read_tensor_or_tensor_dict(signal_buffer, read, dim=node_dim)
             sig = aggregate_tensor(sig, aggregate, dim=node_dim)
             if ndim == 4:
                 sig = flatten_batch_and_node(sig)
@@ -227,13 +252,17 @@ def render_grafx(
                 output_signals = stacked.reshape((-1,) + stacked.shape[-2:])
 
         if ndim == 4:
-            output_signals = output_signals.reshape(
-                (batch_size, -1, channels, audio_len)
+            # a one-by-one node may change the signal's length
+            frame = output_signals.shape[-2:] if method == "one-by-one" else (channels, audio_len)
+            output_signals = output_signals.reshape((batch_size, -1, *frame))
+        if use_stages:
+            stage_outputs.append(output_signals)
+        else:
+            signal_buffer = write_tensor(
+                method, signal_buffer, output_signals, stage.dest_write, dim=node_dim
             )
-        stage_outputs.append(output_signals)
 
-    signal_buffer = None
-    if return_buffer:
+    if use_stages and return_buffer:
         written = [r for r in range(render_data.num_buffers) if r in row_src]
         signal_buffer = _read_rows_from_stages(
             stage_outputs, written, row_src, node_dim, channel_broadcast=True
@@ -241,7 +270,7 @@ def render_grafx(
     return output_signals, intermediates_list, signal_buffer
 
 
-def make_render_fn(processors, render_data, jit=True):
+def make_render_fn(processors, render_data, jit=True, donate_buffer=False, buffer_mode="auto"):
     """Build a render closure over static (processors, plan) with
     signature ``f(input_signals, per_type_parameters,
     common_parameters=None, rng=None, return_buffer=False)`` (the
@@ -254,8 +283,13 @@ def make_render_fn(processors, render_data, jit=True):
     with the parameters, the common parameters and the key passed in, and
     returns fresh tensors: a replay with a new ``rng`` draws new noise.
     It refuses parameters that need autograd (pass ``jit=False`` to
-    differentiate through the render).  On the CPU both run the same
-    eager code.
+    differentiate through the render).  A one-by-one plan always runs
+    eagerly, as ``grafx_tpu`` skips ``jax.jit`` for it.  On the CPU both
+    run the same eager code.  ``buffer_mode`` is
+    :func:`render_grafx`'s; ``donate_buffer`` is accepted and unused, as
+    in ``grafx_tpu``.  Each call builds its own closure (``grafx_tpu``
+    shares closures between equal plans to share their compiled XLA
+    program; a capture here is made per closure).
     """
 
     def render_fn(input_signals, per_type_parameters, common_parameters=None, rng=None,
@@ -266,8 +300,11 @@ def make_render_fn(processors, render_data, jit=True):
             per_type_parameters,
             render_data,
             common_parameters=common_parameters,
+            buffer_mode=buffer_mode,
             rng=rng,
             return_buffer=return_buffer,
         )
 
-    return CapturedFunction(render_fn, name="make_render_fn(jit=True)") if jit else render_fn
+    if jit and render_data.method != "one-by-one":
+        return CapturedFunction(render_fn, name="make_render_fn(jit=True)")
+    return render_fn

@@ -8,8 +8,10 @@ from grafx_tpu_torch.render.order.graph import (
 from grafx_tpu_torch.render.order.tensor import (
     beam_search,
     compute_render_order_tensor,
+    fixed_order_search,
     greedy_search,
     node_id_from_render_order,
+    one_by_one_search,
     return_render_ordered_tensor,
 )
 
@@ -17,8 +19,10 @@ __all__ = [
     "beam_search",
     "compute_render_order",
     "compute_render_order_tensor",
+    "fixed_order_search",
     "greedy_search",
     "node_id_from_render_order",
+    "one_by_one_search",
     "reorder_for_fast_render",
     "return_render_ordered_graph",
     "return_render_ordered_tensor",

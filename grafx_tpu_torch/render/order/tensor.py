@@ -39,6 +39,10 @@ def compute_render_order_tensor(G_t, method="beam", **kwargs):
             return greedy_search(G_t, **kwargs)
         case "beam":
             return beam_search(G_t, **kwargs)
+        case "fixed":
+            return fixed_order_search(G_t, **kwargs)
+        case "one-by-one":
+            return one_by_one_search(G_t, **kwargs)
         case _:
             raise ValueError(f"Invalid rendering method: {method}.")
 
@@ -76,19 +80,30 @@ def greedy_search(G_t):
     return beam_search(G_t, width=1, depth=1)
 
 
-def beam_search(G_t, depth=1, width=64):
+def beam_search(G_t, depth=1, width=64, use_native=True):
     """Beam search over type sequences: at each step, expand each beam
     state by every candidate type, score by the number of visited nodes
     after ``depth`` lookahead expansions, and keep the top ``width`` unique
     states (reference: order/tensor.py:127-230).
 
-    The numpy search of ``grafx_tpu.render.order.tensor.beam_search``; the
-    native C++ scheduler is not ported yet.
+    With ``use_native`` the C++ search (:mod:`grafx_tpu_torch._native`,
+    built at first use) runs where it can be built; otherwise, and where
+    it fails (a cycle), this numpy search runs, which raises a
+    descriptive error for a cycle.  Both give the same schedule.
 
     Returns:
         ``(type_sequence, render_order)``: the stage type indices
         (including leading 0 / trailing 1) and each node's stage index.
     """
+    if use_native:
+        from grafx_tpu_torch._native import beam_search_native
+
+        result = beam_search_native(
+            np.asarray(G_t.node_types), np.asarray(G_t.edge_indices), width=width, depth=depth
+        )
+        if result is not None:
+            return result
+
     T = np.asarray(G_t.node_types)
     E = np.asarray(G_t.edge_indices)
     N = G_t.num_nodes
@@ -159,6 +174,75 @@ def beam_search(G_t, depth=1, width=64):
     render_order = render_order[final]
     render_order[T == 1] = i + 1
     return type_sequence, render_order
+
+
+def fixed_order_search(G_t, fixed_order):
+    """Schedule with a user-supplied type sequence: at each step, take the
+    next type in ``fixed_order`` that has ready nodes, and all of them
+    (reference: order/tensor.py:65-120).  ``fixed_order[0]`` stands for
+    the ``"in"`` stage and is skipped."""
+    T = np.asarray(G_t.node_types)
+    E = np.asarray(G_t.edge_indices)
+    N = G_t.num_nodes
+    source_ids, dest_ids = E[0], E[1]
+    in_degree = np.bincount(dest_ids, minlength=N)
+    types = _schedulable_types(T)
+    type_masks = T[None, :] == types[:, None]
+
+    render_order = np.where(T == 0, 0, -1)
+    type_sequence = [0]
+    visited = (T == 0) | (T == 1)
+
+    i, order_i = 0, 1
+    for _ in range(MAX_ITER):
+        new_per_type = _frontier_per_type(
+            visited[None, :], source_ids, dest_ids, in_degree, type_masks
+        )[0]
+        while True:
+            i += 1
+            if i >= len(fixed_order):
+                raise RuntimeError("fixed_order exhausted before covering graph")
+            t = fixed_order[i]
+            t_pos = int(np.where(types == t)[0][0])
+            new_nodes = new_per_type[t_pos]
+            if new_nodes.any():
+                visited = visited | new_nodes
+                type_sequence.append(int(t))
+                render_order[new_nodes] = order_i
+                order_i += 1
+                break
+        if visited.all():
+            break
+
+    type_sequence.append(1)
+    render_order[T == 1] = order_i
+    return np.array(type_sequence, dtype=np.int64), render_order
+
+
+def one_by_one_search(G_t):
+    """Degenerate schedule: one node per stage (after a single joint
+    ``in`` stage), derived from the greedy order
+    (reference: order/tensor.py:39-62)."""
+    g_types, g_order = greedy_search(G_t)
+    render_order = -np.ones(len(g_order), dtype=np.int64)
+    type_sequence = []
+    i, order = 0, 0
+    while True:
+        mask = g_order == order
+        if order == 0:
+            render_order[mask] = 0
+            type_sequence.append(0)
+            i += 1
+        else:
+            num = int(mask.sum())
+            if num == 0:
+                break
+            node_type = int(g_types[order])
+            render_order[mask] = np.arange(i, i + num)
+            i += num
+            type_sequence += [node_type] * num
+        order += 1
+    return np.array(type_sequence, dtype=np.int64), render_order
 
 
 def node_id_from_render_order(render_order):

@@ -85,12 +85,19 @@ def test_signal_buffer_only_on_request(slice_outputs):
 
 
 def test_import_leaves_jax_and_networkx_out():
+    """Every module of the package imports without jax, networkx or
+    grafx_tpu (and the drawing modules without matplotlib, which they
+    import when they draw), and so does a native schedule of a graph."""
     code = (
         "import pkgutil, sys, grafx_tpu_torch\n"
         "for m in pkgutil.walk_packages(grafx_tpu_torch.__path__, 'grafx_tpu_torch.'):\n"
         "    __import__(m.name)\n"
-        "assert 'grafx_tpu_torch.serving' in sys.modules\n"
-        "bad = [m for m in ('jax', 'networkx', 'grafx_tpu') if m in sys.modules]\n"
+        "new = ('serving', 'profiling', '_native', 'data.batch', 'draw.graph', 'draw.position')\n"
+        "assert all('grafx_tpu_torch.' + m in sys.modules for m in new)\n"
+        "from grafx_tpu_torch.models.console import bench_graph\n"
+        "from grafx_tpu_torch.render import reorder_for_fast_render\n"
+        "reorder_for_fast_render(bench_graph(3), method='one-by-one')\n"
+        "bad = [m for m in ('jax', 'networkx', 'grafx_tpu', 'matplotlib') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
