@@ -10,8 +10,9 @@ serve, train and stream the console with the filtered-noise reverb (on
 keys) and with the feedback delay network, hold each new processor
 class against the CPU at full width, render the console under every
 schedule (one-by-one included), into the array buffer and batched with
-``batch_grafx``, time the convolution forms, and check every
-hand-written kernel on the way.
+``batch_grafx``, time the convolution forms, render and train the
+console sharded over ``torch.distributed`` ranks, export and load the
+fsm console, and check every hand-written kernel on the way.
 
 Run from the root of the repository, on a machine with the card:
 
@@ -186,7 +187,27 @@ before the result line):
     each timed by ``profiling.device_time_ms`` and by CUDA events;
     ``FIRFilter(overlap_save=True)`` against ``False``; and
     ``profiling.device_time_ms`` (a sum) beside ``device_busy_ms`` (a
-    union) on the compiled request.
+    union) on the compiled request;
+32. parallel: ``grafx_tpu_torch.parallel`` over ``torch.distributed``,
+    each rank a process started here (``torch.multiprocessing``, a
+    FileStore in a temporary directory): (a) one rank a card over NCCL
+    (every card of the machine): three data-parallel steps of
+    ``bench_trainer(17)`` with its render through ``shard_render_step``,
+    the whole update captured, against the unsharded compiled step from
+    the same start (loss and every leaf within 1e-6 relative), the
+    capture launching #3-#6 once each and nothing else, ms a step beside
+    the unsharded step's and phase 13's; a captured sharded request
+    against phase 12's output; (b) NCCL's answer to two ranks on one card
+    (printed), then two ranks sharing the card over gloo, eager: which
+    collectives gloo takes on the card, a capture refused, the
+    data-parallel request and step (2 rows a rank), the node-sharded
+    request (3-dim, the fused stages' 17 chains split 9/8) and the
+    time-sharded request, renders within rtol 1e-5 / atol 1e-6 and
+    gradients within rtol 2e-4 / atol 1e-7 of one rank's on the card,
+    with each rank's launches and the rows it launched them on; then
+    phase 16 again on the fsm console (``bench_processors(backend=
+    "fsm")``), its loaded programs launching what phases 21 and 23's eager
+    runs launch.
 
 Phases 5-11 (and the eager runs of 21-26) run the eager paths
 (``jit=False``), whose launch counts count every run.  A replay runs
@@ -204,7 +225,10 @@ under ``launches_per_run`` (``request_compiled``, ``step_compiled``,
 ``request_fdn``, ``step_fdn`` and ``stream_block_fdn`` with each one's
 ``_compiled``; and phases 28-30's ``request_beam``, ``request_greedy``,
 ``request_fixed``, ``request_one_by_one``, ``request_array_compiled``,
-``step_one_by_one`` (eager) and ``_compiled``, ``request_batched``).
+``step_one_by_one`` (eager) and ``_compiled``, ``request_batched``; and
+phase 32's ``parallel_{step,request}_compiled_nccl_rank<r>``,
+``parallel_{data,node,time,step}_gloo_rank<r>``, ``load_render_fsm``,
+``load_stream_step_fsm`` and ``load_stream_step4_fsm``).
 
 The line before the last is ``{"kernels": [...]}``: per kernel its
 errors, times, launches on its path and per run of each path, and its
@@ -235,6 +259,7 @@ import copy
 import functools
 import json
 import os
+import shutil
 import statistics
 import time
 import subprocess
@@ -243,8 +268,10 @@ import tempfile
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
-from grafx_tpu_torch import profiling
+from grafx_tpu_torch import parallel, profiling
 from grafx_tpu_torch._native import native_available
 from grafx_tpu_torch.checkpoint import PARAMS_FILE, load_parameters, load_session, save_session
 from grafx_tpu_torch.data import GRAFX, NodeConfigs, batch_grafx, convert_to_tensor
@@ -1032,13 +1059,13 @@ def db(err, ref):
     return 20.0 * torch.log10(torch.linalg.norm(err) / torch.linalg.norm(ref)).item()
 
 
-def busy_ms(prof):
+def busy_ms(events):
     """``(ms, ops)``: the union of the profiled device ops' intervals and
-    their number."""
+    their number (but the marker kernels')."""
     spans = sorted(
         (e.time_range.start, e.time_range.end)
-        for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
+        for e in events
+        if e.device_type == torch.autograd.DeviceType.CUDA and profiling._MARKER not in e.name
     )
     check(spans, "the profiler recorded no device op")
     busy_us, (start, end) = 0.0, spans[0]
@@ -1054,14 +1081,21 @@ def device_busy_ms(fn, reps):
     """Busy device ms per call of ``fn``, over ``reps`` calls under
     torch.profiler: the card's own time for a call whose CUDA-event time
     is the host's (a short call waits on its wrapper's Python)."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return busy_ms(prof)[0] / reps
+    # the profiler may lose a short window's device events: bracket the
+    # calls with two marker kernels and widen the window's margins until
+    # it holds both (profiling.device_time_ms's rule)
+    for margin in profiling._MARGINS_S:
+        with profiling._window(margin, [ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1)
+            for _ in range(reps):
+                fn()
+            torch.cuda._sleep(1)
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if sum(profiling._MARKER in e.name for e in events) == 2:
+            return busy_ms(events)[0] / reps
+    raise SmokeFailure(f"the profiler lost device events with {profiling._MARGINS_S[-1]} s margins")
 
 
 def profile_run(fn, out_dir, name, card):
@@ -1075,7 +1109,7 @@ def profile_run(fn, out_dir, name, card):
         t0 = time.perf_counter()
         ms, _ = device_ms(fn, reps=1)
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    busy, ops = busy_ms(prof)
+    busy, ops = busy_ms(prof.events())
     os.makedirs(out_dir, exist_ok=True)
     table = os.path.join(out_dir, f"profile_{name}.txt")
     with open(table, "w") as f:
@@ -1451,6 +1485,7 @@ def compiled_request_phase(args, smi, stats, path="request", make_processors=ben
     if args.profile:
         with torch.inference_mode():
             profile_run(lambda: compiled(xs[1], params), args.profile, f"{path}_compiled", smi)
+    return y0
 
 
 def compiled_step_phase(args, smi, stats, path, eager_path, make_processors):
@@ -1497,6 +1532,7 @@ def compiled_step_phase(args, smi, stats, path, eager_path, make_processors):
         compiled_peak_gib=f"{peaks[1]:.3f}", card=repr(smi))
     if args.profile:
         profile_run(lambda: compiled.step(x, target), args.profile, f"{path}_compiled", smi)
+    return statistics.median(compiled_ms)
 
 
 def compiled_stream_phase(args, smi, stats, path="stream_block", make_processors=bench_processors,
@@ -1577,7 +1613,7 @@ def step_many_check(streamers, blocks, stats):
             "step_many4_capture_reserved_gib": f"{reserved:.3f}"}
 
 
-def serving_phase(smi, stats):
+def serving_phase(smi, stats, make_processors=bench_processors, tag=""):
     """Phase 16, after every timed phase: ``serving.py`` on the card.  The
     console's render exported and loaded (three calls: warm-up, capture,
     replay; and changed parameters) against the live eager render; the
@@ -1585,8 +1621,10 @@ def serving_phase(smi, stats):
     eager stream) and with ``blocks_per_step=4`` (3 calls against single
     live steps, the JAX test's rtol 2e-5 / atol 2e-6); each loaded
     program's capture launches what an eager request, block or four blocks
-    launch."""
-    console = bench_console(CHAINS, seed=0, device="cuda")
+    launch.  Phase 32 runs it on the fsm console (``tag="_fsm"``: its
+    complex FIR spectra become the artifact's constants), against the
+    launches of phases 21 and 23."""
+    console = bench_console(CHAINS, seed=0, device="cuda", processors=make_processors())
     live = make_render_fn(console.fused_processors, console.plan, jit=False)
     blobs, seconds = {}, {}
     start = time.perf_counter()
@@ -1613,15 +1651,18 @@ def serving_phase(smi, stats):
     errs = []
     with torch.inference_mode():
         ref, ref_changed = live(x, params)[0], live(x, changed)[0]
+        # eager against itself: the mix stages' index_add_ adds with atomics
+        live_repeat_equal = torch.equal(live(x, params)[0], ref)
         errs.append(check_compiled("load_render call 1", served(x, params), ref))
-        y, _, _, captured = capturing_call(lambda: served(x, params), "load_render",
-                                           eager_run(stats, "request"), stats, "load_render")
+        y, _, _, captured = capturing_call(lambda: served(x, params), f"load_render{tag}",
+                                           eager_run(stats, f"request{tag}"), stats, f"load_render{tag}")
         errs.append(check_compiled("load_render call 2", y, ref))
         errs.append(check_compiled("load_render call 3", served(x, params), ref))
         errs.append(check_compiled("load_render, changed parameters", served(x, changed), ref_changed))
-    say("serving", run="render", export_s=f"{seconds['render']:.2f}", load_s=f"{load_s:.2f}",
+    say("serving", console=tag[1:] or "exact", run="render", export_s=f"{seconds['render']:.2f}", load_s=f"{load_s:.2f}",
         artifact_mib=f"{len(blobs['render']) / 2**20:.2f}", max_rel_err=f"{max(e for e, _ in errs):.3g}",
-        bit_equal=all(b for _, b in errs), captured_launches=captured)
+        bit_equal=all(b for _, b in errs), live_repeat_bit_equal=live_repeat_equal,
+        captured_launches=captured)
     del served, ref, ref_changed, y
 
     blocks = list(console_input((CHAINS, 2, 12 * BLOCK_LEN), torch.Generator(device="cuda").manual_seed(9),
@@ -1641,8 +1682,8 @@ def serving_phase(smi, stats):
         for k, xb in enumerate(blocks[:8]):
             if k == 1:  # the loaded step's capture
                 (y, state), _, _, captured = capturing_call(
-                    functools.partial(step, xb, state), "load_stream_step",
-                    eager_run(stats, "stream_block"), stats, "load_stream_step")
+                    functools.partial(step, xb, state), f"load_stream_step{tag}",
+                    eager_run(stats, f"stream_block{tag}"), stats, f"load_stream_step{tag}")
             else:
                 y, state = step(xb, state)
             errs.append(check_compiled(f"load_stream_step block {k + 1}", y, singles[k]))
@@ -1650,8 +1691,8 @@ def serving_phase(smi, stats):
             call = functools.partial(many, torch.stack(blocks[4 * i:4 * i + 4]), many_state)
             if i == 1:
                 (ys, many_state), _, _, captured4 = capturing_call(
-                    call, "load_stream_step(blocks_per_step=4)", eager_run(stats, "stream_block", runs=4),
-                    stats, "load_stream_step4")
+                    call, f"load_stream_step{tag}(blocks_per_step=4)",
+                    eager_run(stats, f"stream_block{tag}", runs=4), stats, f"load_stream_step4{tag}")
             else:
                 ys, many_state = call()
             for k in range(4):
@@ -1659,7 +1700,7 @@ def serving_phase(smi, stats):
                 check(torch.allclose(ys[k], ref, rtol=2e-5, atol=2e-6),
                       f"load_stream_step(blocks_per_step=4) call {i + 1} block {k + 1} != single steps")
                 many_err = max(many_err, max_err(ys[k], ref))
-    say("serving", run="stream_step", export_s=f"{seconds['stream_step']:.2f}",
+    say("serving", console=tag[1:] or "exact", run="stream_step", export_s=f"{seconds['stream_step']:.2f}",
         export4_s=f"{seconds['stream_step4']:.2f}", load_s=f"{load_s:.2f}",
         artifact_mib=f"{len(blobs['stream_step']) / 2**20:.2f}",
         max_rel_err=f"{max(e for e, _ in errs):.3g}", bit_equal=all(b for _, b in errs),
@@ -2610,6 +2651,345 @@ def device_time_cross_check(smi, device="cuda"):
         device_busy_ms_union=f"{union:.3f}", sum_over_union=f"{summed / union:.3f}", card=repr(smi))
 
 
+# phase 32: parallel/ on torch.distributed, each rank a process of its own
+PARALLEL_TIMEOUT_S = 360  # one spawn of ranks, their set-up included
+SHARED_NCCL_TIMEOUT_S = 120
+RANK_RENDER_TOL = dict(rtol=1e-5, atol=1e-6)  # tests/test_parallel.py:60
+RANK_GRAD_TOL = dict(rtol=2e-4, atol=1e-7)  # tests/test_parallel.py:247
+GLOO_NEEDED = ("all_gather", "all_reduce")  # what parallel/ calls
+
+
+def rank_init(rank, world, directory, store, backend, device_index):
+    """Join the ranks of one spawn: rendezvous on a FileStore in
+    ``directory``, the card ``device_index``, TF32 off as in phase 1."""
+    torch.cuda.set_device(device_index)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kwargs = {"device_id": torch.device("cuda", device_index)} if backend == "nccl" else {}
+    dist.init_process_group(backend, store=dist.FileStore(os.path.join(directory, store), world),
+                            rank=rank, world_size=world, **kwargs)
+
+
+def write_rank(directory, name, rank, result):
+    with open(os.path.join(directory, f"{name}_rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def run_ranks(fn, world, directory, name, timeout=PARALLEL_TIMEOUT_S, allow_timeout=False):
+    """Spawn ``world`` ranks of ``fn(rank, world, directory)``, wait for
+    them (a rank that raises fails the phase, and the others are
+    stopped), and return each rank's JSON result; every process is gone
+    on return.  With ``allow_timeout`` ranks still running at ``timeout``
+    are killed and ``None`` is returned."""
+    context = mp.start_processes(fn, args=(world, directory), nprocs=world, join=False,
+                                 start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not context.join(timeout=5):
+            if time.monotonic() > deadline:
+                if allow_timeout:
+                    return None
+                raise SmokeFailure(f"parallel: {name} ranks still running after {timeout} s")
+    finally:
+        for process in context.processes:
+            if process.is_alive():
+                process.kill()
+            process.join()
+    results = []
+    for rank in range(world):
+        with open(os.path.join(directory, f"{name}_rank{rank}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def log_rows():
+    """Have every kernel launch log its rows: ``{wrapper: [rows, ...]}``,
+    cleared by the caller."""
+    rows = {}
+    launch = bal._run
+
+    def logged(name, fn_name, u, *args):
+        rows.setdefault(name, []).append(int(u.shape[0]))
+        return launch(name, fn_name, u, *args)
+
+    bal._run = logged
+    return rows
+
+
+def launched():
+    return {k: v for k, v in bal.launch_counts().items() if v}
+
+
+def nccl_rank(rank, world, directory):
+    """Phase 32 (a), one rank over NCCL, one card each: three captured
+    data-parallel steps of ``bench_trainer(17)`` (its render through
+    ``shard_render_step``) against the unsharded compiled step from the
+    same start, the captured step's launches, ms a step (both, and the
+    sharded step eager); one captured sharded request against phase 12's
+    output, and its ms beside the eager sharded request's.  One rank is
+    held within COMPILED_REL; more ranks (a machine with more cards)
+    within the gradients' rtol 2e-4."""
+    rank_init(rank, world, directory, "store_nccl", "nccl", rank)
+    try:
+        rows = log_rows()
+        mesh = parallel.make_mesh()
+        sharding = parallel.batch_sharding(mesh)
+        g = torch.Generator(device="cuda").manual_seed(7)
+        x = console_input((BATCH, CHAINS, 2, AUDIO_LEN), g, "cuda")
+        target = torch.randn(BATCH, 1, 2, AUDIO_LEN, generator=g, device="cuda")
+        local = parallel.local_shard(x, sharding)
+        ref = bench_trainer(CHAINS, seed=0, device="cuda")
+        dp = bench_trainer(CHAINS, seed=0, device="cuda")
+        dp.render = parallel.shard_render_step(dp.render, mesh, jit=False)
+        # one rank computes what the unsharded step does; more ranks walk
+        # and transform fewer rows a call (other chunks and cuFFT plans)
+        limit = COMPILED_REL if world == 1 else RANK_GRAD_TOL["rtol"]
+        worst = 0.0
+        for step in range(3):
+            _, r_audio = ref.step(x, target)
+            if step == 1:  # the capture: launches of one step
+                torch.cuda.synchronize()
+                bal.reset_launch_counts()
+                rows.clear()
+            _, audio = dp.step(local, target)
+            torch.cuda.synchronize()
+            if step == 1:
+                captured, step_rows = bal.launch_counts(), copy.deepcopy(rows)
+            pairs = [("loss", audio, r_audio)] + [
+                (k, p.detach(), q.detach())
+                for (k, p), (_, q) in zip(tree_items(dp.params), tree_items(ref.params))]
+            for k, got, want in pairs:
+                worst = max(worst, rel_err(got, want))
+            check(worst <= limit, f"rank {rank}: data-parallel step {step + 1} at {worst:.3g} of max|unsharded|")
+        for name, count in captured.items():
+            check(count == TRAIN_STEP.get(name, 0),
+                  f"rank {rank}: the captured data-parallel step launched {name} {count} times")
+        step_ms = {"sharded_compiled": call_ms(lambda: dp.step(local, target)),
+                   "unsharded_compiled": call_ms(lambda: ref.step(x, target))}
+        del ref
+        eager = bench_trainer(CHAINS, seed=0, device="cuda", jit=False)
+        eager.render = parallel.shard_render_step(eager.render, mesh, jit=False)
+        step_ms["sharded_eager"] = call_ms(lambda: eager.step(local, target))
+        del eager, dp
+
+        console = bench_console(CHAINS, seed=0, device="cuda")
+        plain = make_render_fn(console.fused_processors, console.plan, jit=False)
+        request = parallel.shard_render_step(plain, mesh)
+        request_eager = parallel.shard_render_step(plain, mesh, jit=False)
+        x1 = torch.randn(BATCH, CHAINS, 2, AUDIO_LEN, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+        local1 = parallel.local_shard(x1, sharding)
+        y12 = torch.load(os.path.join(directory, "request_phase12.pt"), map_location=f"cuda:{rank}")
+        with torch.inference_mode():
+            request(local1, console.params)  # warm-up: eager, on a side stream
+            torch.cuda.synchronize()
+            bal.reset_launch_counts()
+            rows.clear()
+            request(local1, console.params)  # the capture
+            torch.cuda.synchronize()
+            request_captured, request_rows = launched(), copy.deepcopy(rows)
+            y = request(local1, console.params)[0]
+            request_err, request_bit_equal = rel_err(y, y12), torch.equal(y, y12)
+            check(request_err <= limit, f"rank {rank}: the sharded request at {request_err:.3g} of max|phase 12's|")
+            request_ms = {"sharded_compiled": call_ms(lambda: request(local1, console.params)),
+                          "sharded_eager": call_ms(lambda: request_eager(local1, console.params))}
+        check(request_captured == SERVE_REQUEST,
+              f"rank {rank}: the captured sharded request launched {request_captured}")
+        write_rank(directory, "nccl", rank, {
+            "rank": rank, "card": torch.cuda.get_device_name(rank), "backend": dist.get_backend(),
+            "local_rows": local.shape[0], "step_max_rel_err": worst,
+            "step_captured_launches": {k: v for k, v in captured.items() if v}, "step_rows": step_rows,
+            "request_rows": request_rows,
+            "step_ms": step_ms, "request_rel_err": request_err,
+            "request_bit_equal": request_bit_equal, "request_captured_launches": request_captured,
+            "request_ms": request_ms,
+            "capture_s": request.captured.capture_seconds})
+    finally:
+        dist.destroy_process_group()
+
+
+def nccl_shared_rank(rank, world, directory):
+    """Phase 32 (b)'s question: does NCCL take two ranks on one card?"""
+    torch.cuda.set_device(0)
+    try:
+        rank_init(rank, world, directory, "store_nccl_shared", "nccl", 0)
+        t = torch.ones(4, device="cuda")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        answer = "accepted"
+    except Exception as e:  # noqa: BLE001 - the refusal is the answer
+        answer = f"{type(e).__name__}: {' '.join(str(e).split())[:300]}"
+    write_rank(directory, "nccl_shared", rank, {"answer": answer})
+    os._exit(0)  # a communicator that failed to form is not torn down
+
+
+def gloo_collectives():
+    """Which collectives gloo takes on tensors on the card."""
+    k = dist.get_world_size()
+
+    def vec(n=8):
+        return torch.ones(n, device="cuda")
+
+    probes = {
+        "all_reduce": lambda: dist.all_reduce(vec()),
+        "all_gather": lambda: dist.all_gather([vec() for _ in range(k)], vec()),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(vec(8 * k), vec()),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(vec(), vec(8 * k)),
+        "broadcast": lambda: dist.broadcast(vec(), 0),
+        "all_to_all_single": lambda: dist.all_to_all_single(vec(8 * k), vec(8 * k)),
+    }
+    out = {}
+    for name, probe in probes.items():
+        try:
+            probe()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:  # noqa: BLE001 - each refusal is recorded
+            out[name] = f"{type(e).__name__}: {' '.join(str(e).split())[:160]}"
+    return out
+
+
+def gloo_rank(rank, world, directory):
+    """Phase 32 (b), one of two ranks sharing the card over gloo, eager:
+    the data-parallel request and step (2 rows a rank), the node-sharded
+    request (the fused stages' 17 chains split 9/8) and the time-sharded
+    request, each against the one-rank render (or step) on the card, with
+    the kernels this rank launched and their rows."""
+    rank_init(rank, world, directory, "store_gloo", "gloo", 0)
+    try:
+        rows = log_rows()
+        result = {"rank": rank, "collectives": gloo_collectives()}
+        for name in GLOO_NEEDED:
+            check(result["collectives"][name] == "ok",
+                  f"gloo on the card refuses {name}: {result['collectives'][name]}")
+        mesh = parallel.make_mesh()
+        console = bench_console(CHAINS, seed=0, device="cuda")
+        plain = make_render_fn(console.fused_processors, console.plan, jit=False)
+        x = torch.randn(BATCH, CHAINS, 2, AUDIO_LEN, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(1))
+        try:
+            parallel.shard_render_step(plain, mesh)(parallel.local_shard(
+                x, parallel.batch_sharding(mesh)), console.params)
+            result["capture_refused"] = None
+        except ValueError as e:
+            result["capture_refused"] = str(e)
+        check(result["capture_refused"] is not None, "a gloo mesh on the card was let capture")
+
+        def sharded(sharding):
+            return parallel.make_sharded_render_fn(console.fused_processors, console.plan, sharding,
+                                                   jit=False)
+
+        batch, node = parallel.batch_sharding(mesh), parallel.node_sharding(mesh)
+        time_4 = parallel.time_sharding(mesh, ndim=4)
+        requests = {  # name: (render, sharding, input, even)
+            "data": (parallel.shard_render_step(plain, mesh, jit=False), batch, x, True),
+            "node": (sharded(node), node, x[0], False),
+            "time": (sharded(time_4), time_4, x, True),
+        }
+        with torch.inference_mode():
+            refs = {4: plain(x, console.params)[0], 3: plain(x[0], console.params)[0]}
+            for name, (render, sharding, xin, even) in requests.items():
+                local = parallel.local_shard(xin, sharding, even=even)
+                render(local, console.params)  # warm-up
+                torch.cuda.synchronize()
+                bal.reset_launch_counts()
+                rows.clear()
+                start = time.perf_counter()
+                ms, (y, _, _) = device_ms(lambda: render(local, console.params), reps=1)
+                wall_ms = 1e3 * (time.perf_counter() - start)
+                ref = refs[xin.dim()]
+                check(bool(torch.allclose(y, ref, **RANK_RENDER_TOL)),
+                      f"rank {rank}: the {name}-sharded request is {max_err(y, ref):.3g} from one rank's")
+                result[name] = {"local_shape": list(local.shape), "launches": launched(),
+                                "rows": copy.deepcopy(rows), "max_abs_err": max_err(y, ref), "ms": ms,
+                                "wall_ms": wall_ms}
+        del refs
+
+        g = torch.Generator(device="cuda").manual_seed(7)
+        x7 = console_input((BATCH, CHAINS, 2, AUDIO_LEN), g, "cuda")
+        target = torch.randn(BATCH, 1, 2, AUDIO_LEN, generator=g, device="cuda")
+        ref = bench_trainer(CHAINS, seed=0, device="cuda", jit=False)
+        dp = bench_trainer(CHAINS, seed=0, device="cuda", jit=False)
+        dp.render = parallel.shard_render_step(dp.render, mesh, jit=False)
+        _, r_audio = ref.step(x7, target)
+        local = parallel.local_shard(x7, batch)
+        torch.cuda.synchronize()
+        bal.reset_launch_counts()
+        rows.clear()
+        ms, (_, audio) = device_ms(lambda: dp.step(local, target), reps=1)
+        check(bool(torch.allclose(audio, r_audio, rtol=RANK_GRAD_TOL["rtol"])),
+              f"rank {rank}: the data-parallel loss {audio.item()} against {r_audio.item()}")
+        grad_err = 0.0
+        for (k, p), (_, q) in zip(tree_items(dp.params), tree_items(ref.params)):
+            if p.requires_grad:
+                check(bool(torch.allclose(p.grad, q.grad, **RANK_GRAD_TOL)),
+                      f"rank {rank}: the data-parallel gradient of {k} is {max_err(p.grad, q.grad):.3g}"
+                      " from one rank's")
+                grad_err = max(grad_err, max_err(p.grad, q.grad))
+        result["step"] = {"local_shape": list(local.shape), "launches": launched(), "rows": copy.deepcopy(rows),
+                          "loss": audio.item(), "loss_one_rank": r_audio.item(),
+                          "grad_max_abs_err": grad_err, "ms": ms}
+        write_rank(directory, "gloo", rank, result)
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_phase(smi, stats, request_y, step13_ms):
+    """Phase 32: ``parallel/`` on the card, each rank a process started
+    here (a FileStore in a temporary directory): (a) NCCL over every
+    card (one on the usual machine), (b) NCCL's answer to two ranks on
+    one card, then two ranks sharing it over gloo, eager."""
+    directory = tempfile.mkdtemp(prefix="grafx_parallel_")
+    try:
+        torch.save(request_y, os.path.join(directory, "request_phase12.pt"))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        world = torch.cuda.device_count()
+        start = time.perf_counter()
+        for r in run_ranks(nccl_rank, world, directory, "nccl"):
+            rank = r["rank"]
+            for key in ("step_captured_launches", "request_captured_launches"):
+                for name in KERNELS:
+                    stats[name]["per_run"][f"parallel_{key.split('_')[0]}_compiled_nccl_rank{rank}"] = \
+                        r[key].get(name, 0)
+            say("parallel", part="a", world=world, rank=rank, backend=r["backend"], card=repr(r["card"]),
+                local_rows=r["local_rows"], step_max_rel_err=f"{r['step_max_rel_err']:.3g}",
+                step_captured_launches=r["step_captured_launches"], step_rows=r["step_rows"],
+                **{f"step_{k}_median_ms": f"{statistics.median(v):.3f}" for k, v in r["step_ms"].items()},
+                phase13_step_compiled_median_ms=f"{step13_ms:.3f}",
+                request_rel_err=f"{r['request_rel_err']:.3g}", request_bit_equal=r["request_bit_equal"],
+                request_captured_launches=r["request_captured_launches"], request_rows=r["request_rows"],
+                **{f"request_{k}_median_ms": f"{statistics.median(v):.3f}" for k, v in r["request_ms"].items()},
+                capture_s=[round(t, 3) for t in r["capture_s"]])
+        nccl_s = time.perf_counter() - start
+
+        start = time.perf_counter()
+        shared = run_ranks(nccl_shared_rank, 2, directory, "nccl_shared", SHARED_NCCL_TIMEOUT_S,
+                           allow_timeout=True)
+        answers = ([r["answer"] for r in shared] if shared is not None
+                   else [f"no answer in {SHARED_NCCL_TIMEOUT_S} s"])
+        say("parallel", part="b", nccl_two_ranks_one_card=answers)
+        results = run_ranks(gloo_rank, 2, directory, "gloo")
+        say("parallel", part="b", gloo_collectives_on_the_card=results[0]["collectives"],
+            capture_refused=repr(results[0]["capture_refused"]))
+        for r in results:
+            rank = r["rank"]
+            for path in ("data", "node", "time", "step"):
+                entry = r[path]
+                for name in KERNELS:
+                    stats[name]["per_run"][f"parallel_{path}_gloo_rank{rank}"] = \
+                        entry["launches"].get(name, 0)
+                say("parallel", part="b", rank=rank, path=path, local_shape=entry["local_shape"],
+                    launches=entry["launches"], rows=entry["rows"], ms=f"{entry['ms']:.3f}",
+                    **({"wall_ms": f"{entry['wall_ms']:.3f}", "max_abs_err": f"{entry['max_abs_err']:.3g}"}
+                       if path != "step" else
+                       {"loss": f"{entry['loss']:.6f}", "loss_one_rank": f"{entry['loss_one_rank']:.6f}",
+                        "grad_max_abs_err": f"{entry['grad_max_abs_err']:.3g}"}))
+        say("parallel", nccl_s=f"{nccl_s:.1f}", gloo_s=f"{time.perf_counter() - start:.1f}", card=repr(smi))
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+
 def kernel_row(name, source, replaces, stats):
     """The kernel's entry of the ``{"kernels": [...]}`` line."""
     s = stats[name]
@@ -2746,8 +3126,8 @@ def main():
 
     # 12-15. the compiled paths (CUDA-graph replays) beside their eager forms
     phases_at = time.perf_counter()
-    compiled_request_phase(args, smi, stats)
-    compiled_step_phase(args, smi, stats, "step", "step", bench_processors)
+    request_y = compiled_request_phase(args, smi, stats)
+    step13_ms = compiled_step_phase(args, smi, stats, "step", "step", bench_processors)
     compiled_step_phase(args, smi, stats, "step_factorized", "factorized_step", factorized_processors)
     compiled_stream_phase(args, smi, stats)
     compiled_s = time.perf_counter() - phases_at
@@ -2800,6 +3180,14 @@ def main():
     conv_forms_phase(smi)
     device_time_cross_check(smi)
     say("engine", phases_28_31_s=f"{time.perf_counter() - phases_at:.1f}")
+
+    # 32. parallel/: sharded renders and steps, each rank a process; then
+    # the fsm console's render and stream step exported and loaded
+    phases_at = time.perf_counter()
+    parallel_phase(smi, stats, request_y, step13_ms)
+    del request_y
+    serving_phase(smi, stats, fsm_processors, tag="_fsm")
+    say("parallel", phase_32_s=f"{time.perf_counter() - phases_at:.1f}")
 
     for name in KERNELS:
         check(name in NO_PATH or "launches" in stats[name], f"{name} ran on no path")

@@ -7,4 +7,30 @@ first use on a machine with an NVIDIA Hopper GPU; on the CPU every
 kernel runs as its plain PyTorch version.
 """
 
+from grafx_tpu_torch import (
+    checkpoint,
+    data,
+    draw,
+    models,
+    ops,
+    parallel,
+    processors,
+    render,
+    serving,
+    utils,
+)
+
 __version__ = "0.1.0"
+
+__all__ = [
+    "checkpoint",
+    "data",
+    "draw",
+    "models",
+    "ops",
+    "parallel",
+    "processors",
+    "render",
+    "serving",
+    "utils",
+]

@@ -6,11 +6,21 @@ take are taken here too (``inspect.signature`` of both packages), and
 
 import importlib
 import inspect
+import json
+import os
+import subprocess
+import sys
 
 import pytest
 
 from test_api_surface import SURFACE
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# grafx_tpu/parallel/__init__.py's names
+PARALLEL_NAMES = [
+    "Mesh", "NamedSharding", "P", "batch_node_sharding", "batch_sharding", "make_mesh",
+    "make_mesh_2d", "node_sharding", "replicated", "shard_render_step", "time_sharding",
+]
 PORT_SURFACE = {m.replace("grafx_tpu", "grafx_tpu_torch", 1): names for m, names in SURFACE.items()}
 
 # (module under both packages, class): the keyword-only tail grafx_tpu takes
@@ -84,3 +94,28 @@ def test_fir_filter_takes_backend_keywords(package, kwargs):
 def test_processors_take_backend_keywords(name, kwargs):
     for package in ("grafx_tpu", "grafx_tpu_torch"):
         getattr(importlib.import_module(f"{package}.processors"), name)(**kwargs)
+
+
+def test_package_alone_exposes_the_subpackages():
+    """``import grafx_tpu_torch`` alone, in a fresh interpreter, exposes
+    the same subpackages under the same ``__all__`` as ``import
+    grafx_tpu``, without importing jax or matplotlib (drawing imports it
+    when it draws)."""
+    code = ("import json, sys, grafx_tpu_torch as g; print(json.dumps([g.__all__,"
+            " [n for n in g.__all__ if not hasattr(g, n)],"
+            " sorted(m for m in ('jax', 'grafx_tpu', 'matplotlib') if m in sys.modules)]))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         check=True, timeout=300)
+    names, missing, imported = json.loads(out.stdout.splitlines()[-1])
+    import grafx_tpu
+
+    assert names == grafx_tpu.__all__
+    assert not missing and not imported, (missing, imported)
+
+
+def test_parallel_has_the_reference_names():
+    jax_parallel = importlib.import_module("grafx_tpu.parallel")
+    port = importlib.import_module("grafx_tpu_torch.parallel")
+    assert sorted(jax_parallel.__all__) == PARALLEL_NAMES
+    assert set(PARALLEL_NAMES) <= set(port.__all__)
+    assert all(hasattr(port, n) for n in PARALLEL_NAMES)

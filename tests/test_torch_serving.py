@@ -25,6 +25,7 @@ from grafx_tpu.utils import create_empty_parameters as j_create_params
 from grafx_tpu_torch import processors as tp
 from grafx_tpu_torch.data import GRAFX, NodeConfigs, convert_to_tensor
 from grafx_tpu_torch.models import bench_console
+from grafx_tpu_torch.models.console import bench_processors
 from grafx_tpu_torch.ops import ballistics as bal
 from grafx_tpu_torch.render import (
     StreamRenderer,
@@ -111,7 +112,36 @@ def fused():
                 params_j=jax.tree.map(np.asarray, params_j2), x=x, console=c)
 
 
-@pytest.mark.parametrize("graph", ["plain", "fused"])
+def jax_fsm_processors():
+    """bench.py's processors with the equalizers on the fsm backend."""
+    return {**jax_processors(), "eq": jp.ParametricEqualizer(num_filters=6, backend="fsm"),
+            "geq": jp.GraphicEqualizer(scale="bark", backend="fsm")}
+
+
+@pytest.fixture(scope="module")
+def fsm():
+    """The fused console of CHAINS chains on fsm equalizers
+    (``bench_processors(backend="fsm")``: its FusedFIRChains carry complex
+    FIR spectra), as :func:`fused` builds the exact one."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(bench, "NUM_CHAINS", CHAINS)
+        Gj = bench.build_mix_graph()
+    procs_j = jax_fsm_processors()
+    params_j = j_create_params(procs_j, Gj, std=0.1, key=jax.random.PRNGKey(7))
+    Gj2, procs_j2 = j_fuse(Gj, procs_j, **FUSE)
+    params_j2 = j_fuse_parameters(params_j, Gj, Gj2, procs_j2, use_native=False)
+    c = bench_console(CHAINS, device="cpu", processors=bench_processors(backend="fsm"))
+    params = fuse_parameters(
+        parameters_from_numpy(jax.tree.map(np.asarray, params_j)),
+        c.graph, c.fused_graph, c.fused_processors,
+    )
+    x = np.random.default_rng(12).standard_normal((2, CHAINS, 2, L)).astype(np.float32)
+    return dict(render=make_render_fn(c.fused_processors, c.plan), params=params,
+                render_j=j_make_render_fn(procs_j2, _jax_plan(Gj2)),
+                params_j=jax.tree.map(np.asarray, params_j2), x=x, console=c)
+
+
+@pytest.mark.parametrize("graph", ["plain", "fused", "fsm"])
 def test_export_render_roundtrip(graph, request):
     """The loaded artifact equals the live render bit for bit, replays
     fresh parameter values, and is within -60 dB of grafx_tpu's own
@@ -158,6 +188,29 @@ def test_export_stream_step_roundtrip(fused):
         y_live, live_state = live(xb, live_state)
         y_exp, state = step(xb, state)
         assert torch.equal(y_exp, y_live), k
+
+
+def test_export_stream_step_roundtrip_fsm(fsm):
+    """The fsm console's stream step (its FIR chains streamed by UPOLS
+    from complex spectra) exported for one block and for four, each
+    against the live StreamRenderer: one block bit for bit, four within
+    the JAX test's bound."""
+    live = _streamer(fsm)
+    x = torch.tensor(fsm["x"][0])
+    step, state = load_stream_step(export_stream_step(live, x[..., :BLOCK]))
+    live_state = live.init_state()
+    singles = []
+    for k in range(L // BLOCK):
+        xb = x[..., k * BLOCK:(k + 1) * BLOCK]
+        y_live, live_state = live(xb, live_state)
+        y_exp, state = step(xb, state)
+        assert torch.equal(y_exp, y_live), k
+        singles.append(y_live)
+    x_blocks = torch.stack(x.split(BLOCK, dim=-1))
+    many, state = load_stream_step(export_stream_step(live, x_blocks[0], blocks_per_step=len(x_blocks)))
+    y_many, _ = many(x_blocks, state)
+    for y, ref in zip(y_many, singles):
+        np.testing.assert_allclose(y.numpy(), ref.numpy(), rtol=2e-5, atol=2e-6)
 
 
 def test_export_stream_step_multiblock(fused):
