@@ -76,18 +76,18 @@ before the result line):
     gradient at batch 1, L = 2^14, on the card and on the CPU;
 12. compiled request: ``make_render_fn(jit=True)`` (a CUDA-graph replay)
     beside ``jit=False`` at (4, 17, 2, 2^17): replays against eager (two
-    inputs, and every parameter changed between replays) within 1e-6 of
-    max|eager|, their outputs distinct, warm calls of each timed by CUDA
-    events, peak memory, the capture's seconds and reserved memory, and
-    the capture's launch counts;
+    inputs, and every parameter changed between replays) equal to eager
+    bit for bit (COMPILED_REL), their outputs distinct, warm calls of
+    each timed by CUDA events, peak memory, the capture's seconds and
+    reserved memory, and the capture's launch counts;
 13. and 14. compiled steps: three steps of ``bench_trainer(17)`` and of
     the factorized console with ``jit=True`` (the whole update captured)
     and three with ``jit=False`` from the same start, losses and every
-    leaf within 1e-6 relative after each step, then timed as in 12;
+    leaf equal bit for bit after each step, then timed as in 12;
 15. compiled stream: the stream of phase 9 through ``StreamRenderer`` with
     and without ``jit``, in turns block by block (device and wall ms, the
-    real-time factor), each block within 1e-6; ``step_many(4)`` (one graph
-    of four block steps) against eager and timed a block;
+    real-time factor), each block equal bit for bit; ``step_many(4)`` (one
+    graph of four block steps) against eager and timed a block;
 16. serving, after every timed phase: ``serving.py`` on the card, the
     console's render exported and loaded against the live render (and
     with changed parameters), the stream step exported for one block and
@@ -109,8 +109,8 @@ before the result line):
 18. resume: ``save`` after 5 steps; a fresh optimizer takes two (its graph
     captured), then ``restore``: parameters and Adam state bit-equal to
     the saved ones and the same tensors (``data_ptr``), and 5 more steps
-    within 1e-6 relative of steps 6-10 of the uninterrupted run; a
-    ``save_session``/``load_session`` round trip onto the card;
+    whose losses equal steps 6-10 of the uninterrupted run's bit for bit;
+    a ``save_session``/``load_session`` round trip onto the card;
 19. delay: the fit console with ``MultitapDelay(segment_len=1500,
     num_segments=10)`` after each track's gain (86 nodes): one
     ``render_current`` and one step, and that step against the CPU's as in
@@ -143,18 +143,18 @@ before the result line):
     (60000 taps, 12 bands, midside, pseudo-random) and
     ``PiecewiseTanhDistortion()``: three eager requests as in phase 5;
     requests compiled with a fresh key each (``rng``, a captured
-    argument) beside eager on the same keys, each within 1e-6, the same
-    key rendering the same and a new key another; card vs CPU on one key;
-    three eager steps as in phase 6 (the distortion's hardness and
-    threshold may get no gradient: its input stays below the threshold at
-    init), three compiled beside three eager as in phase 13 (the eager
-    trainer's keyless crop pinned to the capture's), the loss and every
-    gradient card vs CPU; the console streamed on a key as in phases 9
-    and 15 (without ``step_many``), against the one-shot render on that
-    key;
+    argument) beside eager on the same keys, each equal bit for bit, the
+    same key rendering the same bit for bit and a new key another; card
+    vs CPU on one key; three eager steps as in phase 6 (the distortion's
+    hardness and threshold may get no gradient: its input stays below the
+    threshold at init), three compiled beside three eager as in phase 13
+    (the eager trainer's keyless crop pinned to the capture's), the loss
+    and every gradient card vs CPU; the console streamed on a key as in
+    phases 9 and 15 (without ``step_many``), against the one-shot render
+    on that key;
 26. FDN console: the same with ``FeedbackDelayNetwork()`` (30000 taps, 6
     lines, stereo) and ``ChebyshevDistortion()``, where a new key leaves
-    the render as it was (nothing draws noise);
+    the render as it was, bit for bit (nothing draws noise);
 27. library: each new class at 68 x 2 x 2^17 (the filtered-noise, FDN and
     per-call STFT reverbs, the stereo tools, the three distortions) card
     vs CPU on the same parameters and key (<= -60 dB) with its device ms,
@@ -171,8 +171,8 @@ before the result line):
     (one-by-one: once a node), each render within -120 dB of the beam
     plan's on the same parameters (rebound to each schedule's rows);
 29. array buffer: the beam plan with ``buffer_mode="array"``, eager and
-    compiled (its capture one eager request's launches), within 1e-6 of
-    max|y| of ``"stages"``; a step of ``GraphParameterOptimizer(
+    compiled (its capture one eager request's launches), equal to
+    ``"stages"`` bit for bit; a step of ``GraphParameterOptimizer(
     method="one-by-one")`` on the beam trainer's parameters and inputs,
     its loss and every gradient within -60 dB of the beam step's (#3-#6
     once a node), its second step captured, timed beside the beam step;
@@ -194,7 +194,7 @@ before the result line):
     (every card of the machine): three data-parallel steps of
     ``bench_trainer(17)`` with its render through ``shard_render_step``,
     the whole update captured, against the unsharded compiled step from
-    the same start (loss and every leaf within 1e-6 relative), the
+    the same start (loss and every leaf equal bit for bit), the
     capture launching #3-#6 once each and nothing else, ms a step beside
     the unsharded step's and phase 13's; a captured sharded request
     against phase 12's output; (b) NCCL's answer to two ranks on one card
@@ -207,7 +207,27 @@ before the result line):
     with each rank's launches and the rows it launched them on; then
     phase 16 again on the fsm console (``bench_processors(backend=
     "fsm")``), its loaded programs launching what phases 21 and 23's eager
-    runs launch.
+    runs launch;
+33. determinism: every path above repeats bit for bit on the card with
+    default settings: each of these runs twice eagerly and twice compiled
+    (``jit=True``; warm-up, capture, replays), from fresh objects built
+    with the same seed, and each pair is ``torch.equal`` in every output,
+    loss, parameter and gradient: the exact console's request (phase 5's
+    input) and three steps of ``bench_trainer(17)``, the factorized
+    console's three steps, 32 stream blocks, five ``mixing_console(16)``
+    fit steps on the MR-STFT loss (Adam), the fsm console's request and
+    three steps, the noise and FDN consoles' requests on one fixed key,
+    and the exact console's request and three steps under
+    ``buffer_mode="array"``; each line prints whether the compiled runs
+    equal the eager ones bit for bit and how far apart they are.  Then, in
+    a process of its own with ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, the same
+    paths once eagerly under ``torch.use_deterministic_algorithms(True)``:
+    none may raise, and each output lies within COMPILED_REL of max|the
+    default eager run's| (its bit-equality printed).  The package sets no
+    such flag: the paths are deterministic by their formulation.
+
+Eager renders repeat bit for bit (phases 12 and 16 gate it, 25 and 26
+gate the same key's render, 18 the resumed losses, 33 every path).
 
 Phases 5-11 (and the eager runs of 21-26) run the eager paths
 (``jit=False``), whose launch counts count every run.  A replay runs
@@ -265,6 +285,7 @@ import time
 import subprocess
 import sys
 import tempfile
+import warnings
 
 import numpy as np
 import torch
@@ -367,7 +388,11 @@ RAGGED_ROWS, RAGGED_LENGTHS = (1, 37, 68), (4096 + 13, 8192 + 13)
 FORWARDS = ("ballistics_gain_pair_core", "ballistics_gain_pair_fwd", "ballistics_gain_core",
             "ballistics_gain_fwd", "ballistics_core", "ballistics_fwd")
 MAX_ABS = 2e-5  # the bound benchmarks/verify_ballistics_tpu.py uses on the TPU
-COMPILED_REL = 1e-6  # a compiled path against its eager form: max abs <= this x max|eager|
+# a compiled or loaded path against its eager form, and a run under
+# torch.use_deterministic_algorithms against the default one: max abs <= this
+# x max|eager|.  Every such pair is equal bit for bit on the card (no fan-in
+# adds by atomics, and a capture keeps eager's kernels), so equality is held.
+COMPILED_REL = 0.0
 FUSED_REL = 3e-5  # a fused render against the unfused one: max abs <= this x max|ref| (tests/graph/test_fuse.py)
 WARM_CALLS = 5  # warm calls timed of each form of a compiled path
 DU_REL = 1e-5  # du: max abs error <= DU_REL * max |ref|
@@ -376,7 +401,6 @@ BATCH, CHAINS, AUDIO_LEN = 4, 17, 2**17
 BLOCK_LEN, SAMPLE_RATE = 4096, 44100
 FRAME_LEN = 1024  # FactorizedCompressor's documented frame (BASELINE.md, "documented fast path")
 FIT_TRACKS = 16  # mixing_console(16): the paper's console width (models/console.py)
-RESUME_REL = 1e-6  # resumed losses against the uninterrupted run's, relative
 PREDICTOR_STEPS = 10
 # The card's published peaks (H100 SXM, 700 W): device memory and float32
 # outside the tensor cores; the kernels do no matrix products.
@@ -1468,8 +1492,9 @@ def compiled_request_phase(args, smi, stats, path="request", make_processors=ben
             f"{path}_compiled")
         y_changed, y1 = compiled(xs[0], changed)[0], compiled(xs[1], params)[0]
         refs = [eager(xs[0], params)[0], eager(xs[0], changed)[0], eager(xs[1], params)[0]]
-        # eager against itself: the mix stages' index_add_ adds with atomics
+        # eager against itself: the fan-in adds in a fixed order (no atomics)
         eager_repeat_equal = torch.equal(eager(xs[0], params)[0], refs[0])
+        check(eager_repeat_equal, "request: the eager render of the same input differs from itself")
         errs = [check_compiled(f"request {k}", y, r) for k, (y, r) in enumerate(zip((y0, y_changed, y1), refs))]
         check(not torch.equal(y_changed, y0), "request: changed parameters left the replay's output as it was")
         check(len({y.data_ptr() for y in (y0, y_changed, y1)}) == 3, "request: two replays' outputs alias")
@@ -1651,8 +1676,9 @@ def serving_phase(smi, stats, make_processors=bench_processors, tag=""):
     errs = []
     with torch.inference_mode():
         ref, ref_changed = live(x, params)[0], live(x, changed)[0]
-        # eager against itself: the mix stages' index_add_ adds with atomics
+        # eager against itself: the fan-in adds in a fixed order (no atomics)
         live_repeat_equal = torch.equal(live(x, params)[0], ref)
+        check(live_repeat_equal, "serving: the live render of the same input differs from itself")
         errs.append(check_compiled("load_render call 1", served(x, params), ref))
         y, _, _, captured = capturing_call(lambda: served(x, params), f"load_render{tag}",
                                            eager_run(stats, f"request{tag}"), stats, f"load_render{tag}")
@@ -1877,8 +1903,8 @@ def resume_phase(stems, target):
     """Phase 18: save after 5 compiled steps; a fresh optimizer takes two
     (its graph captured), then restores: its parameters and Adam moments
     bit-equal to the saved ones in the same tensors, and 5 more steps
-    within RESUME_REL of steps 6-10 of the uninterrupted run; a session
-    round trip onto the card."""
+    whose losses equal those of steps 6-10 of the uninterrupted run bit
+    for bit; a session round trip onto the card."""
     with tempfile.TemporaryDirectory() as directory:
         run = fit_optimizer("cuda")
         losses = run.fit(stems, target, num_steps=5)
@@ -1910,7 +1936,7 @@ def resume_phase(stems, target):
                 moments += 1
         resumed_losses = resumed.fit(stems, target, num_steps=5)
         rel = max(abs(a - b) / abs(b) for a, b in zip(resumed_losses, losses[5:]))
-        check(rel <= RESUME_REL, f"resume: losses {resumed_losses} vs {losses[5:]}, rel {rel:.3g}")
+        check(resumed_losses == losses[5:], f"resume: losses {resumed_losses} vs {losses[5:]}, rel {rel:.3g}")
 
         session = os.path.join(directory, "session")
         save_session(session, run.G, run.params, metadata={"steps": 10})
@@ -1924,7 +1950,7 @@ def resume_phase(stems, target):
         state_entries_bit_equal=moments, params_bit_equal=True,
         losses_uninterrupted=[round(v, 7) for v in losses[5:]],
         losses_resumed=[round(v, 7) for v in resumed_losses], max_rel=f"{rel:.3g}",
-        bit_equal=resumed_losses == losses[5:], session_round_trip="equal, on the card")
+        bit_equal=True, session_round_trip="equal, on the card")
 
 
 def delay_phase(args, smi, stats, stems, target, fit_busy):
@@ -2131,11 +2157,11 @@ def keyed_request_phase(args, smi, stats, phase, path, make_processors, noisy):
     """Phases 25 and 26: the console's request through
     ``make_render_fn(jit=True)`` with a fresh key each request (the key is
     a captured argument) beside ``jit=False`` on the same keys: each replay
-    within COMPILED_REL of eager; the same key renders the same (within
-    COMPILED_REL: the mix stages add with atomics) and a new key another
-    render where the console draws noise (``noisy``), the same where it
-    does not; the capture's launches one eager request's; warm calls of
-    each timed with fresh keys, peaks."""
+    within COMPILED_REL of eager; the same key renders the same, bit for
+    bit, and a new key another render where the console draws noise
+    (``noisy``), the same bit for bit where it does not; the capture's
+    launches one eager request's; warm calls of each timed with fresh keys,
+    peaks."""
     console = bench_console(CHAINS, seed=0, device="cuda", processors=make_processors())
     eager = make_render_fn(console.fused_processors, console.plan, jit=False)
     compiled = make_render_fn(console.fused_processors, console.plan)
@@ -2152,12 +2178,13 @@ def keyed_request_phase(args, smi, stats, phase, path, make_processors, noisy):
         refs = [eager(x, params, rng=k)[0] for k in keys[1:4]]
         errs = [check_compiled(f"{phase} request {k}", y, r) for k, (y, r) in enumerate(zip(replays, refs))]
         same = rel_err(replays[0], y0)
-        check(same <= COMPILED_REL, f"{phase}: the same key rendered {same:.3g} of max|ref| apart")
+        check(torch.equal(replays[0], y0), f"{phase}: the same key rendered {same:.3g} of max|ref| apart")
         other = rel_err(replays[1], replays[0])
         if noisy:
             check(other > 1e-3, f"{phase}: a new key left the render as it was ({other:.3g})")
         else:
-            check(other <= COMPILED_REL, f"{phase}: a new key changed a render that draws no noise")
+            check(torch.equal(replays[1], replays[0]),
+                  f"{phase}: a new key changed a render that draws no noise ({other:.3g})")
         fresh = iter(keys[4:])
         eager_ms = call_ms(lambda: eager(x, params, rng=next(fresh)))
         compiled_ms = call_ms(lambda: compiled(x, params, rng=next(fresh)))
@@ -2585,7 +2612,8 @@ def conv_forms_phase(smi, device="cuda"):
     default) against ``fft_convolve_os`` and ``fft_convolve_upols`` at
     CONV_CASES, the forms within CONV_DB of one another, each timed by
     ``profiling.device_time_ms`` (the sum of its device ops, within 0.5-1.1
-    of the CUDA-event time of this work on one stream) and by CUDA events,
+    of the CUDA-event time of this work on one stream, the least of three
+    spans of five calls) and by CUDA events,
     beside the form ``grafx_tpu`` would pick there
     (``_auto_os_block``, tuned on the TPU); ``FIRFilter(overlap_save=True)``
     against ``overlap_save=False``."""
@@ -2604,10 +2632,15 @@ def conv_forms_phase(smi, device="cuda"):
             for name, fn in forms.items():
                 outs[name] = fn()  # warm-up: cuFFT plans
                 summed = profiling.device_time_ms(fn)
-                ms = device_ms(fn, reps=5)[0]
+                # the span of 5 calls, the least of 3 spans: a host stall of a
+                # few ms between two enqueues (seen on the card's shared host)
+                # idles the card inside one span and stretches it
+                spans = [device_ms(fn, reps=5)[0] for _ in range(3)]
+                ms = min(spans)
                 # one stream: the call's device ops fit in its CUDA-event span
                 check(0.5 * ms <= summed <= 1.1 * ms,
-                      f"conv_forms: {label} {name}: device_time_ms {summed:.3f} against {ms:.3f} ms")
+                      f"conv_forms: {label} {name}: device_time_ms {summed:.3f} against {ms:.3f} ms"
+                      f" (spans {[round(t, 3) for t in spans]})")
                 fields[name] = {"ms": f"{ms:.3f}", "device_time_ms": f"{summed:.3f}"}
         ref = outs["one_shot"]
         for name, y in outs.items():
@@ -2990,6 +3023,173 @@ def parallel_phase(smi, stats, request_y, step13_ms):
         shutil.rmtree(directory, ignore_errors=True)
 
 
+# phase 33: every path repeats bit for bit
+DETERMINISTIC_CUBLAS = ":4096:8"  # CUBLAS_WORKSPACE_CONFIG, set for the deterministic-algorithms run only
+DETERMINISM_CHILD_TIMEOUT_S = 300
+FIT_STEPS_33 = 5
+
+
+def det_request(jit, make_processors=bench_processors, buffer_mode="auto", key_seed=None):
+    """Phase 5's first request through a fresh console on
+    ``make_processors()`` (on ``PRNGKey(key_seed)`` where given); compiled:
+    the replay after a warm-up and a capture."""
+    console = bench_console(CHAINS, seed=0, device="cuda", processors=make_processors())
+    render = make_render_fn(console.fused_processors, console.plan, jit=jit, buffer_mode=buffer_mode)
+    x = torch.randn(BATCH, CHAINS, 2, AUDIO_LEN, generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda")
+    key = None if key_seed is None else random.PRNGKey(key_seed, device="cuda")
+    with torch.inference_mode():
+        for _ in range(3 if jit else 1):
+            y = render(x, console.params, rng=key)[0]
+    return {"output": y}
+
+
+def optimizer_run(opt, x, target, steps):
+    """``steps`` steps of ``opt``: each step's losses, then every
+    parameter and gradient."""
+    out = {}
+    for i in range(steps):
+        out[f"step{i + 1}/total"], out[f"step{i + 1}/loss"] = opt.step(x, target)
+    for k, p in tree_items(opt.params):
+        out[f"param/{k}"] = p.detach().clone()
+        if p.grad is not None:
+            out[f"grad/{k}"] = p.grad.clone()
+    return out
+
+
+def det_steps(jit, make_processors=bench_processors, buffer_mode=None):
+    """Three steps of a fresh ``bench_trainer(17)`` on ``make_processors()``
+    from phase 6's input (compiled: warm-up, capture, replay); with
+    ``buffer_mode``, its update renders through that buffer."""
+    trainer = bench_trainer(CHAINS, seed=0, device="cuda", processors=make_processors(), jit=jit)
+    if buffer_mode is not None:
+        trainer.render = make_render_fn(trainer.processors, trainer.render_data, jit=False,
+                                        buffer_mode=buffer_mode)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = console_input((BATCH, CHAINS, 2, AUDIO_LEN), g, "cuda")
+    target = torch.randn(BATCH, 1, 2, AUDIO_LEN, generator=g, device="cuda")
+    return optimizer_run(trainer, x, target, steps=3)
+
+
+def det_stream(jit):
+    """Phase 9's 32 blocks through a fresh ``StreamRenderer``."""
+    console = bench_console(CHAINS, seed=0, device="cuda")
+    streamer = StreamRenderer(console.fused_processors, console.plan, console.params,
+                              block_len=BLOCK_LEN, jit=jit)
+    x = console_input((CHAINS, 2, AUDIO_LEN), torch.Generator(device="cuda").manual_seed(9), "cuda")
+    state, out = streamer.init_state(), {}
+    with torch.inference_mode():
+        for i, xb in enumerate(x.split(BLOCK_LEN, dim=-1)):
+            out[f"block{i + 1}"], state = streamer(xb, state)
+    return out
+
+
+def det_fit(jit):
+    """Five steps of a fresh fit optimizer (``mixing_console(16)``, its
+    defaults: MR-STFT loss, Adam) on phase 17's stems, towards a target
+    mix of its own."""
+    stems = synthetic_stems(FIT_TRACKS, AUDIO_LEN, torch.Generator().manual_seed(0)).cuda()
+    target = synthetic_stems(1, AUDIO_LEN, torch.Generator().manual_seed(3)).cuda()
+    return optimizer_run(fit_optimizer("cuda", jit=jit), stems, target, steps=FIT_STEPS_33)
+
+
+DETERMINISM_PATHS = {
+    "request": det_request,
+    "step": det_steps,
+    "step_factorized": functools.partial(det_steps, make_processors=factorized_processors),
+    "stream_block": det_stream,
+    "fit_step": det_fit,
+    "request_fsm": functools.partial(det_request, make_processors=fsm_processors),
+    "step_fsm": functools.partial(det_steps, make_processors=fsm_processors),
+    "request_noise": functools.partial(det_request, make_processors=noise_processors, key_seed=11),
+    "request_fdn": functools.partial(det_request, make_processors=fdn_processors, key_seed=12),
+    "request_array": functools.partial(det_request, buffer_mode="array"),
+    "step_array": functools.partial(det_steps, buffer_mode="array"),
+}
+
+
+def determinism_child(directory):
+    """Phase 33's second half, in a process whose environment sets
+    ``CUBLAS_WORKSPACE_CONFIG``: each path once, eagerly, under
+    ``torch.use_deterministic_algorithms(True)``.  Writes each path's
+    outputs (``<path>.pt``) and ``report.json``: the errors the paths
+    raised and every warning that names determinism."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    errors = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for name, run in DETERMINISM_PATHS.items():
+            try:
+                out = run(jit=False)
+            except RuntimeError as e:
+                errors[name] = str(e)[:2000]
+                continue
+            torch.save({k: v.cpu() for k, v in out.items()}, os.path.join(directory, f"{name}.pt"))
+            del out
+    notes = sorted({str(w.message)[:500] for w in caught if "determinis" in str(w.message)})
+    with open(os.path.join(directory, "report.json"), "w") as f:
+        json.dump({"errors": errors, "warnings": notes}, f)
+
+
+def determinism_phase(smi):
+    """Phase 33 (module docstring): each path twice eagerly and twice
+    compiled, every pair ``torch.equal``; then each once under
+    ``torch.use_deterministic_algorithms(True)`` in a child process,
+    within COMPILED_REL of the default eager run."""
+    eager_runs = {}
+    for name, run in DETERMINISM_PATHS.items():
+        start = time.perf_counter()
+        fields = {}
+        for form in ("eager", "compiled"):
+            a, b = run(jit=form == "compiled"), run(jit=form == "compiled")
+            check(a.keys() == b.keys(), f"determinism {name}: two {form} runs returned other tensors")
+            differ = {k: f"{rel_err(a[k], b[k]):.3g}" for k in a if not torch.equal(a[k], b[k])}
+            fields[f"{form}_bit_equal"] = not differ
+            if differ:
+                say("determinism", path=name, form=form, tensors=len(a), tensors_differing=len(differ),
+                    differ=dict(list(differ.items())[:8]))
+            check(not differ, f"determinism {name}: two {form} runs differ in {len(differ)} of {len(a)}"
+                              f" tensors")
+            if form == "eager":
+                eager_runs[name] = {k: v.cpu() for k, v in a.items()}
+            else:
+                ref = eager_runs[name]
+                fields["compiled_vs_eager_bit_equal"] = all(torch.equal(v.cpu(), ref[k]) for k, v in a.items())
+                fields["compiled_vs_eager_rel"] = f"{max(rel_err(v.cpu(), ref[k]) for k, v in a.items()):.3g}"
+            del a, b
+            torch.cuda.empty_cache()
+        say("determinism", path=name, tensors=len(eager_runs[name]), **fields,
+            seconds=f"{time.perf_counter() - start:.1f}", card=repr(smi))
+
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as directory:
+        env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": DETERMINISTIC_CUBLAS}
+        child = subprocess.run(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.determinism_child({directory!r})"],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env, capture_output=True, text=True,
+            timeout=DETERMINISM_CHILD_TIMEOUT_S)
+        if child.returncode != 0:
+            print(child.stdout[-4000:], child.stderr[-8000:], sep="\n", file=sys.stderr, flush=True)
+        check(child.returncode == 0, f"determinism: the deterministic-algorithms run exited {child.returncode}")
+        with open(os.path.join(directory, "report.json")) as f:
+            report = json.load(f)
+        say("determinism", run="use_deterministic_algorithms", cublas_workspace_config=DETERMINISTIC_CUBLAS,
+            errors=report["errors"], warnings=report["warnings"])
+        check(not report["errors"], f"determinism: use_deterministic_algorithms(True) refused"
+                                    f" {sorted(report['errors'])}")
+        for name, ref in eager_runs.items():
+            got = torch.load(os.path.join(directory, f"{name}.pt"), weights_only=True)
+            check(got.keys() == ref.keys(), f"determinism {name}: the deterministic run returned other tensors")
+            worst = max(rel_err(got[k], v) for k, v in ref.items())
+            same = all(torch.equal(got[k], v) for k, v in ref.items())
+            say("determinism", run="use_deterministic_algorithms", path=name, rel=f"{worst:.3g}", bit_equal=same)
+            check(worst <= COMPILED_REL, f"determinism {name}: under use_deterministic_algorithms at {worst:.3g}"
+                                         f" of max|default| > {COMPILED_REL}")
+    say("determinism", run="use_deterministic_algorithms", seconds=f"{time.perf_counter() - start:.1f}")
+
+
 def kernel_row(name, source, replaces, stats):
     """The kernel's entry of the ``{"kernels": [...]}`` line."""
     s = stats[name]
@@ -3188,6 +3388,12 @@ def main():
     del request_y
     serving_phase(smi, stats, fsm_processors, tag="_fsm")
     say("parallel", phase_32_s=f"{time.perf_counter() - phases_at:.1f}")
+
+    # 33. every path repeats bit for bit, and runs under
+    # torch.use_deterministic_algorithms(True)
+    phases_at = time.perf_counter()
+    determinism_phase(smi)
+    say("determinism", phase_33_s=f"{time.perf_counter() - phases_at:.1f}")
 
     for name in KERNELS:
         check(name in NO_PATH or "launches" in stats[name], f"{name} ran on no path")

@@ -4,11 +4,26 @@ The port of :mod:`grafx_tpu.ops.stft`: ``center=True`` with reflect
 padding, periodic windows, and iSTFT synthesis normalized by the summed
 squared window envelope.  The JAX package runs small inverse DFTs as
 matmuls because that suits the TPU; here ``torch.fft.irfft`` does it.
+The reflect padding is built from narrows and flips, whose backward adds
+in a fixed order: torch's ``reflection_pad1d`` backward adds by atomics
+on the card, and ``torch.use_deterministic_algorithms`` refuses it.
 """
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def _reflect_pad(x, pad: int):
+    """``x`` with ``pad`` samples mirrored about each end of its last dim,
+    the edge samples not repeated (``jnp.pad``'s and ``torch``'s
+    ``"reflect"`` mode, value for value)."""
+    length = x.shape[-1]
+    if pad >= length:
+        raise ValueError(f"reflect padding of {pad} needs more than {pad} samples, got {length}")
+    left = x.narrow(-1, 1, pad).flip(-1)
+    right = x.narrow(-1, length - 1 - pad, pad).flip(-1)
+    return torch.cat([left, x, right], dim=-1)
 
 
 def stft(x, n_fft: int, hop_length: int, window):
@@ -23,8 +38,8 @@ def stft(x, n_fft: int, hop_length: int, window):
         ``num_frames = 1 + L // hop_length`` (center=True convention).
     """
     lead, L = x.shape[:-1], x.shape[-1]
-    xp = F.pad(x.reshape(-1, 1, L), (n_fft // 2, n_fft // 2), mode="reflect")
-    frames = xp[:, 0].unfold(-1, n_fft, hop_length)  # (M, num_frames, n_fft)
+    xp = _reflect_pad(x.reshape(-1, L), n_fft // 2)
+    frames = xp.unfold(-1, n_fft, hop_length)  # (M, num_frames, n_fft)
     spec = torch.fft.rfft(frames * window, n=n_fft, dim=-1)
     return spec.transpose(-1, -2).reshape(lead + spec.shape[-1:] + spec.shape[-2:-1])
 

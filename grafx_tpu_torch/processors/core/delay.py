@@ -96,6 +96,14 @@ class SurrogateDelay(nn.Module):
         float64 (module docstring)."""
         return torch.argmax(self.soft_firs(z.reshape(-1).to(torch.complex128)), dim=-1)
 
+    @staticmethod
+    def get_hard_irs(irs):
+        """One-hot FIRs at the argmax of ``irs`` along the taps, detached
+        (reference: ``grafx_tpu/processors/core/delay.py:93-97``).  The
+        straight-through path picks its taps in float64 instead
+        (:meth:`onsets`, module docstring)."""
+        return torch.zeros_like(irs).scatter_(-1, irs.argmax(-1, keepdim=True), 1.0).detach()
+
     def apply_straight_through(self, irs, z):
         """The one-hot FIRs at ``z``'s onsets forward, ``irs``'s gradient
         backward."""

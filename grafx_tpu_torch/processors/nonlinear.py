@@ -127,10 +127,16 @@ class _BasisDistortion(nn.Module):
             input_signals = input_signals - input_signals.mean(-1, keepdim=True)
         if self.pre_gain:
             input_signals = input_signals * torch.exp(log_pre_gain)[..., None]
-        weights = torch.tanh(basis_weights)[..., None, None]  # (B, K, 1, 1)
+        return self._weighted_basis(input_signals, torch.tanh(basis_weights), self.use_tanh)
+
+    @classmethod
+    def _weighted_basis(cls, input_signals, basis_weights, use_tanh):
+        """``sum_k basis_weights[:, k] * basis_k(input_signals)``, the
+        weights as given, term by term."""
+        weights = basis_weights[..., None, None]  # (B, K, 1, 1)
         out = 0.0
-        for k, term in enumerate(self.basis(input_signals)):
-            if self.use_tanh:
+        for k, term in enumerate(cls.basis(input_signals, basis_weights.shape[-1])):
+            if use_tanh:
                 term = torch.tanh(term)
             out = out + weights[:, k] * term
         return out
@@ -149,8 +155,9 @@ class PowerDistortion(_BasisDistortion):
     exponent); ``grafx_tpu``'s is NaN there (jax's pow JVP forms k
     x^(k-1), 0 * inf at k = 0)."""
 
-    def basis(self, x):
-        for k in range(self.max_order):
+    @staticmethod
+    def basis(x, max_order):
+        for k in range(max_order):
             yield torch.pow(x, float(k))
 
 
@@ -159,10 +166,19 @@ class ChebyshevDistortion(_BasisDistortion):
     recurrence ``T_k = 2 x T_{k-1} - T_{k-2}`` (reference:
     nonlinear.py:315-413)."""
 
-    def basis(self, x):
+    @staticmethod
+    def basis(x, max_order):
         prev, cur = torch.ones_like(x), x
         yield prev
         yield cur
-        for _ in range(2, self.max_order):
+        for _ in range(2, max_order):
             prev, cur = cur, 2 * x * cur - prev
             yield cur
+
+    @staticmethod
+    def apply_distortion(input_signals, basis_weights, use_tanh=False):
+        """The Chebyshev basis of ``input_signals`` ``(B, C, L)`` weighted by
+        ``basis_weights`` ``(B, K)`` as given (``forward`` passes their
+        ``tanh``), each term through ``tanh`` first where ``use_tanh``
+        (reference: ``grafx_tpu/processors/nonlinear.py:172``)."""
+        return ChebyshevDistortion._weighted_basis(input_signals, basis_weights, use_tanh)

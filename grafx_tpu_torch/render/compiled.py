@@ -20,6 +20,10 @@ CUDA graph records those launches once and replays them with one call.
   ``_foreach_copy_``) and replay;
 * every call returns fresh tensors (a clone of each output), so two
   calls' results never alias, as JAX's arrays never do;
+* Python's cyclic garbage collector is paused while a capture runs: a
+  collection there can free another capture's graph (an optimizer and its
+  ``CapturedFunction`` form a cycle), and freeing a graph invalidates the
+  capture underway (``cudaErrorStreamCaptureInvalidated``);
 * a capture that fails raises; nothing gives way to the eager path on a
   CUDA tensor.
 
@@ -34,6 +38,7 @@ The kernel wrappers' launch counters count the warm-up and capture calls,
 not replays.
 """
 
+import gc
 import time
 
 import torch
@@ -81,11 +86,16 @@ class _Graph:
         self.graph = torch.cuda.CUDAGraph()
         args, kwargs = pytree.tree_unflatten(leaves, spec)
         start = time.perf_counter()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(self.graph):
                 out = fn(*args, **kwargs)
         except RuntimeError as e:
             raise RuntimeError(f"CUDA-graph capture of {name} failed: {e}") from e
+        finally:
+            if collecting:
+                gc.enable()
         self.seconds = time.perf_counter() - start
         self.out_leaves, self.out_spec = pytree.tree_flatten(out)
 

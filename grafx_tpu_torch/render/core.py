@@ -8,11 +8,20 @@ processor may keep a view of the rows it read for its backward pass, and
 an in-place write into the same tensor would make autograd refuse it or
 differentiate the wrong values.  A ``"one-by-one"`` plan keeps a Python
 list of per-node tensors, so node outputs may differ in length.
+
+Fan-in adds no two values by atomics, so a render and its gradient on
+the card are a function of their inputs, as ``grafx_tpu``'s are on the
+TPU: a ``scatter`` aggregation sums each segment's rows by a static plan
+(:class:`StaticSegmentSum`: one reduction, backward a gather), and an
+index read that repeats a row (:class:`StaticGather`) takes that sum as
+its backward in place of ``index_select``'s atomic accumulation.
 """
 
 import functools
 
 import torch
+
+from grafx_tpu_torch.render.prepare import plan_segment_sum
 
 
 @functools.cache
@@ -60,12 +69,70 @@ def create_signal_buffer(method, num_buffers, input_signals):
     return torch.cat([input_signals, input_signals.new_zeros(shape)], dim=node_dim)
 
 
+def _tracks_grad(x):
+    return x.requires_grad and torch.is_grad_enabled()
+
+
+def _segment_sum(x, plan, dim):
+    """Rows of ``x`` along ``dim`` summed into ``plan.num_segments``
+    segments (a :class:`~grafx_tpu_torch.render.prepare.SegmentSum`):
+    one reduction over equal sorted runs; else each row copied into its
+    own slot of a zero grid, one row of slots a segment, and one
+    reduction over the slots.  Each segment's rows add in one fixed
+    order."""
+    if plan.run:
+        return x.unflatten(dim, (plan.num_segments, plan.run)).sum(dim + 1)
+    shape = list(x.shape)
+    shape[dim] = len(plan.filled) * plan.width
+    grid = x.new_zeros(shape).index_copy_(dim, _index_tensor(plan.slots, x.device), x)
+    sums = grid.unflatten(dim, (len(plan.filled), plan.width)).sum(dim + 1)
+    if len(plan.filled) == plan.num_segments:
+        return sums
+    shape[dim] = plan.num_segments
+    return sums.new_zeros(shape).index_copy_(dim, _index_tensor(plan.filled, x.device), sums)
+
+
+class StaticSegmentSum(torch.autograd.Function):
+    """:func:`_segment_sum` whose backward gathers each row's segment
+    (:class:`StaticGather`): no accumulation, so no atomics."""
+
+    @staticmethod
+    def forward(ctx, x, plan, dim):
+        ctx.plan, ctx.dim = plan, dim
+        return _segment_sum(x, plan, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return StaticGather.apply(grad, ctx.plan, ctx.dim), None, None
+
+
+class StaticGather(torch.autograd.Function):
+    """Rows ``plan.idx`` of ``x`` along ``dim``; the backward sums the
+    gradient of each source row over its reads (:class:`StaticSegmentSum`)
+    where ``index_select``'s would add them by atomics."""
+
+    @staticmethod
+    def forward(ctx, x, plan, dim):
+        ctx.plan, ctx.dim = plan, dim
+        return x.index_select(dim, _index_tensor(plan.idx, x.device))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return StaticSegmentSum.apply(grad, ctx.plan, ctx.dim), None, None
+
+
 def read_tensor(x, access, dim=0):
-    """Read rows of a tensor along ``dim`` per a static access pattern."""
+    """Read rows of a tensor along ``dim`` per a static access pattern.
+    Under autograd, an index read that repeats a row is a
+    :class:`StaticGather` (one addend a row needs none)."""
     if access.method == "slice":
         lo, hi = access.idx
         return x.narrow(dim, lo, hi - lo)
     if access.method == "index":
+        if _tracks_grad(x):
+            plan = plan_segment_sum(access.idx, x.shape[dim])
+            if plan.width > 1:
+                return StaticGather.apply(x, plan, dim)
         return x.index_select(dim, _index_tensor(access.idx, x.device))
     raise ValueError(f"Unavailable read method: {access.method}")
 
@@ -107,18 +174,19 @@ def write_tensor(method, buf, y, access, dim=0):
 
 
 def aggregate_tensor(x, aggregation, dim=0):
-    """Fan-in aggregation (reference: core.py:101-112): ``sum`` collapses
-    all rows into one, ``scatter`` segment-sums rows into stage-node
-    positions."""
+    """Fan-in aggregation (reference: core.py:101-112;
+    ``grafx_tpu/render/core.py:85-121``): ``sum`` collapses all rows into
+    one, ``scatter`` segment-sums rows into stage-node positions by the
+    aggregation's static plan, without atomics (:class:`StaticSegmentSum`).
+    """
     if aggregation.method == "none":
         return x
     if aggregation.method == "sum":
         return x.sum(dim=dim, keepdim=True)
     if aggregation.method == "scatter":
-        shape = list(x.shape)
-        shape[dim] = aggregation.num_segments
-        idx = _index_tensor(aggregation.idx, x.device)
-        return x.new_zeros(shape).index_add_(dim, idx, x)
+        if _tracks_grad(x):
+            return StaticSegmentSum.apply(x, aggregation.segments, dim)
+        return _segment_sum(x, aggregation.segments, dim)
     raise ValueError(f"Unavailable aggregation method: {aggregation.method}")
 
 

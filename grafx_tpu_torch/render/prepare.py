@@ -7,7 +7,9 @@ the plan is a static Python int / numpy array computed on the host.
 
 Access compression: consecutive index lists become ``("slice", lo, hi)``
 (a tensor view, no copy), everything else a gather.  Aggregation classification picks ``none`` / ``sum`` /
-``segment_sum`` per stage-inlet.
+``scatter`` per stage-inlet; a ``scatter`` carries its :class:`SegmentSum`
+plan, from which the executor sums each segment's rows in a fixed order
+(no atomics, so a render on the card repeats bit for bit).
 
 One deliberate fix vs the reference: the MIMO path reads each edge's own
 outlet/inlet pair (the reference indexes ``edge_types`` with the stage
@@ -15,6 +17,7 @@ counter — prepare.py:150 — a latent bug) and the buffer row count is the
 total number of *outlets*, not nodes.
 """
 
+import functools
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
@@ -42,13 +45,66 @@ class TensorAccess:
 
 
 @dataclass(frozen=True)
+class SegmentSum:
+    """A static plan for summing rows into segments in a fixed order,
+    made once from each row's segment ``idx`` (the backward's gather
+    index):
+
+    * ``run``: ``k`` where segment ``s`` is rows ``[s k, (s + 1) k)`` for
+      every ``s`` (the sorted case of ``grafx_tpu/render/core.py:102``
+      with equal runs), else 0;
+    * ``filled``: the segments that have rows, ascending; the others
+      stay zero;
+    * ``slots``: each row's place in a zero ``(len(filled), width)``
+      grid, row-major: its segment's place in ``filled``, then its rank
+      among that segment's rows in the order of ``idx``.
+    """
+
+    idx: Tuple[int, ...]
+    num_segments: int
+    run: int
+    filled: Tuple[int, ...]
+    width: int
+    slots: Tuple[int, ...]
+
+
+@functools.cache
+def plan_segment_sum(idx, num_segments):
+    """The :class:`SegmentSum` of rows ``idx`` (a tuple: row ``r`` goes to
+    segment ``idx[r]``) into ``num_segments`` segments."""
+    counts = [0] * num_segments
+    for r, s in enumerate(idx):
+        if not 0 <= s < num_segments:
+            raise ValueError(f"Segment {s} of row {r} is outside [0, {num_segments})")
+        counts[s] += 1
+    filled = tuple(s for s, n in enumerate(counts) if n)
+    width = max(counts, default=0)
+    k = len(idx) // num_segments if num_segments else 0
+    run = k if k and idx == tuple(r // k for r in range(len(idx))) else 0
+    grid_row = {s: i for i, s in enumerate(filled)}
+    rank = [0] * num_segments
+    slots = []
+    for s in idx:
+        slots.append(grid_row[s] * width + rank[s])
+        rank[s] += 1
+    return SegmentSum(idx, num_segments, run, filled, width, tuple(slots))
+
+
+@dataclass(frozen=True)
 class Aggregation:
     """Fan-in handling: ``none`` (1:1), ``sum`` (all into one node), or
-    ``scatter`` (general fan-in via segment-sum)."""
+    ``scatter`` (general fan-in via segment-sum, planned in
+    ``segments``)."""
 
     method: str  # "none" | "sum" | "scatter"
     idx: Optional[Tuple] = None
     num_segments: int = 0
+
+    @property
+    def segments(self):
+        """A ``scatter``'s :class:`SegmentSum` (planned once per ``idx``
+        and count, when the render plan is made)."""
+        return plan_segment_sum(self.idx, self.num_segments)
 
     def __str__(self):
         if self.method == "scatter":
@@ -143,9 +199,9 @@ def check_aggregate_method(scatter_idx, node_list):
         and all(b - a == 1 for a, b in zip(scatter_idx, scatter_idx[1:]))
     ):
         return Aggregation(method="none")
-    return Aggregation(
-        method="scatter", idx=tuple(scatter_idx), num_segments=n
-    )
+    aggregation = Aggregation(method="scatter", idx=tuple(scatter_idx), num_segments=n)
+    aggregation.segments  # planned (and its indices checked) with the render plan
+    return aggregation
 
 
 def create_per_type_indices(node_types):

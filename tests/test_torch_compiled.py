@@ -6,6 +6,8 @@ bit for bit here, where both run eagerly; a compiled render refuses
 autograd; the captured step's plumbing refuses an optimizer it cannot
 capture; the replay's fresh copies alias nothing."""
 
+import contextlib
+import gc
 from types import SimpleNamespace
 
 import numpy as np
@@ -186,6 +188,37 @@ def test_fresh_copies_alias_nothing():
     ptrs = [x.data_ptr() for c in (first, second) for x in pytree.tree_leaves(c)
             if isinstance(x, torch.Tensor)]
     assert len(set(ptrs)) == len(ptrs)
+
+
+@pytest.mark.parametrize("fails", [False, True])
+@pytest.mark.parametrize("collecting", [True, False])
+def test_capture_pauses_the_collector(monkeypatch, fails, collecting):
+    """The cyclic collector does not run while a capture runs (it could
+    free another graph, which invalidates the capture) and is back as it
+    was afterwards, also after a capture that fails (the CUDA graph is
+    stubbed: there is none on the CPU)."""
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: None)
+    monkeypatch.setattr(torch.cuda, "graph", lambda _: contextlib.nullcontext())
+    seen = []
+
+    def fn(x):
+        seen.append(gc.isenabled())
+        if fails:
+            raise RuntimeError("operation failed due to a previous error during capture")
+        return x + 1
+
+    was = gc.isenabled()
+    (gc.enable if collecting else gc.disable)()
+    try:
+        if fails:
+            with pytest.raises(RuntimeError, match="CUDA-graph capture of f failed"):
+                _Graph(fn, "f", [torch.ones(2)], pytree.tree_flatten(((torch.ones(2),), {}))[1])
+        else:
+            graph = _Graph(fn, "f", [torch.ones(2)], pytree.tree_flatten(((torch.ones(2),), {}))[1])
+            assert torch.equal(graph.out_leaves[0], torch.full((2,), 2.0))
+        assert seen == [False] and gc.isenabled() == collecting
+    finally:
+        (gc.enable if was else gc.disable)()
 
 
 def test_index_tensors_made_once():

@@ -48,7 +48,8 @@ def test_fft_convolve_matches_jax(x_shape, h_shape, mode, pad_mode):
 
 
 @pytest.mark.parametrize(
-    "n_fft, hop, length", [(384, 192, 30000), (512, 128, 4000), (400, 160, 3001)]
+    "n_fft, hop, length",
+    [(384, 192, 30000), (512, 128, 4000), (400, 160, 3001), (4096, 1024, 8192), (256, 64, 257)],
 )
 def test_stft_istft_match_jax(n_fft, hop, length):
     rng = np.random.default_rng(1)
