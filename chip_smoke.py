@@ -12,7 +12,8 @@ class against the CPU at full width, render the console under every
 schedule (one-by-one included), into the array buffer and batched with
 ``batch_grafx``, time the convolution forms, render and train the
 console sharded over ``torch.distributed`` ranks, export and load the
-fsm console, and check every hand-written kernel on the way.
+fsm console, run the README's six examples (``examples_torch/``), and
+check every hand-written kernel on the way.
 
 Run from the root of the repository, on a machine with the card:
 
@@ -224,7 +225,38 @@ before the result line):
     paths once eagerly under ``torch.use_deterministic_algorithms(True)``:
     none may raise, and each output lies within COMPILED_REL of max|the
     default eager run's| (its bit-equality printed).  The package sets no
-    such flag: the paths are deterministic by their formulation.
+    such flag: the paths are deterministic by their formulation;
+34. examples: the six scripts of ``examples_torch/`` through their
+    ``main``, at the JAX examples' widths, lengths and step counts, each
+    with every launch counter at 0 just before it and read just after,
+    held to exact counts (``EXAMPLE_LAUNCHES``): ``fused_mastering`` (17
+    shelf/peak/shelf/low-pass chains at (4, 17, 2, 2^17), fused against
+    unfused below 1e-4, both SGD steps compiled and timed; no kernel),
+    ``streaming_console`` (the unfused console, one-shot against 32
+    blocks of 4096 <= -60 dB, the real-time factor, ``step_many`` at 4
+    and 16 blocks; #2 once a compressor and a gate stage for the one-shot
+    render, #7 once a compressor stage a block for the eager and the
+    capturing calls), ``serve_stream_wav`` (eq -> geq -> comp -> gain ->
+    reverb exported and served from the loaded artifact, within
+    COMPILED_REL of a live ``StreamRenderer``; #7 in the artifact's eager
+    and capturing blocks), ``match_mix`` (200 steps; #2 for the target, #5 and #6 for
+    the eager and the capturing step), ``neural_mixing`` (150 captured
+    momentum steps of the predictor; as match_mix) and ``multihost_dp``
+    (two gloo ranks sharing the card: each rank's three steps launch #5
+    and #6 once a step, rank 0's single-process check three more).
+    While each main runs, the forward kernels' launchers keep a copy of
+    the inputs of their first launch at each shape and kind
+    (``KernelInputs``; multihost_dp's ranks are other processes, so its
+    inputs come from one forward and backward of its console at a rank's
+    and at rank 0's batch in this process); on each, every kernel of the
+    family is held against its plain version (``check_path_inputs``: the
+    primal, the forward and the adjoint of #2/#5/#6, #7 split in two), and
+    a kernel launched on no checked input fails the phase.  match_mix's
+    and neural_mixing's target render and first step at the example's
+    sizes are held against the port's CPU path as phase 18 holds the fit
+    console's (``example_card_vs_cpu``: target and loss <= -60 dB, the
+    MSE gradient <= -60 dB and each leaf <= -40 dB, the MR-STFT gradient
+    within the CPU's own spread + 6 dB).
 
 Eager renders repeat bit for bit (phases 12 and 16 gate it, 25 and 26
 gate the same key's render, 18 the resumed losses, 33 every path).
@@ -248,7 +280,9 @@ under ``launches_per_run`` (``request_compiled``, ``step_compiled``,
 ``step_one_by_one`` (eager) and ``_compiled``, ``request_batched``; and
 phase 32's ``parallel_{step,request}_compiled_nccl_rank<r>``,
 ``parallel_{data,node,time,step}_gloo_rank<r>``, ``load_render_fsm``,
-``load_stream_step_fsm`` and ``load_stream_step4_fsm``).
+``load_stream_step_fsm`` and ``load_stream_step4_fsm``; and phase 34's
+``example_<name>``, the launches of one ``main``, and
+``example_multihost_dp_rank<r>``).
 
 The line before the last is ``{"kernels": [...]}``: per kernel its
 errors, times, launches on its path and per run of each path, and its
@@ -277,6 +311,7 @@ phases 25 and 26 the same for their consoles (``request_noise``,
 import argparse
 import copy
 import functools
+import importlib
 import json
 import os
 import shutil
@@ -652,8 +687,13 @@ def check_case(label, case, stats, absent=None, timed=False, path=None):
 
     prim, fwd = case.primal(), case.forward()
     bwd = case.backward(fwd)
-    prim_ref = plain(prim_name, lambda: case.primal(plain=True))
-    fwd_ref = plain(fwd_name, lambda: case.forward(plain=True))
+    if timed:
+        prim_ref = plain(prim_name, lambda: case.primal(plain=True))
+        fwd_ref = plain(fwd_name, lambda: case.forward(plain=True))
+    else:
+        # the plain primal is the plain forward's gain (ops/ballistics.py)
+        fwd_ref = case.forward(plain=True)
+        prim_ref = fwd_ref[0]
     # the kernel's residuals for both: #4/#6 alone
     bwd_ref = plain(bwd_name, lambda: case.backward(fwd, plain=True))
     torch.cuda.synchronize()
@@ -1769,22 +1809,44 @@ def compressor_stages(plan):
     return sum(stage.node_type == "compressor" for stage in plan.iter_list)
 
 
-def first_step(device, delay, stems, target, perturb=0.0):
-    """The fit optimizer's first step at full width on ``device``, at its
-    initial parameters, from one render: the output, the total and the
-    audio (MR-STFT) loss, and every gradient of the total and of the MSE
-    against the target; ``perturb`` scales relative noise on the stems."""
-    opt = fit_optimizer(device, delay=delay, jit=False)
+def optimizer_model(make_optimizer):
+    """A model for :func:`first_step`: ``device -> (forward, leaves)`` of
+    the optimizer that ``make_optimizer(device)`` builds, ``forward(x) ->
+    (output, auxiliary loss)`` its render at its parameters, ``leaves``
+    its trainable ``(path, tensor)``s."""
+    def model(device):
+        opt = make_optimizer(device)
+
+        def forward(x):
+            out, intermediates, _ = opt.render(x, opt.params)
+            return out, sum(v.sum() for inter in intermediates for v in tree_leaves(inter))
+
+        return forward, [(k, p) for k, p in tree_items(opt.params) if p.requires_grad]
+
+    return model
+
+
+def fit_model(delay):
+    """:func:`first_step`'s model of the fit optimizer (with ``delay``s),
+    eager."""
+    return optimizer_model(lambda device: fit_optimizer(device, delay=delay, jit=False))
+
+
+def first_step(model, device, stems, target, perturb=0.0):
+    """A first step at full width on ``device``: the output of
+    ``model(device)``'s forward, the total and the audio (MR-STFT) loss,
+    and every gradient of the total and of the MSE against the target;
+    ``perturb`` scales relative noise on the stems."""
+    forward, named = model(device)
     x = stems.to(device)
     if perturb:
         x = x * (1 + perturb * torch.randn(x.shape, generator=torch.Generator().manual_seed(5)).to(device))
     y = target.to(device)
     start = time.perf_counter()
-    out, intermediates, _ = opt.render(x, opt.params)
+    out, aux = forward(x)
     audio = multi_resolution_stft_loss(out, y)
-    total = audio + sum(v.sum() for inter in intermediates for v in tree_leaves(inter))
-    leaves = [p for _, p in tree_items(opt.params) if p.requires_grad]
-    names = [k for k, p in tree_items(opt.params) if p.requires_grad]
+    total = audio + aux
+    names, leaves = [k for k, _ in named], [p for _, p in named]
 
     def grads(loss, retain):
         return {k: g.cpu() for k, g in zip(names, torch.autograd.grad(loss, leaves, retain_graph=retain))}
@@ -1796,8 +1858,8 @@ def first_step(device, delay, stems, target, perturb=0.0):
     return result
 
 
-def step_card_vs_cpu(phase, delay, stems, target):
-    """The fit console's first step (with ``delay``s) on the card against
+def step_card_vs_cpu(phase, model, stems, target):
+    """``model``'s first step (:func:`first_step`) on the card against
     the CPU's at full width.  Gates: render, MR-STFT and total loss <=
     -60 dB; the render's backward, through the MSE's gradient, <= -60 dB
     (each leaf <= -40 dB).  The default loss's gradient is determined only
@@ -1806,8 +1868,8 @@ def step_card_vs_cpu(phase, delay, stems, target):
     CPU's (by ``r``), bins near their target flip.  So it is held to the
     CPU's own spread: the CPU gradient with the stems moved by relative
     noise of size ``r``, plus 6 dB.  Returns the fields of the line."""
-    card = first_step("cuda", delay, stems, target)
-    cpu = first_step("cpu", delay, stems, target)
+    card = first_step(model, "cuda", stems, target)
+    cpu = first_step(model, "cpu", stems, target)
     render_db = db(card["out"] - cpu["out"], cpu["out"])
     check(bool(torch.isfinite(card["out"]).all()), f"{phase}: non-finite render")
     check(render_db <= -60.0, f"{phase}: render card vs CPU at {render_db:.1f} dB > -60 dB")
@@ -1817,7 +1879,7 @@ def step_card_vs_cpu(phase, delay, stems, target):
     mse = compare_card_cpu(f"{phase} mse", {"cuda": card["audio"], "cpu": cpu["audio"]},
                            {"cuda": card["mse_grads"], "cpu": cpu["mse_grads"]})
     rel = torch.linalg.norm(card["out"] - cpu["out"]) / torch.linalg.norm(cpu["out"])
-    moved = first_step("cpu", delay, stems, target, perturb=rel.item())
+    moved = first_step(model, "cpu", stems, target, perturb=rel.item())
     cat = {k: torch.cat([v.ravel() for v in r["grads"].values()]) for k, r in
            (("cuda", card), ("cpu", cpu), ("moved", moved))}
     grad_db = db(cat["cuda"] - cat["cpu"], cat["cpu"])
@@ -1887,7 +1949,7 @@ def fit_phase(args, smi, stats):
         fit_busy = profile_run(lambda: opt.step(stems, target), args.profile, "fit_step_compiled", smi)
     del eager, truth
 
-    fields, cpu = step_card_vs_cpu("fit_card_vs_cpu", False, stems, target)
+    fields, cpu = step_card_vs_cpu("fit_card_vs_cpu", fit_model(False), stems, target)
     # the compiled optimizer's own first step: the same loss and gradient
     first_db = db(first_audio.cpu().double() - cpu["audio"].double(), cpu["audio"].double())
     check(first_db <= -60.0, f"fit: the first step's loss against the CPU's at {first_db:.1f} dB > -60 dB")
@@ -1969,7 +2031,7 @@ def delay_phase(args, smi, stats, stems, target, fit_busy):
                   {"ballistics_gain_core": stages, "ballistics_gain_fwd": stages,
                    "ballistics_gain_bwd": stages})
     check(bool(torch.isfinite(out).all()) and bool(torch.isfinite(total)), "delay: non-finite render or loss")
-    fields, cpu = step_card_vs_cpu("delay_card_vs_cpu", True, stems, target)
+    fields, cpu = step_card_vs_cpu("delay_card_vs_cpu", fit_model(True), stems, target)
     render_db = db(out.cpu() - cpu["out"], cpu["out"])
     check(render_db <= -60.0, f"delay: render_current card vs CPU at {render_db:.1f} dB > -60 dB")
     say("delay", nodes=opt.G.number_of_nodes(), render_current_db=f"{render_db:.1f}",
@@ -3190,6 +3252,282 @@ def determinism_phase(smi):
     say("determinism", run="use_deterministic_algorithms", seconds=f"{time.perf_counter() - start:.1f}")
 
 
+# phase 34: the README's examples (examples_torch/) on the card
+STREAM_DB = -60.0  # a streamed console against its one-shot render (phase 9's bound)
+
+
+def _stream_launches(out, k_blocks=(4, 16)):
+    """streaming_console's launches: #2 once a compressor and once a gate
+    stage for the one-shot render (the gates' exact one-pole smoother
+    runs the same kernel), and #7 once a compressor stage a block, in the
+    eager and the capturing call of each step (one block, then k blocks a
+    call; the streamed gates run no kernel); replays launch nothing."""
+    n, stages = out["blocks"], out["compressor_stages"]
+    calls = min(n, 2) + sum(k * min(n // k, 2) for k in k_blocks if n % k == 0)
+    return {"ballistics_gain_core": stages + out["gate_stages"], "ballistics_core": stages * calls}
+
+
+def _fit_launches(out):
+    """A no-grad target render (#2 once a compressor stage), then the
+    training step's eager and capturing calls (#5 and #6 once a stage
+    each)."""
+    stages = out["compressor_stages"]
+    return {"ballistics_gain_core": stages, "ballistics_gain_fwd": 2 * stages,
+            "ballistics_gain_bwd": 2 * stages}
+
+
+# name: its main's output -> {kernel: launches in one main}
+EXAMPLE_LAUNCHES = {
+    "fused_mastering": lambda out: {},
+    "streaming_console": _stream_launches,
+    "serve_stream_wav": lambda out: {"ballistics_core": min(out["blocks"], 2)},
+    "match_mix": _fit_launches,
+    "neural_mixing": _fit_launches,
+    "multihost_dp": lambda out: {},  # the parent launches nothing; each rank's own below
+}
+
+
+def _launch_fields(counts):
+    return {name: count for name, count in counts.items() if count}
+
+
+def _example_fields(name, out):
+    """The numbers an example printed, for its ``[examples]`` line."""
+    if name == "fused_mastering":
+        return dict(rel=f"{out['rel']:.3g}", unfused_step_ms=f"{out['unfused_ms']:.3f}",
+                    fused_step_ms=f"{out['fused_ms']:.3f}", speedup=f"{out['speedup']:.2f}",
+                    nodes=f"{out['nodes']}->{out['fused_nodes']}")
+    if name == "streaming_console":
+        return dict(nodes=out["nodes"], vs_one_shot_db=f"{out['err_db']:.1f}",
+                    block_ms=f"{out['block_ms']:.3f}", rtf=f"{out['rtf']:.1f}",
+                    **{f"step_many{k}_{f}": (f"{v[f]:.3f}" if f == "block_ms" else f"{v[f]:.1f}")
+                       for k, v in out["step_many"].items() for f in ("block_ms", "rtf")},
+                    **{f"step_many{k}_db": f"{20 * np.log10(v['err_rel'] + 1e-12):.1f}"
+                       for k, v in out["step_many"].items()})
+    if name == "serve_stream_wav":
+        return dict(artifact_mb=f"{out['artifact_mb']:.2f}", blocks=out["blocks"],
+                    block_ms=f"{out['block_ms']:.3f}", rtf_incl_capture=f"{out['rtf']:.1f}")
+    if name in ("match_mix", "neural_mixing"):
+        return dict(steps=out["steps"], loss=f"{out['loss_first']:.4f}->{out['loss_last']:.4f}",
+                    step_ms=f"{out['step_ms']:.3f}", compressor_stages=out["compressor_stages"])
+    return dict(rel=f"{out['rel']:.3g}", max_param_diff=f"{out['p_err']:.3g}",
+                rank_ms=[round(r["ms"], 3) for r in out["ranks"]])
+
+
+def _served_against_live(module, out):
+    """The artifact's output of serve_stream_wav against a live
+    ``StreamRenderer`` on the card: ``(relative error, bit-equal)``."""
+    _, audio = module.load_input(None)
+    procs, plan, params = module.build(torch.device("cuda"))
+    streamer = StreamRenderer(procs, plan, params, block_len=out["block"])
+    state, live = streamer.init_state(), []
+    x = torch.from_numpy(np.ascontiguousarray(audio[:, : out["blocks"] * out["block"]])).cuda()
+    with torch.no_grad():
+        for xb in x.split(out["block"], dim=-1):
+            y, state = streamer(xb[None], state)
+            live.append(y[0])
+    live = torch.cat(live, dim=-1).cpu()
+    got = torch.from_numpy(out["output"])
+    return rel_err(got, live), torch.equal(got, live)
+
+
+# the wrappers' launchers whose inputs a path's kernel checks take:
+# launcher -> the wrappers that reach it (a forward and its adjoint share
+# the forward's inputs)
+LAUNCHERS = {
+    "_gain_fwd_cuda": ("ballistics_gain_core", "ballistics_gain_fwd", "ballistics_gain_bwd"),
+    "_walk_fwd_cuda": ("ballistics_core", "ballistics_fwd", "ballistics_bwd"),
+    "_pair_fwd_cuda": ("ballistics_gain_pair_core", "ballistics_gain_pair_fwd", "ballistics_gain_pair_bwd"),
+}
+
+
+class KernelInputs:
+    """While entered, keeps a copy of the inputs of the first launch of
+    each forward kernel at each ``(rows, length)`` and kind, as the path
+    gives them (outside CUDA-graph captures, whose replays repeat the
+    shapes of the eager call before them): ``self.cases`` maps
+    ``(launcher, shape, kind)`` to ``(u, consts, kinds, inits)``."""
+
+    def __init__(self):
+        self.cases, self._saved = {}, {}
+
+    def _keep(self, launcher, u, consts, kinds, inits):
+        key = (launcher, tuple(u.shape), kinds)
+        if key not in self.cases and not torch.cuda.is_current_stream_capturing():
+            self.cases[key] = (u.detach().clone(), [c.detach().clone() for c in consts], kinds, inits)
+
+    def __enter__(self):
+        self._saved = {name: getattr(bal, name) for name in LAUNCHERS}
+        gain, walk, pair = (self._saved[name] for name in LAUNCHERS)
+
+        def gain_fwd(name, u, consts, kind, res, samples=None):
+            self._keep("_gain_fwd_cuda", u, consts, kind, None)
+            return gain(name, u, consts, kind, res, samples)
+
+        def walk_fwd(name, u, consts, res, samples=None):
+            self._keep("_walk_fwd_cuda", u, consts, None, None)
+            return walk(name, u, consts, res, samples)
+
+        def pair_fwd(name, u, consts, kinds, inits, res, samples=None):
+            self._keep("_pair_fwd_cuda", u, consts, tuple(kinds), tuple(inits))
+            return pair(name, u, consts, kinds, inits, res, samples)
+
+        bal._gain_fwd_cuda, bal._walk_fwd_cuda, bal._pair_fwd_cuda = gain_fwd, walk_fwd, pair_fwd
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(bal, name, fn)
+
+
+def check_path_inputs(label, inputs, launches, stats):
+    """Hold every kernel that a path launched against its plain version on
+    the inputs the path gave it (``inputs``, a :class:`KernelInputs`): the
+    primal, the forward and the adjoint (on a drawn cotangent) of each
+    gain and pair case, #7 of each walk case (and #8/#9 where the path
+    trained through the walk).  Fails where a launched kernel has no
+    case.  Returns the checked ``"rows x length"`` shapes by launcher."""
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    checked = {}
+    for (launcher, shape, kinds), (u, consts, _, inits) in sorted(inputs.cases.items(), key=str):
+        case_label = f"{label} {shape} {kinds or ''}".strip()
+        if launcher == "_walk_fwd_cuda":
+            check_walk(case_label, u, *consts, stats)
+            if launches.get("ballistics_fwd") or launches.get("ballistics_bwd"):
+                case = (u, *consts, torch.randn(shape, generator=gen, device="cuda"),
+                        0.1 + 0.89 * torch.rand(shape, generator=gen, device="cuda"))
+                check_smoother(case_label, case, stats)
+        else:
+            pair = launcher == "_pair_fwd_cuda"
+            gg = torch.randn(shape, generator=gen, device="cuda")
+            check_case(case_label, KernelCase(pair, u, consts, kinds, inits, gg), stats)
+        checked.setdefault(launcher, []).append(f"{shape[0]}x{shape[1]}" + (f" {kinds}" if kinds else ""))
+    for launcher, wrappers in LAUNCHERS.items():
+        ran = [w for w in wrappers if launches.get(w)]
+        check(not ran or launcher in checked, f"{label}: {ran} launched on no input that was checked")
+    return checked
+
+
+def predictor_model(module, tracks, stems):
+    """:func:`first_step`'s model of neural_mixing's predictor (seed 1) on
+    its console, conditioned on ``stems``' features: the render of the
+    predicted parameters, and the predictor's weights."""
+    def model(device):
+        G, processors, plan = module.console(tracks, device)
+        predictor, per_type = module.conditioning(G, processors, stems.to(device),
+                                                  torch.Generator().manual_seed(1))
+        render = make_render_fn(processors, plan, jit=False)
+        return (lambda x: (render(x, predictor(per_type))[0], 0.0)), list(predictor.named_parameters())
+
+    return model
+
+
+def example_card_vs_cpu(name, module, out):
+    """match_mix's and neural_mixing's target render and first training
+    step at the example's sizes, card against the port's CPU path: the
+    target within -60 dB, the first step by :func:`step_card_vs_cpu` on
+    the CPU's stems and target.  Returns the fields of the line."""
+    problems = {device: module.problem(out["tracks"], out["length"], torch.device(device))
+                for device in ("cuda", "cpu")}
+    target = {device: p[-1].cpu() for device, p in problems.items()}
+    target_db = db(target["cuda"] - target["cpu"], target["cpu"])
+    check(bool(torch.isfinite(target["cuda"]).all()), f"examples {name}: non-finite target on the card")
+    check(target_db <= -60.0, f"examples {name}: target card vs CPU at {target_db:.1f} dB > -60 dB")
+    stems = problems["cpu"][-2]
+    if name == "match_mix":
+        model = optimizer_model(lambda device: GraphParameterOptimizer(
+            *module.console(out["tracks"]), generator=torch.Generator().manual_seed(1), device=device,
+            jit=False))
+    else:
+        model = predictor_model(module, out["tracks"], stems)
+    fields, _ = step_card_vs_cpu(f"{name}_card_vs_cpu", model, stems, target["cpu"])
+    return {"target_card_vs_cpu_db": f"{target_db:.1f}", **{f"first_step_{k}": v for k, v in fields.items()}}
+
+
+def multihost_inputs(module, out):
+    """multihost_dp's kernel inputs, made in this process (its ranks are
+    other processes): one forward and backward of the example's console
+    at each rank's local batch and at rank 0's whole batch."""
+    inputs = KernelInputs()
+    shapes = {tuple(r["local_shape"]) for r in out["ranks"]}
+    shapes.add((module.GLOBAL_BATCH, *out["ranks"][0]["local_shape"][1:]))
+    with inputs:
+        for shape in sorted(shapes):
+            procs, plan, params = module.console(torch.device("cuda"))
+            for leaf in tree_leaves(params):
+                leaf.requires_grad_(True)
+            x = torch.randn(shape, generator=torch.Generator().manual_seed(1)).cuda()
+            torch.mean(make_render_fn(procs, plan, jit=False)(x, params)[0] ** 2).backward()
+    return inputs
+
+
+def examples_phase(smi, stats):
+    """Phase 34 (module docstring): each example's ``main`` on the card,
+    its launches held to ``EXAMPLE_LAUNCHES``, its kernels held against
+    their plain versions on the inputs it gave them, and the training
+    examples' first step against the CPU's."""
+    directory = tempfile.mkdtemp(prefix="grafx_examples_")
+    try:
+        for name, expected_of in EXAMPLE_LAUNCHES.items():
+            module = importlib.import_module(f"examples_torch.{name}")
+            argv = []
+            if name == "serve_stream_wav":  # the synthetic program, written to a temp dir
+                argv = ["", os.path.join(directory, "served.wav"), "4096"]
+            torch.cuda.synchronize()
+            bal.reset_launch_counts()
+            start = time.perf_counter()
+            with KernelInputs() as inputs:
+                out = module.main(argv + ["--device", "cuda"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+            launches = path_launches = bal.launch_counts()
+            expected = expected_of(out)
+            for kernel, count in launches.items():
+                check(count == expected.get(kernel, 0),
+                      f"examples {name}: {kernel} launched {count} times, not {expected.get(kernel, 0)}")
+                stats[kernel]["per_run"][f"example_{name}"] = count
+            fields = _example_fields(name, out)
+            if name == "streaming_console":
+                check(out["err_db"] <= STREAM_DB,
+                      f"examples {name}: streamed vs one-shot at {out['err_db']:.1f} dB > {STREAM_DB} dB")
+                for k, v in out["step_many"].items():
+                    check(v["err_rel"] <= 10 ** (STREAM_DB / 20),
+                          f"examples {name}: step_many({k}) vs one-shot at {v['err_rel']:.3g}")
+            if name == "serve_stream_wav":
+                check(bool(np.isfinite(out["output"]).all()), f"examples {name}: non-finite output")
+                err, same = _served_against_live(module, out)
+                check(err <= COMPILED_REL, f"examples {name}: served vs live stream at {err:.3g}"
+                                           f" of max|live| > {COMPILED_REL}")
+                fields.update(vs_live_rel=f"{err:.3g}", vs_live_bit_equal=same)
+            if name in ("match_mix", "neural_mixing"):
+                check(np.isfinite(out["loss_last"]) and out["loss_last"] < out["loss_first"],
+                      f"examples {name}: the loss did not fall")
+            if name == "multihost_dp":
+                for r in out["ranks"]:
+                    # each rank's steps, and rank 0's single-process check as many
+                    steps = out["steps"] * r["compressor_stages"] * (2 if r["rank"] == 0 else 1)
+                    got = r["launches_with_oracle"] if r["rank"] == 0 else r["launches"]
+                    want = {"ballistics_gain_fwd": steps, "ballistics_gain_bwd": steps}
+                    for kernel, count in got.items():
+                        check(count == want.get(kernel, 0),
+                              f"examples {name}: rank {r['rank']} launched {kernel} {count} times,"
+                              f" not {want.get(kernel, 0)}")
+                        stats[kernel]["per_run"][f"example_{name}_rank{r['rank']}"] = count
+                    fields[f"rank{r['rank']}_launches"] = _launch_fields(got)
+                inputs = multihost_inputs(module, out)
+                path_launches = {k: sum(r["launches_with_oracle" if r["rank"] == 0 else "launches"][k]
+                                        for r in out["ranks"]) for k in launches}
+            if name in ("match_mix", "neural_mixing"):
+                fields.update(example_card_vs_cpu(name, module, out))
+            with torch.no_grad():
+                fields["kernel_inputs_checked"] = check_path_inputs(f"examples {name}", inputs,
+                                                                    path_launches, stats)
+            say("examples", example=name, **fields, launches=_launch_fields(launches),
+                seconds=f"{seconds:.1f}", card=repr(smi))
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+
 def kernel_row(name, source, replaces, stats):
     """The kernel's entry of the ``{"kernels": [...]}`` line."""
     s = stats[name]
@@ -3394,6 +3732,11 @@ def main():
     phases_at = time.perf_counter()
     determinism_phase(smi)
     say("determinism", phase_33_s=f"{time.perf_counter() - phases_at:.1f}")
+
+    # 34. the README's six examples through their main, on the card
+    phases_at = time.perf_counter()
+    examples_phase(smi, stats)
+    say("examples", phase_34_s=f"{time.perf_counter() - phases_at:.1f}")
 
     for name in KERNELS:
         check(name in NO_PATH or "launches" in stats[name], f"{name} ran on no path")

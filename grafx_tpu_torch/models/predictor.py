@@ -34,7 +34,7 @@ def audio_features(signals, n_fft=1024, hop=512, num_bands=32, sr=44100):
         f_min=40,
         f_max=sr // 2,
         sr=sr,
-    ).to(signals.device)
+    ).to(signals.device, signals.dtype)
     bands = fb(spec.transpose(-1, -2), mode="analysis")  # (B, T, bands)
     log_bands = torch.log(bands + 1e-6)
     return torch.cat([log_bands.mean(-2), log_bands.std(-2, correction=0)], dim=-1)

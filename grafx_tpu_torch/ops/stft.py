@@ -16,14 +16,22 @@ import torch.nn.functional as F
 
 def _reflect_pad(x, pad: int):
     """``x`` with ``pad`` samples mirrored about each end of its last dim,
-    the edge samples not repeated (``jnp.pad``'s and ``torch``'s
-    ``"reflect"`` mode, value for value)."""
+    the edge samples not repeated (``jnp.pad``'s ``"reflect"`` mode,
+    value for value; ``torch``'s too, where ``pad < length``).  A pad as
+    long as the signal or longer reflects again past its ends, as
+    ``jnp.pad`` does: the padded signal repeats with period
+    ``2 * (length - 1)`` (a one-sample signal repeats)."""
     length = x.shape[-1]
-    if pad >= length:
-        raise ValueError(f"reflect padding of {pad} needs more than {pad} samples, got {length}")
-    left = x.narrow(-1, 1, pad).flip(-1)
-    right = x.narrow(-1, length - 1 - pad, pad).flip(-1)
-    return torch.cat([left, x, right], dim=-1)
+    if length == 0:
+        raise ValueError("reflect padding needs a signal of at least one sample")
+    if pad < length:
+        left = x.narrow(-1, 1, pad).flip(-1)
+        right = x.narrow(-1, length - 1 - pad, pad).flip(-1)
+        return torch.cat([left, x, right], dim=-1)
+    period = x if length == 1 else torch.cat([x, x.narrow(-1, 1, length - 2).flip(-1)], dim=-1)
+    n = period.shape[-1]
+    start, total = (-pad) % n, length + 2 * pad
+    return torch.cat([period] * -(-(start + total) // n), dim=-1).narrow(-1, start, total)
 
 
 def stft(x, n_fft: int, hop_length: int, window):

@@ -341,8 +341,29 @@ def test_reflect_pad_equals_torch_reflect(pad, length):
 
 
 def test_reflect_pad_refuses_a_pad_past_the_signal():
+    """A pad as long as the signal or longer reflects again (as jnp.pad
+    does; test_reflect_pad_past_the_signal_equals_jnp_pad); only an empty
+    signal, which has nothing to reflect, is refused (as jnp.pad refuses
+    it)."""
     with pytest.raises(ValueError, match="reflect padding"):
-        stft._reflect_pad(torch.randn(2, 8), 8)
+        stft._reflect_pad(torch.randn(2, 0), 8)
+    with pytest.raises(ValueError):
+        jnp.pad(jnp.zeros((2, 0)), ((0, 0), (8, 8)), mode="reflect")
+
+
+@pytest.mark.parametrize("pad, length", [(1, 1), (3, 2), (8, 8), (25, 5), (1023, 700), (1024, 1024)])
+def test_reflect_pad_past_the_signal_equals_jnp_pad(pad, length):
+    """Pads as long as the signal or longer (an STFT of n_fft // 2 samples
+    or fewer) equal jnp.pad's reflect mode value for value, and their
+    VJP equals jax.vjp's."""
+    x = np.random.default_rng(length).standard_normal((3, length)).astype(np.float32)
+    cot = np.random.default_rng(pad).standard_normal((3, length + 2 * pad)).astype(np.float32)
+    ref, vjp = jax.vjp(lambda v: jnp.pad(v, ((0, 0), (pad, pad)), mode="reflect"), jnp.asarray(x))
+    xt = torch.tensor(x, requires_grad=True)
+    got = stft._reflect_pad(xt, pad)
+    assert np.array_equal(got.detach().numpy(), np.asarray(ref))
+    (gx,) = torch.autograd.grad(got, xt, torch.tensor(cot))
+    np.testing.assert_allclose(gx.numpy(), np.asarray(vjp(jnp.asarray(cot))[0]), rtol=1e-6, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

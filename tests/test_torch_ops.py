@@ -11,7 +11,9 @@ import torch
 
 from grafx_tpu.ops import fftconv as jfft
 from grafx_tpu.ops import iir as jiir
+from grafx_tpu.ops.losses import multi_resolution_stft_loss as j_mrstft
 from grafx_tpu_torch.ops import fftconv, iir
+from grafx_tpu_torch.ops.losses import multi_resolution_stft_loss
 
 # the packages' ops/__init__ re-export a function named stft over the module
 jstft = importlib.import_module("grafx_tpu.ops.stft")
@@ -68,6 +70,23 @@ def test_stft_istft_match_jax(n_fft, hop, length):
     y = stft.istft(torch.tensor(spec_ref * mask), n_fft, hop, torch.tensor(win), length)
     np.testing.assert_allclose(y.numpy(), y_ref, rtol=1e-3, atol=1e-4)
     np.testing.assert_array_equal(stft.hann_window(n_fft), jstft.hann_window(n_fft))
+
+
+@pytest.mark.parametrize("length", [1024, 700, 300])
+def test_mrstft_loss_of_a_signal_no_longer_than_the_pad_matches_jax(length):
+    """Signals of n_fft // 2 samples or fewer (the MR-STFT loss's
+    2048-point FFT pads 1024 on each side): the STFT and the loss against
+    grafx_tpu's, whose jnp.pad reflects again past the signal's ends."""
+    rng = np.random.default_rng(length)
+    x, y = (rng.normal(size=(1, 2, length)).astype(np.float32) for _ in range(2))
+    win = jstft.hann_window(2048).astype(np.float32)
+    spec_ref = np.asarray(jstft.stft(jnp.asarray(x), 2048, 512, jnp.asarray(win)))
+    spec = stft.stft(torch.tensor(x), 2048, 512, torch.tensor(win))
+    assert spec.shape == spec_ref.shape
+    # the bounds of tests/ops/test_stft.py
+    np.testing.assert_allclose(spec.numpy(), spec_ref, rtol=1e-3, atol=1e-4)
+    ref = float(j_mrstft(jnp.asarray(x), jnp.asarray(y)))
+    assert multi_resolution_stft_loss(torch.tensor(x), torch.tensor(y)).item() == pytest.approx(ref, rel=1e-5)
 
 
 def random_stable_biquads(rng, n, k):
