@@ -12,8 +12,12 @@ class against the CPU at full width, render the console under every
 schedule (one-by-one included), into the array buffer and batched with
 ``batch_grafx``, time the convolution forms, render and train the
 console sharded over ``torch.distributed`` ranks, export and load the
-fsm console, run the README's six examples (``examples_torch/``), and
-check every hand-written kernel on the way.
+fsm console, run the README's six examples (``examples_torch/``), hold
+every library class no earlier phase ran against the CPU at full width
+(gradients and streams included), serve, train and stream the console
+with gain-smoothed dynamics (the ballistics walk at full rate), fit the
+README's single-source builders, and check every hand-written kernel on
+the way.
 
 Run from the root of the repository, on a machine with the card:
 
@@ -218,8 +222,9 @@ before the result line):
     console's three steps, 32 stream blocks, five ``mixing_console(16)``
     fit steps on the MR-STFT loss (Adam), the fsm console's request and
     three steps, the noise and FDN consoles' requests on one fixed key,
-    and the exact console's request and three steps under
-    ``buffer_mode="array"``; each line prints whether the compiled runs
+    the exact console's request and three steps under
+    ``buffer_mode="array"``, and phase 35's gain-smoothed console's
+    request, three steps and 32 blocks; each line prints whether the compiled runs
     equal the eager ones bit for bit and how far apart they are.  Then, in
     a process of its own with ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, the same
     paths once eagerly under ``torch.use_deterministic_algorithms(True)``:
@@ -256,7 +261,62 @@ before the result line):
     sizes are held against the port's CPU path as phase 18 holds the fit
     console's (``example_card_vs_cpu``: target and loss <= -60 dB, the
     MSE gradient <= -60 dB and each leaf <= -40 dB, the MR-STFT gradient
-    within the CPU's own spread + 6 dB).
+    within the CPU's own spread + 6 dB);
+35. library on the card (``library_card_phase``), three parts:
+    (a) each class that no earlier phase ran, at 68 x 2 x 2^17: the seven
+    filters ``AllPassFilter``, ``BandPassFilter``, ``BandRejectFilter``,
+    ``BiquadFilter``, ``HighPassFilter``, ``PoleZeroFilter`` and
+    ``StateVariableFilter`` on their default backend (fsm) and on
+    ``backend="exact"``, ``ZeroPhaseFIREqualizer``,
+    ``NewZeroPhaseFIREqualizer``, ``ApproxCompressor``,
+    ``ApproxNoiseGate``, ``IIREnvelopeFollower`` (energy, rms_channel),
+    ``BallisticsEnvelopeFollower`` (energy, amplitude), ``Compressor()``
+    and ``NoiseGate()`` at their defaults (the truncated one-pole FIR),
+    ``Compressor(energy_smoother="ballistics")`` with the hard and the
+    exponential knee, ``ParallelMix`` (an all-pass beside a hard-knee
+    compressor) and ``GainStagingRegularization(PoleZeroFilter(
+    backend="exact"))``; parameters and input (-40 dB passages) drawn with
+    numpy, the same on the card and the CPU.  Each line: the card's
+    forward ms and launches, the gradient's launches, and the forward, the
+    loss (sum of output x a drawn weight, plus a container's auxiliary
+    loss) and the gradient of every parameter and of the input held
+    against the port's CPU path, <= -60 dB (each leaf <= -40 dB, zero
+    leaves zero), at full width, or at 68 x 2 x 2^15 on both where the CPU
+    path runs the plain ballistics walk (the card's calls above stay at
+    full width).  A class smoothed by the truncated one-pole FIR (an FFT
+    convolution whose round-off scales with the loudest sample), and the
+    pole-zero and state-variable filters, whose parameters are drawn to put
+    poles within 1e-4 of the unit circle (LIBRARY_STD), that miss one of
+    these bounds are held instead to the CPU's own float32 spread against
+    float64, + 6 dB (printed beside it, with the reason).  A class that
+    streams streams 32 blocks of 4096 on the card, within -60 dB (max abs
+    over peak) of its one-shot render; the zero-phase equalizers and the
+    truncated-FIR compressor and gate refuse to stream, as in grafx_tpu.
+    (b) the gain-smoothed console: bench.py's with
+    ``Compressor(energy_smoother="ballistics", gain_smoother="ballistics")``
+    and ``NoiseGate(energy_smoother="iir_exact", gain_smoother=
+    "ballistics", gain_smooth_in_log=True)``, fused as bench.py fuses it
+    (its gate -> compressor composites compose: no pair walk), parameters
+    drawn on the unfused graph and migrated, at (4, 17, 2, 2^17): served
+    (phase 5, then compiled as phase 12), card vs CPU (phase 8), trained
+    (phase 6, then compiled as phase 13), its gradients card vs CPU (phase
+    7, a leaf that float32 determines less well held to the CPU's own
+    spread against float64 + 6 dB), streamed (phase 9, then compiled with
+    ``step_many(4)`` as phase 15), each with exact launches: #7 five times
+    a request and a block, #8 and #9 five times each a step (the
+    composites' gate gain, compressor energy and gain over 68 rows, the
+    bus compressors' energy and gain over 8; a block 17 and 2); then each
+    kernel held against its plain version on the inputs this console gave
+    it (``KernelInputs``, ``check_path_inputs``) and #8/#9 timed on the
+    68-row input; (c) ``simple_chain()`` and ``mastering_chain()`` (exact
+    backend) through ``GraphParameterOptimizer(device="cuda")`` on one
+    stereo source (1, 2, 2^17): the target's capture (#2 once), 10 fit
+    steps (the capture of the second: #5 and #6 once), the loss falling,
+    the first step against the CPU's as phase 17's (the MR-STFT gradient
+    within -60 dB, phase 7's bound, where it lies below the CPU's own
+    spread: these renders agree to the last bits), and #2, #5 and #6 held
+    against their plain versions on the inputs of the first eager render
+    and step (one row x 2^17, the reverse walk's own chunk pick).
 
 Eager renders repeat bit for bit (phases 12 and 16 gate it, 25 and 26
 gate the same key's render, 18 the resumed losses, 33 every path).
@@ -282,7 +342,13 @@ phase 32's ``parallel_{step,request}_compiled_nccl_rank<r>``,
 ``parallel_{data,node,time,step}_gloo_rank<r>``, ``load_render_fsm``,
 ``load_stream_step_fsm`` and ``load_stream_step4_fsm``; and phase 34's
 ``example_<name>``, the launches of one ``main``, and
-``example_multihost_dp_rank<r>``).
+``example_multihost_dp_rank<r>``; and phase 35's ``library35 <class>
+forward`` and ``gradient``, ``request_gs``, ``step_gs``,
+``stream_block_gs`` and each with ``_compiled``,
+``stream_block_gs_step_many4_compiled``,
+``fit_render_<chain>_compiled`` and ``fit_step_<chain>_compiled``; #8
+and #9 also carry their time at the gain-smoothed console's 68 x 2^17
+input under ``more_shapes``).
 
 The line before the last is ``{"kernels": [...]}``: per kernel its
 errors, times, launches on its path and per run of each path, and its
@@ -337,7 +403,9 @@ from grafx_tpu_torch.models import (
     audio_features,
     bench_console,
     bench_trainer,
+    mastering_chain,
     mixing_console,
+    simple_chain,
 )
 from grafx_tpu_torch.models.console import bench_graph, bench_processors
 from grafx_tpu_torch.models.optimize import OPT_STATE_FILE
@@ -348,21 +416,38 @@ from grafx_tpu_torch.ops.fftconv import _auto_os_block, fft_convolve, fft_convol
 from grafx_tpu_torch.ops.iir import exactness_check_db
 from grafx_tpu_torch import random
 from grafx_tpu_torch.processors import (
+    AllPassFilter,
+    ApproxCompressor,
+    ApproxNoiseGate,
+    BallisticsEnvelopeFollower,
+    BandPassFilter,
+    BandRejectFilter,
+    BiquadFilter,
     ChebyshevDistortion,
+    Compressor,
     DryWet,
     FactorizedCompressor,
     FeedbackDelayNetwork,
     FilteredNoiseShapingReverb,
     FIRFilter,
+    GainStagingRegularization,
+    HighPassFilter,
+    IIREnvelopeFollower,
     MidSideToStereo,
     MonoToStereo,
+    NewZeroPhaseFIREqualizer,
+    NoiseGate,
+    ParallelMix,
     PiecewiseTanhDistortion,
+    PoleZeroFilter,
     PowerDistortion,
     SerialChain,
     SideGainImager,
+    StateVariableFilter,
     STFTMaskedNoiseReverb,
     StereoGain,
     StereoToMidSide,
+    ZeroPhaseFIREqualizer,
 )
 from grafx_tpu_torch.ops.losses import mse_loss, multi_resolution_stft_loss
 from grafx_tpu_torch.render import (
@@ -400,7 +485,6 @@ LAYOUT_ROW = ("ballistics_core", GAIN_SRC, "benchmarks/ballistics_layout_ab.py:3
 SERVE_KERNELS = ("ballistics_gain_pair_core", "ballistics_gain_core")
 TRAIN_KERNELS = ("ballistics_gain_pair_fwd", "ballistics_gain_pair_bwd",
                  "ballistics_gain_fwd", "ballistics_gain_bwd")
-STREAM_KERNELS = ("ballistics_core",)
 # launches per run of the console's paths (exact and fsm alike): the pair
 # stage and the bus-compressor stage each launch once
 SERVE_REQUEST = {"ballistics_gain_pair_core": 1, "ballistics_gain_core": 1}
@@ -1185,10 +1269,11 @@ def profile_run(fn, out_dir, name, card):
     return busy
 
 
-def serve_phase(args, smi, stats, phase, path, make_processors):
+def serve_phase(args, smi, stats, phase, path, make_processors, exact=SERVE_REQUEST):
     """Phases 5 and 21: three eager requests of (4, 17, 2, 2^17) through the
-    fused console built on ``make_processors()``, #1 and #2 once each a
-    request and nothing else; returns the console."""
+    fused console built on ``make_processors()``, the kernels of ``exact``
+    so many times a request (#1 and #2 once each) and nothing else;
+    returns the console."""
     console = bench_console(CHAINS, seed=0, device="cuda", processors=make_processors())
     render = make_render_fn(console.fused_processors, console.plan, jit=False)
     requests = []
@@ -1205,7 +1290,7 @@ def serve_phase(args, smi, stats, phase, path, make_processors):
             check(y.shape == (BATCH, 1, 2, AUDIO_LEN), f"{phase}: output shape {tuple(y.shape)}")
             check(bool(torch.isfinite(y).all()), f"{phase}: non-finite output")
             request_ms.append(ms)
-    launches = read_launches(path, len(requests), stats, SERVE_KERNELS, SERVE_REQUEST)
+    launches = read_launches(path, len(requests), stats, exact, exact)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     say(phase, requests=len(request_ms), request_ms=[round(t, 3) for t in request_ms],
         median_ms=f"{statistics.median(request_ms):.3f}", peak_mem_gib=f"{peak_gb:.2f}",
@@ -1216,17 +1301,18 @@ def serve_phase(args, smi, stats, phase, path, make_processors):
     return console
 
 
-def train_phase(args, smi, stats, phase, path, make_processors, nonzero=lambda leaf: True):
+def train_phase(args, smi, stats, phase, path, make_processors, nonzero=lambda leaf: True,
+                exact=TRAIN_STEP):
     """Phases 6, 22, 25 and 26: three eager gradient steps of
     ``bench_trainer(17)`` on ``make_processors()`` at (4, 17, 2, 2^17),
-    #3-#6 once each a step and nothing else (``nonzero`` as for
-    :func:`train_steps`)."""
+    the kernels of ``exact`` so many times a step (#3-#6 once each) and
+    nothing else (``nonzero`` as for :func:`train_steps`)."""
     trainer = bench_trainer(CHAINS, seed=0, device="cuda", processors=make_processors(), jit=False)
     g = torch.Generator(device="cuda").manual_seed(7)
     x = console_input((BATCH, CHAINS, 2, AUDIO_LEN), g, "cuda")
     target = torch.randn(BATCH, 1, 2, AUDIO_LEN, generator=g, device="cuda")
     fields = train_steps(trainer, x, target, nonzero=nonzero)
-    launches = read_launches(path, fields["steps"], stats, TRAIN_KERNELS, TRAIN_STEP)
+    launches = read_launches(path, fields["steps"], stats, exact, exact)
     say(phase, **fields, launches=launches, card=repr(smi))
     if args.profile:
         profile_run(lambda: trainer.step(x, target), args.profile, path, smi)
@@ -1251,10 +1337,11 @@ def render_card_vs_cpu(phase, make_processors, key_seed=None):
 
 
 def stream_phase(args, smi, stats, phase="stream", path="stream_block", make_processors=bench_processors,
-                 key_seed=None):
+                 key_seed=None, exact=STREAM_BLOCK):
     """Phases 9, 23, 25 and 26: the console on ``make_processors()``
     streamed in blocks (``StreamRenderer(rng=PRNGKey(key_seed))`` where a
-    seed is given), against its one-shot render on the same key."""
+    seed is given), the kernels of ``exact`` so many times a block (#7
+    twice), against its one-shot render on the same key."""
     console = bench_console(CHAINS, seed=0, device="cuda", processors=make_processors())
     key = None if key_seed is None else random.PRNGKey(key_seed, device="cuda")
     streamer = StreamRenderer(console.fused_processors, console.plan, console.params,
@@ -1275,7 +1362,7 @@ def stream_phase(args, smi, stats, phase="stream", path="stream_block", make_pro
             block_ms.append(ms)
             check(y.shape == (1, 2, BLOCK_LEN), f"stream block shape {tuple(y.shape)}")
             outs.append(y)
-    launches = read_launches(path, len(x_blocks), stats, STREAM_KERNELS, STREAM_BLOCK)
+    launches = read_launches(path, len(x_blocks), stats, exact, exact)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     streamed = torch.cat(outs, dim=-1)
     check(bool(torch.isfinite(streamed).all()), "non-finite streamed output")
@@ -1351,10 +1438,12 @@ def train_steps(trainer, x, target, steps=3, nonzero=lambda leaf: True):
                 **({"zero_gradient_leaves": sorted(zero_grad)} if zero_grad else {}))
 
 
-def grad_card_vs_cpu(phase, make_processors):
+def grad_card_vs_cpu(phase, make_processors, float64_spread=False):
     """The trainer's loss and every parameter gradient at batch 1, L =
     2^14, on the card against the port's CPU path: loss and concatenated
-    gradient <= -60 dB, each nonzero leaf <= -40 dB, zero leaves zero."""
+    gradient <= -60 dB, each nonzero leaf <= -40 dB (or, with
+    ``float64_spread``, within the CPU's own float32 spread: see
+    :func:`compare_card_cpu`), zero leaves zero."""
     g = torch.Generator().manual_seed(4)
     x = console_input((1, CHAINS, 2, 2**14), g, "cpu")
     target = torch.randn(1, 1, 2, 2**14, generator=g)
@@ -1364,7 +1453,17 @@ def grad_card_vs_cpu(phase, make_processors):
         total, audio = tr.loss(x.to(device), target.to(device))
         total.backward()
         losses[device], grads[device] = audio, leaf_grads(tr.params)
-    say(phase, **compare_card_cpu(phase, losses, grads))
+
+    def cpu_float64():
+        tr = bench_trainer(CHAINS, seed=5, device="cpu", processors=make_processors(), jit=False)
+        for proc in tr.processors.values():
+            proc.double()
+        tr.params = tree_map(lambda p: p.detach().double().requires_grad_(p.requires_grad), tr.params)
+        total, audio = tr.loss(x.double(), target.double())
+        total.backward()
+        return audio.detach(), leaf_grads(tr.params)
+
+    say(phase, **compare_card_cpu(phase, losses, grads, cpu_float64 if float64_spread else None))
 
 
 def leaf_grads(params):
@@ -1373,15 +1472,36 @@ def leaf_grads(params):
             for k, p in tree_items(params)}
 
 
-def compare_card_cpu(phase, losses, grads):
+SPREAD_DB = 6.0  # a result held to the CPU's own float32 spread against float64: that spread + this
+
+
+def spread_held(label, key, card, cpu, ref):
+    """The CPU-spread rule for a result that float32 itself determines
+    less well than a fixed bound asks: the card's ``card`` passes if it is
+    no further from the CPU's float64 ``ref`` than the CPU's float32
+    ``cpu`` is, plus SPREAD_DB.  Returns both distances."""
+    ref = ref.double()
+    card_db, cpu_db = db(card.double() - ref, ref), db(cpu.double() - ref, ref)
+    check(card_db <= cpu_db + SPREAD_DB, f"{label}: {key} card vs float64 at {card_db:.1f} dB, above the CPU's"
+                                         f" own float32 spread {cpu_db:.1f} dB + {SPREAD_DB} dB")
+    return {"card_vs_float64_db": round(card_db, 1), "cpu_vs_float64_db": round(cpu_db, 1)}
+
+
+def compare_card_cpu(phase, losses, grads, float64=None, whole=False):
     """Hold the card's loss and gradients (``{"cuda": ..., "cpu": ...}``)
     against the CPU's: loss and concatenated gradient <= -60 dB, each
     nonzero leaf <= -40 dB, leaves zero on the CPU zero on the card.
-    Prints every leaf's dB first, then checks; returns the fields of the
-    phase's line."""
+    Where a leaf is determined by float32 only to less than that (a
+    gate's attack/release decisions on a smoothed log gain and a knee's
+    few samples flip under rounding), ``float64`` gives the CPU's ``(loss,
+    gradients)`` in double: a leaf above -40 dB then passes by
+    :func:`spread_held`; with ``whole`` (phase 35 (a)'s classes whose
+    every result float32 determines less well), so do the loss and the
+    concatenated gradient above -60 dB.  Prints every leaf's dB first,
+    then checks; returns the fields of the phase's line."""
     losses = {d: v.detach().cpu().double() for d, v in losses.items()}
     loss_db = db(losses["cuda"] - losses["cpu"], losses["cpu"])
-    cat = {d: torch.cat([v.ravel() for v in grads[d].values()]) for d in grads}
+    cat = {d: torch.cat([v.double().ravel() for v in grads[d].values()]) for d in grads}
     grad_db = db(cat["cuda"] - cat["cpu"], cat["cpu"])
     leaf_db, zero_leaves = {}, []
     for k, ref in grads["cpu"].items():
@@ -1391,15 +1511,26 @@ def compare_card_cpu(phase, losses, grads):
             zero_leaves.append(k)
     say(phase, leaf_db={k: round(v, 1) for k, v in leaf_db.items()}, zero_leaves=zero_leaves)
     check(bool(torch.isfinite(cat["cuda"]).all()), f"{phase}: non-finite card gradient")
-    check(loss_db <= -60.0, f"{phase}: loss card vs CPU at {loss_db:.1f} dB > -60 dB")
-    check(grad_db <= -60.0, f"{phase}: gradient card vs CPU at {grad_db:.1f} dB > -60 dB")
-    for k, v in leaf_db.items():
-        check(v <= -40.0, f"{phase}: gradient of {k} card vs CPU at {v:.1f} dB > -40 dB")
+    bounds = {"loss": (loss_db, -60.0), "gradient": (grad_db, -60.0),
+              **{f"gradient of {k}": (v, -40.0) for k, v in leaf_db.items()}}
+    missed = [k for k, (v, bound_db) in bounds.items() if v > bound_db]
+    held = [k for k in missed if whole or k.startswith("gradient of ")] if float64 is not None else []
+    spread = {}
+    if held:
+        loss64, grads64 = float64()
+        results = {"loss": (losses["cuda"], losses["cpu"], loss64),
+                   "gradient": (cat["cuda"], cat["cpu"], torch.cat([v.double().ravel() for v in grads64.values()])),
+                   **{f"gradient of {k}": (grads["cuda"][k], grads["cpu"][k], grads64[k]) for k in leaf_db}}
+        spread = {k: spread_held(phase, k, *results[k]) for k in held}
+        say(phase, held_to_the_cpu_float32_spread=spread)
+    for k in missed:
+        check(k in spread, f"{phase}: {k} card vs CPU at {bounds[k][0]:.1f} dB > {bounds[k][1]} dB")
     for k in zero_leaves:
         check(bool((grads["cuda"][k] == 0).all()), f"{phase}: gradient of {k} is zero on the CPU, not on the card")
     worst = max(leaf_db, key=leaf_db.get)
     return dict(loss_db=f"{loss_db:.1f}", grad_db=f"{grad_db:.1f}", worst_leaf_db=f"{leaf_db[worst]:.1f}",
-                worst_leaf=worst, zero_leaves=len(zero_leaves), leaves=len(grads["cpu"]))
+                worst_leaf=worst, zero_leaves=len(zero_leaves), leaves=len(grads["cpu"]),
+                **({"held_to_the_cpu_float32_spread": spread} if spread else {}))
 
 
 def factorized_processors():
@@ -1639,7 +1770,7 @@ def compiled_stream_phase(args, smi, stats, path="stream_block", make_processors
                 enumerate(zip(outs["compiled"], outs["eager"]))]
         check(len({y.data_ptr() for y in outs["compiled"]}) == len(blocks), "stream: two blocks' outputs alias")
         compiled = streamers["compiled"]
-        many_fields = step_many_check(streamers, blocks, stats) if step_many else {}
+        many_fields = step_many_check(streamers, blocks, stats, path) if step_many else {}
     block_s = BLOCK_LEN / SAMPLE_RATE
     fields = {}
     for k in streamers:  # blocks 3-32: past the compiled step's warm-up and capture
@@ -1658,17 +1789,18 @@ def compiled_stream_phase(args, smi, stats, path="stream_block", make_processors
                         f"{path}_compiled", smi)
 
 
-def step_many_check(streamers, blocks, stats):
+def step_many_check(streamers, blocks, stats, path="stream_block"):
     """``step_many(4)`` compiled (one graph of four block steps) against
-    eager, its capture's launches four eager blocks', timed a block;
-    returns the fields of the phase's line."""
+    eager, its capture's launches four eager blocks' of ``path``, timed a
+    block; returns the fields of the phase's line."""
     many = {k: [torch.stack(blocks[4 * i:4 * i + 4]) for i in range(3)] for k in streamers}
     m_eager = streamers["eager"].step_many(many["eager"][0], streamers["eager"].init_state())[0]
     compiled = streamers["compiled"]
     compiled.step_many(many["compiled"][0], compiled.init_state())  # warm-up
     (m_compiled, _), call_s, reserved, captured4 = capturing_call(
         lambda: compiled.step_many(many["compiled"][0], compiled.init_state()), "step_many(4)",
-        eager_run(stats, "stream_block", runs=4), stats, "step_many4_compiled")
+        eager_run(stats, path, runs=4), stats,
+        "step_many4_compiled" if path == "stream_block" else f"{path}_step_many4_compiled")
     m_err = check_compiled("step_many(4)", m_compiled, m_eager)
     per_block = {k: [t / 4 for t in call_ms(lambda s=s, xs=many[k][1]: s.step_many(xs, s.init_state()))]
                  for k, s in streamers.items()}
@@ -1858,7 +1990,7 @@ def first_step(model, device, stems, target, perturb=0.0):
     return result
 
 
-def step_card_vs_cpu(phase, model, stems, target):
+def step_card_vs_cpu(phase, model, stems, target, mrstft_db=None):
     """``model``'s first step (:func:`first_step`) on the card against
     the CPU's at full width.  Gates: render, MR-STFT and total loss <=
     -60 dB; the render's backward, through the MSE's gradient, <= -60 dB
@@ -1867,7 +1999,15 @@ def step_card_vs_cpu(phase, model, stems, target):
     a sum of per-bin signs, and where the card's render differs from the
     CPU's (by ``r``), bins near their target flip.  So it is held to the
     CPU's own spread: the CPU gradient with the stems moved by relative
-    noise of size ``r``, plus 6 dB.  Returns the fields of the line."""
+    noise of size ``r``, plus 6 dB.  With ``mrstft_db``, a gradient within
+    that many dB of the CPU's also passes.  Only phase 35 (c) passes it
+    (-60 dB, phase 7's bound): its single-source chains' renders agree so
+    closely (-134 dB) that ``r`` moves the CPU by less than float32
+    resolves, and the spread falls below a gradient that is right.
+    Phases 17, 19 and 34 go without it, so their checks stay what they
+    were: their spreads (-9.9 to -45 dB) lie far above -60 dB, where such
+    a floor could not change an outcome.  Returns the fields of the
+    line."""
     card = first_step(model, "cuda", stems, target)
     cpu = first_step(model, "cpu", stems, target)
     render_db = db(card["out"] - cpu["out"], cpu["out"])
@@ -1887,8 +2027,9 @@ def step_card_vs_cpu(phase, model, stems, target):
     leaf_db = {k: round(db(card["grads"][k] - v, v), 1) for k, v in cpu["grads"].items() if bool((v != 0).any())}
     say(phase, mrstft_leaf_db=leaf_db)
     check(bool(torch.isfinite(cat["cuda"]).all()), f"{phase}: non-finite card gradient")
-    check(grad_db <= spread_db + 6.0, f"{phase}: MR-STFT gradient card vs CPU at {grad_db:.1f} dB, above the"
-                                      f" CPU's own spread {spread_db:.1f} dB + 6 dB")
+    check(grad_db <= spread_db + 6.0 or (mrstft_db is not None and grad_db <= mrstft_db),
+          f"{phase}: MR-STFT gradient card vs CPU at {grad_db:.1f} dB, above the CPU's own spread"
+          f" {spread_db:.1f} dB + 6 dB" + ("" if mrstft_db is None else f" and above {mrstft_db} dB"))
     return dict(render_db=f"{render_db:.1f}", loss_db=mse["loss_db"], total_loss_db=f"{total_db:.1f}",
                 mse_grad_db=mse["grad_db"], mse_worst_leaf_db=mse["worst_leaf_db"],
                 mse_worst_leaf=mse["worst_leaf"], mrstft_grad_db=f"{grad_db:.1f}",
@@ -3133,9 +3274,10 @@ def det_steps(jit, make_processors=bench_processors, buffer_mode=None):
     return optimizer_run(trainer, x, target, steps=3)
 
 
-def det_stream(jit):
-    """Phase 9's 32 blocks through a fresh ``StreamRenderer``."""
-    console = bench_console(CHAINS, seed=0, device="cuda")
+def det_stream(jit, make_processors=bench_processors):
+    """Phase 9's 32 blocks through a fresh ``StreamRenderer`` of the
+    console on ``make_processors()``."""
+    console = bench_console(CHAINS, seed=0, device="cuda", processors=make_processors())
     streamer = StreamRenderer(console.fused_processors, console.plan, console.params,
                               block_len=BLOCK_LEN, jit=jit)
     x = console_input((CHAINS, 2, AUDIO_LEN), torch.Generator(device="cuda").manual_seed(9), "cuda")
@@ -3167,6 +3309,10 @@ DETERMINISM_PATHS = {
     "request_fdn": functools.partial(det_request, make_processors=fdn_processors, key_seed=12),
     "request_array": functools.partial(det_request, buffer_mode="array"),
     "step_array": functools.partial(det_steps, buffer_mode="array"),
+    # phase 35's gain-smoothed console (defined below, looked up when run)
+    "request_gs": lambda jit: det_request(jit, make_processors=gain_smoothed_processors),
+    "step_gs": lambda jit: det_steps(jit, make_processors=gain_smoothed_processors),
+    "stream_block_gs": lambda jit: det_stream(jit, make_processors=gain_smoothed_processors),
 }
 
 
@@ -3528,6 +3674,382 @@ def examples_phase(smi, stats):
         shutil.rmtree(directory, ignore_errors=True)
 
 
+# phase 35: the library classes no card path had run, the gain-smoothed
+# console (#7-#9 at full rate) and the README's single-source builders
+LIBRARY_WALK_LEN = 2**15  # the CPU comparison's length where the CPU path runs the plain walk
+# leaves drawn wider than the rest (0.5): PoleZeroFilter's poles reach a
+# radius tanh(|p|) above 0.99 on about a fifth of the rows and the SVF's
+# 2R falls to ~0.04, so the exact backend runs long, lightly damped
+# recursions
+LIBRARY_STD = {"poles": 1.5, "twoR": 2.0}
+LIBRARY_FILTERS = (AllPassFilter, BandPassFilter, BandRejectFilter, BiquadFilter, HighPassFilter,
+                   PoleZeroFilter, StateVariableFilter)
+# the gain-smoothed console's launches a run: the composites' gate gain,
+# compressor energy and compressor gain walk 68 rows, the bus compressors'
+# energy and gain 8 (a block: 17 and 2)
+GS_REQUEST = {"ballistics_core": 5}
+GS_STEP = {"ballistics_fwd": 5, "ballistics_bwd": 5}
+GS_BLOCK = {"ballistics_core": 5}
+BUILDER_STEPS = 10
+
+
+# why a case's float32 result may sit further from the CPU's than the
+# fixed bounds, so that it is held to the CPU's own float32 spread instead
+TRUNCATED = "the truncated one-pole FIR: an FFT convolution whose round-off scales with the loudest sample"
+NEAR_CIRCLE = ("poles within 1e-4 of the unit circle (LIBRARY_STD): the response divides by |A| down to"
+               " ~1e-4, and a decay of ~10^4 samples carries the round-off")
+
+
+class LibraryCase:
+    """One class of phase 35 (a): ``make()`` builds it; ``walks``: it runs
+    the ballistics walk (#7, under autograd #8/#9), whose plain version the
+    CPU path runs; ``streams``: True (it streams), False (its
+    ``stream_init`` refuses, as in grafx_tpu) or None (no stream
+    contract); ``spread``: why float32 may determine its result less
+    well than the fixed bounds ask (TRUNCATED, NEAR_CIRCLE), or None."""
+
+    def __init__(self, name, make, walks=False, streams=None, spread=None):
+        self.name, self.make, self.walks = name, make, walks
+        self.streams, self.spread = streams, spread
+
+
+def library_slice_cases():
+    """Phase 35 (a)'s cases, each class at its defaults unless named."""
+    cases = [LibraryCase(f"{cls.__name__}({kw})", functools.partial(cls, **({"backend": "exact"} if kw else {})),
+                         streams=True, spread=NEAR_CIRCLE if cls in (PoleZeroFilter, StateVariableFilter) else None)
+             for cls in LIBRARY_FILTERS for kw in ("", "backend='exact'")]
+    cases += [LibraryCase(f"{cls.__name__}()", cls, streams=False)
+              for cls in (ZeroPhaseFIREqualizer, NewZeroPhaseFIREqualizer)]
+    gated = lambda knee: functools.partial(Compressor, energy_smoother="ballistics", knee=knee)  # noqa: E731
+    cases += [
+        LibraryCase("ApproxCompressor()", ApproxCompressor, spread=TRUNCATED),
+        LibraryCase("ApproxNoiseGate()", ApproxNoiseGate, spread=TRUNCATED),
+        LibraryCase("IIREnvelopeFollower()", IIREnvelopeFollower, spread=TRUNCATED),
+        LibraryCase("IIREnvelopeFollower(detect_with='rms_channel')",
+                    functools.partial(IIREnvelopeFollower, detect_with="rms_channel"), spread=TRUNCATED),
+        LibraryCase("BallisticsEnvelopeFollower()", BallisticsEnvelopeFollower, walks=True),
+        LibraryCase("BallisticsEnvelopeFollower(detect_with='amplitude')",
+                    functools.partial(BallisticsEnvelopeFollower, detect_with="amplitude"), walks=True),
+        LibraryCase("Compressor()", Compressor, streams=False, spread=TRUNCATED),
+        LibraryCase("NoiseGate()", NoiseGate, streams=False, spread=TRUNCATED),
+        LibraryCase("Compressor(energy_smoother='ballistics', knee='hard')", gated("hard"), walks=True,
+                    streams=True),
+        LibraryCase("Compressor(energy_smoother='ballistics', knee='exponential')", gated("exponential"),
+                    walks=True, streams=True),
+        LibraryCase("ParallelMix({'allpass': AllPassFilter(), 'compressor': Compressor("
+                    "energy_smoother='ballistics', knee='hard')})",
+                    lambda: ParallelMix({"allpass": AllPassFilter(), "compressor": gated("hard")()}),
+                    walks=True, streams=True),
+        LibraryCase("GainStagingRegularization(PoleZeroFilter(backend='exact'))",
+                    lambda: GainStagingRegularization(PoleZeroFilter(backend="exact")), streams=True,
+                    spread=NEAR_CIRCLE),
+    ]
+    return cases
+
+
+def numpy_parameters(sizes, rows, rng, std=0.5):
+    """A parameter tree of ``sizes`` (``parameter_size()``, nested for a
+    container) drawn with numpy: ``std`` N(0, 1), LIBRARY_STD's leaves
+    wider."""
+    out = {}
+    for k, v in sizes.items():
+        if isinstance(v, dict):
+            out[k] = numpy_parameters(v, rows, rng, std)
+        else:
+            shape = (rows,) + ((v,) if isinstance(v, int) else tuple(v))
+            out[k] = (LIBRARY_STD.get(k, std) * rng.standard_normal(shape)).astype(np.float32)
+    return out
+
+
+def library_input(rng, length):
+    """``(68, 2, length)`` noise with -40 dB passages (half of 32 blocks), so
+    that gates, knees and followers act."""
+    x = rng.standard_normal((LIBRARY_ROWS, 2, length), dtype=np.float32)
+    loud = rng.random((LIBRARY_ROWS, 1, 32)) < 0.5
+    return x * np.where(loud, 1.0, 0.01).astype(np.float32).repeat(length // 32, axis=-1)
+
+
+def processor_output(proc, x, params):
+    """``(output, auxiliary loss or None)`` of one call: a container returns
+    its intermediates beside its output, and their sum is the auxiliary
+    loss, as ``GraphParameterOptimizer`` adds it."""
+    out = proc(x, **params)
+    if not isinstance(out, tuple):
+        return out, None
+    out, intermediates = out
+    leaves = tree_leaves(intermediates or {})
+    return out, sum(v.sum() for v in leaves) if leaves else None
+
+
+def on(device, tree, dtype=torch.float32, grad=False):
+    return tree_map(lambda v: torch.tensor(v, device=device, dtype=dtype, requires_grad=grad), tree)
+
+
+def library_forward(proc, x, params, device, dtype=torch.float32):
+    with torch.inference_mode():
+        return processor_output(proc, on(device, x, dtype), on(device, params, dtype))[0].cpu()
+
+
+def library_gradient(proc, x, params, w, device, dtype=torch.float32):
+    """The gradient of ``sum(output * w)`` plus the auxiliary loss in every
+    parameter leaf and in the input: ``(loss, {leaf: gradient on the
+    CPU})``, the input's under ``"input"``."""
+    xt, leaves = on(device, x, dtype, grad=True), on(device, params, dtype, grad=True)
+    out, aux = processor_output(proc, xt, leaves)
+    loss = (out * on(device, w, dtype)).sum()
+    if aux is not None:
+        loss = loss + aux
+    loss.backward()
+    grads = {k: torch.zeros(v.shape, dtype=dtype) if v.grad is None else v.grad.cpu()
+             for k, v in tree_items(leaves)}
+    return loss.detach().cpu(), {"input": xt.grad.cpu(), **grads}
+
+
+def library_compare(case, card, cpu, float64):
+    """Hold the card's forward, loss and gradients (``(forward, loss,
+    grads)``) against the CPU's: the forward <= -60 dB here, the loss and
+    gradients by :func:`compare_card_cpu`.  Where the case has a
+    ``spread`` reason, ``float64()`` gives the CPU's ``(forward, loss,
+    grads)`` in double, and a result that misses its bound is held to the
+    CPU's own float32 spread instead (:func:`spread_held`).  Returns the
+    fields of the case's line."""
+    label = f"library35 {case.name}"
+    float64 = functools.cache(float64)
+    forward_db = db(card[0].double() - cpu[0].double(), cpu[0].double())
+    check(bool(torch.isfinite(card[0]).all()), f"{label}: non-finite forward on the card")
+    fields = {"forward_db": f"{forward_db:.1f}"}
+    if forward_db > -60.0:
+        check(case.spread is not None, f"{label}: forward card vs CPU at {forward_db:.1f} dB > -60 dB")
+        fields["forward_held_to_the_cpu_float32_spread"] = spread_held(label, "forward", card[0], cpu[0],
+                                                                       float64()[0])
+    fields.update(compare_card_cpu(label, {"cuda": card[1], "cpu": cpu[1]}, {"cuda": card[2], "cpu": cpu[2]},
+                                   float64=(lambda: float64()[1:]) if case.spread else None, whole=True))
+    if {"forward_held_to_the_cpu_float32_spread", "held_to_the_cpu_float32_spread"} & fields.keys():
+        fields["why"] = case.spread
+    return fields
+
+
+def library_stream(case, proc, x, params, one_shot):
+    """Stream the card's processor in blocks of 4096 over the whole 2^17
+    against its one-shot render (max abs over peak <= -60 dB, phase 9's
+    bound), or check that it refuses as grafx_tpu's does; returns the
+    fields of the case's line."""
+    if case.streams is None:
+        check(not hasattr(proc, "stream_init"), f"library35 {case.name}: an unexpected stream contract")
+        return {"stream": "no stream contract (as in grafx_tpu)"}
+    if not case.streams:
+        try:
+            proc.stream_init(2, BLOCK_LEN, **params)
+        except NotImplementedError as e:
+            return {"stream": f"refused (as in grafx_tpu): {str(e)[:60]}"}
+        raise SmokeFailure(f"library35 {case.name}: stream_init did not refuse")
+    state, cache = proc.stream_init(2, BLOCK_LEN, **params)
+    torch.cuda.synchronize()
+    bal.reset_launch_counts()
+    outs = []
+    with torch.inference_mode():
+        for xb in x.split(BLOCK_LEN, dim=-1):
+            y, state = proc.stream_step(xb, state, cache)
+            outs.append(y)
+    torch.cuda.synchronize()
+    launches = launched()
+    streamed = torch.cat(outs, dim=-1).cpu()
+    check(bool(torch.isfinite(streamed).all()), f"library35 {case.name}: non-finite stream")
+    peak_db = 20.0 * torch.log10((streamed - one_shot).abs().max() / one_shot.abs().max()).item()
+    check(peak_db <= STREAM_DB, f"library35 {case.name}: stream vs one-shot at {peak_db:.1f} dB > {STREAM_DB} dB")
+    return {"stream_blocks": len(outs), "stream_vs_one_shot_db": f"{peak_db:.1f}",
+            "stream_launches_a_block": {k: v / len(outs) for k, v in launches.items()}}
+
+
+def library_slice_phase(smi, stats):
+    """Phase 35 (a): each case at 68 x 2 x 2^17 on the card, forward (timed,
+    its launches) and the gradient of every parameter and of the input (its
+    launches), held against the port's CPU path on the same numpy
+    parameters and input (``library_compare``): at full width (the card's
+    forward and gradient above are the ones compared), or where the CPU
+    path runs the plain walk (~5 s a call at 2^17), every row at
+    LIBRARY_WALK_LEN on both; then streamed on the card
+    (``library_stream``)."""
+    rng = np.random.default_rng(35)
+    for case in library_slice_cases():
+        start = time.perf_counter()
+        card_proc, cpu_proc = case.make().to("cuda"), case.make()
+        params = numpy_parameters(cpu_proc.parameter_size(), LIBRARY_ROWS, rng)
+        x = library_input(rng, LIBRARY_LEN)
+        xc, pc = on("cuda", x), on("cuda", params)
+        torch.cuda.synchronize()
+        bal.reset_launch_counts()
+        with torch.inference_mode():
+            y = processor_output(card_proc, xc, pc)[0]
+            torch.cuda.synchronize()
+            forward_launches = launched()
+            ms = device_ms(lambda: processor_output(card_proc, xc, pc)[0], reps=3)[0]
+        w = rng.standard_normal(tuple(y.shape), dtype=np.float32)
+        bal.reset_launch_counts()
+        full_gradient = library_gradient(card_proc, x, params, w, "cuda")
+        torch.cuda.synchronize()
+        grad_launches = launched()
+        for kind, counts in (("forward", forward_launches), ("gradient", grad_launches)):
+            for name, count in counts.items():
+                stats[name]["per_run"][f"library35 {case.name} {kind}"] = count
+        n = LIBRARY_WALK_LEN if case.walks else LIBRARY_LEN
+        xs, ws = x[..., :n], w[..., :n]
+        one_shot = y.cpu()
+        card = ((one_shot, *full_gradient) if n == LIBRARY_LEN else
+                (library_forward(card_proc, xs, params, "cuda"), *library_gradient(card_proc, xs, params, ws, "cuda")))
+        cpu = (library_forward(cpu_proc, xs, params, "cpu"), *library_gradient(cpu_proc, xs, params, ws, "cpu"))
+
+        def float64():
+            proc64 = case.make().double()
+            return (library_forward(proc64, xs, params, "cpu", torch.float64),
+                    *library_gradient(proc64, xs, params, ws, "cpu", torch.float64))
+
+        fields = library_compare(case, card, cpu, float64)
+        fields.update(library_stream(case, card_proc, xc, pc, one_shot))
+        say("library35", cls=case.name, shape=(LIBRARY_ROWS, 2, LIBRARY_LEN),
+            compared_at=f"{LIBRARY_ROWS} x 2 x {n}" + (" (the CPU runs the plain walk)" if case.walks else ""),
+            **fields, card_ms=f"{ms:.3f}", forward_launches=forward_launches, gradient_launches=grad_launches,
+            seconds=f"{time.perf_counter() - start:.1f}", card=repr(smi))
+        del card_proc, xc, pc, y, card, cpu, full_gradient
+        torch.cuda.empty_cache()
+
+
+def gain_smoothed_processors():
+    """Phase 35 (b)'s console: bench.py's processors with the compressor
+    and the gate smoothing their gains (tests/test_torch_dynamics.py's two
+    composed configurations), each smoother an exact recursion."""
+    return {**bench_processors(),
+            "compressor": Compressor(energy_smoother="ballistics", gain_smoother="ballistics"),
+            "noisegate": NoiseGate(energy_smoother="iir_exact", gain_smoother="ballistics",
+                                   gain_smooth_in_log=True)}
+
+
+def gain_smoothed_kernels(smi, stats):
+    """Phase 35 (b)'s kernel checks: an eager request and an eager step of
+    the console at full width, with the forward walks' inputs kept
+    (:class:`KernelInputs`), and each kernel held against its plain version
+    on them (:func:`check_path_inputs`: #7, split in two; #8 and #9 on a
+    drawn cotangent); #8 and #9 timed on the 68-row input."""
+    console = bench_console(CHAINS, seed=0, device="cuda", processors=gain_smoothed_processors())
+    render = make_render_fn(console.fused_processors, console.plan, jit=False)
+    trainer = bench_trainer(CHAINS, seed=0, device="cuda", processors=gain_smoothed_processors(), jit=False)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = console_input((BATCH, CHAINS, 2, AUDIO_LEN), g, "cuda")
+    target = torch.randn(BATCH, 1, 2, AUDIO_LEN, generator=g, device="cuda")
+    torch.cuda.synchronize()
+    bal.reset_launch_counts()
+    with KernelInputs() as inputs:
+        with torch.inference_mode():
+            render(x, console.params)
+        trainer.step(x, target)
+    torch.cuda.synchronize()
+    launches = launched()
+    check(launches == {**GS_REQUEST, **GS_STEP}, f"gain-smoothed kernels: a request and a step launched {launches}")
+    del console, render, trainer
+    with torch.no_grad():
+        checked = check_path_inputs("gain-smoothed console", inputs, launches, stats)
+        timed = {}
+        for (launcher, shape, _), (u, (zi, at, rt), _, _) in inputs.cases.items():
+            if shape[0] != BATCH * CHAINS:
+                continue
+            gg = torch.randn(shape, generator=g, device="cuda")
+            _, d = bal.ballistics_fwd(u, zi, at, rt)
+            for name, kern in (("ballistics_fwd", lambda: bal.ballistics_fwd(u, zi, at, rt)),
+                               ("ballistics_bwd", lambda: bal.ballistics_bwd(d, gg, at, rt))):
+                kern()  # warm-up
+                ms = device_ms(kern, reps=5)[0]
+                more = chunking(shape) if name == "ballistics_bwd" else walk_stage(name, shape)
+                stats[name]["more"].append({"path": "gain-smoothed console", "shape": list(shape), "ms": ms,
+                                            "plain_ms": None, "bound_ms": bound(name, *shape)[0], **more})
+                timed[name] = f"{ms:.3f}"
+    say("gain_smoothed", kernels_checked=checked, launches_a_request_and_a_step=launches,
+        kernel_ms_at_68x2e17=timed, card=repr(smi))
+
+
+def gain_smoothed_phase(args, smi, stats):
+    """Phase 35 (b): the gain-smoothed console served, trained and streamed
+    at (4, 17, 2, 2^17), eager and compiled, card against CPU, with the
+    exact launch counts; then its kernels on its own inputs."""
+    make = gain_smoothed_processors
+    serve_phase(args, smi, stats, "gs_serve", "request_gs", make, exact=GS_REQUEST)
+    compiled_request_phase(args, smi, stats, "request_gs", make)
+    render_card_vs_cpu("gs_card_vs_cpu", make)
+    train_phase(args, smi, stats, "gs_train", "step_gs", make, exact=GS_STEP)
+    compiled_step_phase(args, smi, stats, "step_gs", "step_gs", make)
+    grad_card_vs_cpu("gs_grad_card_vs_cpu", make, float64_spread=True)
+    stream_phase(args, smi, stats, "gs_stream", "stream_block_gs", make, exact=GS_BLOCK)
+    compiled_stream_phase(args, smi, stats, "stream_block_gs", make)
+    gain_smoothed_kernels(smi, stats)
+
+
+def builders_phase(smi, stats):
+    """Phase 35 (c): ``simple_chain()`` and ``mastering_chain()`` (exact
+    backend) through ``GraphParameterOptimizer(device="cuda")`` on one
+    stereo source (1, 2, 2^17): the target, the render of their seed-1
+    parameters + 0.3 N(0, 1) (``render_current``'s capture: #2 once a
+    compressor stage); BUILDER_STEPS fit steps with the defaults (MR-STFT,
+    Adam lr 1e-2; the second step's capture #5 and #6 once a compressor
+    stage), the loss falling; the first step against the CPU's
+    (:func:`step_card_vs_cpu`; its MR-STFT gradient within -60 dB, phase
+    7's bound, or within the CPU's own spread + 6 dB).  The kernels of
+    these paths (#2, #5, #6 at one row x 2^17) are held against their
+    plain versions on the inputs of the first eager render and step
+    (:class:`KernelInputs`, :func:`check_path_inputs`)."""
+    stems = synthetic_stems(1, AUDIO_LEN, torch.Generator().manual_seed(0)).cuda()
+    for name, build in (("simple_chain", simple_chain), ("mastering_chain", mastering_chain)):
+        start = time.perf_counter()
+
+        def make(device, jit=True, build=build):
+            return GraphParameterOptimizer(*build(backend="exact"), generator=torch.Generator().manual_seed(1),
+                                           device=device, jit=jit)
+
+        truth = make("cuda")
+        stages = compressor_stages(truth.render_data)
+        noise = torch.Generator().manual_seed(8)
+        with torch.no_grad():
+            for _, p in tree_items(truth.params):
+                p.add_(0.3 * torch.randn(p.shape, generator=noise).cuda())
+        with KernelInputs() as inputs:
+            truth.render_current(stems)  # warm-up: eager, on a side stream
+            expected = {k: stages if k == "ballistics_gain_core" else 0 for k in KERNELS}
+            target, _, _, render_launches = capturing_call(
+                lambda: truth.render_current(stems), f"{name} render_current", expected, stats,
+                f"fit_render_{name}_compiled")
+            check(target.shape == (1, 2, AUDIO_LEN) and bool(torch.isfinite(target).all()), f"{name}: bad target")
+            opt = make("cuda")
+            _, first = opt.step(stems, target)  # eager, on a side stream
+            expected = {k: stages if k in ("ballistics_gain_fwd", "ballistics_gain_bwd") else 0 for k in KERNELS}
+            (_, second), _, _, step_launches = capturing_call(
+                lambda: opt.step(stems, target), f"{name} step", expected, stats, f"fit_step_{name}_compiled")
+        with torch.no_grad():
+            checked = check_path_inputs(name, inputs, {k: render_launches[k] + step_launches[k] for k in KERNELS},
+                                        stats)
+        history = [first.item(), second.item()] + opt.fit(stems, target, num_steps=BUILDER_STEPS - 2)
+        check(all(np.isfinite(history)), f"{name}: non-finite losses {history}")
+        check(history[-1] < history[0], f"{name}: the loss did not fall ({history[0]} -> {history[-1]})")
+        compiled_ms = call_ms(lambda: opt.step(stems, target))
+        del truth, opt
+        fields, _ = step_card_vs_cpu(f"{name}_card_vs_cpu", optimizer_model(functools.partial(make, jit=False)),
+                                     stems, target, mrstft_db=-60.0)
+        say("builders", chain=name, stems=tuple(stems.shape), compressor_stages=stages, steps=len(history),
+            loss_first=f"{history[0]:.6f}", loss_last=f"{history[-1]:.6f}",
+            losses=[round(v, 6) for v in history], compiled_median_ms=f"{statistics.median(compiled_ms):.3f}",
+            render_captured_launches=render_launches, step_captured_launches=step_launches,
+            kernel_inputs_checked=checked,
+            **{f"first_step_{k}": v for k, v in fields.items()}, seconds=f"{time.perf_counter() - start:.1f}",
+            card=repr(smi))
+
+
+def library_card_phase(args, smi, stats):
+    """Phase 35 (module docstring): (a), (b) and (c), each timed."""
+    for part, run in (("a", lambda: library_slice_phase(smi, stats)),
+                      ("b", lambda: gain_smoothed_phase(args, smi, stats)),
+                      ("c", lambda: builders_phase(smi, stats))):
+        start = time.perf_counter()
+        run()
+        say("library35", part=part, seconds=f"{time.perf_counter() - start:.1f}")
+
+
 def kernel_row(name, source, replaces, stats):
     """The kernel's entry of the ``{"kernels": [...]}`` line."""
     s = stats[name]
@@ -3737,6 +4259,12 @@ def main():
     phases_at = time.perf_counter()
     examples_phase(smi, stats)
     say("examples", phase_34_s=f"{time.perf_counter() - phases_at:.1f}")
+
+    # 35. the library classes no card path had run, the gain-smoothed
+    # console (#7-#9 at full rate) and the single-source builders
+    phases_at = time.perf_counter()
+    library_card_phase(args, smi, stats)
+    say("library35", phase_35_s=f"{time.perf_counter() - phases_at:.1f}")
 
     for name in KERNELS:
         check(name in NO_PATH or "launches" in stats[name], f"{name} ran on no path")

@@ -179,6 +179,78 @@ def test_mixing_console_first_step_matches_grafx_tpu():
     assert db(cat(stepped) - cat(want), cat(want)) <= -60.0
 
 
+@pytest.mark.parametrize("name", ["simple_chain", "mastering_chain"])
+def test_builder_first_fit_step_matches_grafx_tpu(name):
+    """The README's two single-source builders (exact backend) through
+    both packages' GraphParameterOptimizer, one source (1, 2, L): from
+    grafx_tpu's seed-1 parameters plus 0.1 N(0, 1), towards the render of
+    its init plus 0.3 N(0, 1), one step with SGD lr 1e-2 on the default
+    MR-STFT loss; grafx_tpu's step is its jitted update.
+
+    float32: the audio loss within -60 dB; the update (each parameter
+    after the step less its start) within -40 dB, concatenated and each
+    leaf grafx_tpu moves.  Its jitted update rounds otherwise than the
+    port's eager step, and the loss's L1 term turns rounding into sign
+    flips (test_mixing_console_first_step_matches_grafx_tpu), so the
+    update is held in float64 too (grafx_tpu's step under jax.enable_x64,
+    the port's processors, parameters and signals in double): there the
+    loss and the concatenated update within -60 dB and each leaf within
+    -40 dB.  Leaves grafx_tpu leaves in place stay in place."""
+    import optax
+
+    from grafx_tpu.models import GraphParameterOptimizer as JOptimizer
+
+    lr = 1e-2
+    G_j, procs_j = build(jconsole, name)
+    rng = np.random.default_rng(7)
+    init = jax.tree.map(np.asarray, JOptimizer(G_j, procs_j, key=jax.random.PRNGKey(1)).params)
+    truth = jax.tree.map(lambda p: (p + 0.3 * rng.standard_normal(p.shape)).astype(np.float32), init)
+    start = jax.tree.map(lambda p: (p + 0.1 * rng.standard_normal(p.shape)).astype(np.float32), init)
+    x = (0.3 * rng.standard_normal((1, 2, L))).astype(np.float32)
+    target = np.asarray(j_render(G_j, procs_j)(x, truth)[0])
+    cat = lambda g: np.concatenate([g[k].ravel() for k in sorted(g)])  # noqa: E731
+
+    def check(audio, audio_j, moved, moved_j, whole_db):
+        assert db(np.float64(audio) - float(audio_j), np.float64(audio_j)) <= -60.0
+        assert moved.keys() == moved_j.keys()
+        assert db(cat(moved) - cat(moved_j), cat(moved_j)) <= whole_db
+        for k, ref in moved_j.items():
+            if np.any(ref != 0):
+                assert db(moved[k] - ref, ref) <= -40.0, (k, db(moved[k] - ref, ref))
+            else:
+                assert np.all(moved[k] == 0), k
+
+    for dtype in (np.float32, np.float64):
+        cast = lambda tree: jax.tree.map(lambda v: np.asarray(v, dtype), tree)  # noqa: E731,B023
+        with jax.enable_x64(dtype == np.float64):
+            opt_j = JOptimizer(G_j, procs_j, optimizer=optax.sgd(lr), key=jax.random.PRNGKey(1))
+            opt_j.params = jax.tree.map(jnp.asarray, cast(start))
+            _, audio_j = opt_j.step(jnp.asarray(x, dtype), jnp.asarray(target, dtype))
+            moved_j = {k: np.asarray(v, np.float64) - s for (k, v), (_, s) in
+                       zip(tree_items(opt_j.params), tree_items(cast(start)))}
+        G, procs = build(console, name)
+        if dtype == np.float64:
+            for proc in procs.values():
+                proc.double()
+        opt = GraphParameterOptimizer(G, procs, optimizer=lambda ps: torch.optim.SGD(ps, lr=lr),
+                                      device="cpu", jit=False)
+        if dtype == np.float32:  # the port's own step
+            with torch.no_grad():
+                tree_map(lambda p, v: p.copy_(v), opt.params, parameters_from_numpy(start))
+            total, audio = opt.step(torch.tensor(x), torch.tensor(target))
+            after = {k: p.detach() for k, p in tree_items(opt.params)}
+        else:  # the optimizer binds its own leaves: SGD's step from the gradient of its loss
+            opt.params = tree_map(lambda v, p: torch.tensor(v).requires_grad_(p.requires_grad),
+                                  cast(start), opt.params)
+            total, audio = opt.loss(torch.tensor(x.astype(dtype)), torch.tensor(target.astype(dtype)))
+            total.backward()
+            after = {k: p.detach() - lr * p.grad if p.grad is not None else p.detach()
+                     for k, p in tree_items(opt.params)}
+        assert total.item() == audio.item()  # no aux loss in these chains
+        moved = {k: after[k].numpy().astype(np.float64) - s for k, s in tree_items(cast(start))}
+        check(audio.item(), audio_j, moved, moved_j, -40.0 if dtype == np.float32 else -60.0)
+
+
 def predictor_case():
     """The predictor of the 3-track console with grafx_tpu's init weights
     (as numpy) loaded into the port, each package's features (tracks:
