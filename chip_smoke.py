@@ -15,9 +15,10 @@ console sharded over ``torch.distributed`` ranks, export and load the
 fsm console, run the README's six examples (``examples_torch/``), hold
 every library class no earlier phase ran against the CPU at full width
 (gradients and streams included), serve, train and stream the console
-with gain-smoothed dynamics (the ballistics walk at full rate), fit the
-README's single-source builders, and check every hand-written kernel on
-the way.
+with gain-smoothed dynamics (the dynamics chain: every walk of a
+gain-smoothed run in one kernel), fit the README's single-source
+builders, hold the chain at ragged shapes and against the composed path,
+and check every hand-written kernel on the way.
 
 Run from the root of the repository, on a machine with the card:
 
@@ -296,19 +297,23 @@ before the result line):
     ``Compressor(energy_smoother="ballistics", gain_smoother="ballistics")``
     and ``NoiseGate(energy_smoother="iir_exact", gain_smoother=
     "ballistics", gain_smooth_in_log=True)``, fused as bench.py fuses it
-    (its gate -> compressor composites compose: no pair walk), parameters
+    (no pair walk: its gate -> compressor composites and its bus
+    compressors each run the dynamics chain, #11), parameters
     drawn on the unfused graph and migrated, at (4, 17, 2, 2^17): served
     (phase 5, then compiled as phase 12), card vs CPU (phase 8), trained
     (phase 6, then compiled as phase 13), its gradients card vs CPU (phase
     7, a leaf that float32 determines less well held to the CPU's own
     spread against float64 + 6 dB), streamed (phase 9, then compiled with
-    ``step_many(4)`` as phase 15), each with exact launches: #7 five times
-    a request and a block, #8 and #9 five times each a step (the
-    composites' gate gain, compressor energy and gain over 68 rows, the
-    bus compressors' energy and gain over 8; a block 17 and 2); then each
-    kernel held against its plain version on the inputs this console gave
-    it (``KernelInputs``, ``check_path_inputs``) and #8/#9 timed on the
-    68-row input; (c) ``simple_chain()`` and ``mastering_chain()`` (exact
+    ``step_many(4)`` as phase 15), each with exact launches: the chain's
+    primal twice a request and a block, its forward with residuals and
+    its adjoint twice each a step (the composites' four walks, gate energy
+    and gain, compressor energy and gain, over 68 rows, then the bus
+    compressors' two over 8; a block 17 and 2); then the chain's three
+    entry points held against their plain versions on the inputs this
+    console gave them (``KernelInputs``, ``check_path_inputs``,
+    ``check_chain``; the first 2^15 samples of each row, where the plain
+    loop takes seconds) and timed on them (68 and 8 rows x 2^17, the
+    plain versions on the first 2^15 samples); (c) ``simple_chain()`` and ``mastering_chain()`` (exact
     backend) through ``GraphParameterOptimizer(device="cuda")`` on one
     stereo source (1, 2, 2^17): the target's capture (#2 once), 10 fit
     steps (the capture of the second: #5 and #6 once), the loss falling,
@@ -317,6 +322,22 @@ before the result line):
     spread: these renders agree to the last bits), and #2, #5 and #6 held
     against their plain versions on the inputs of the first eager render
     and step (one row x 2^17, the reverse walk's own chunk pick).
+36. the dynamics chain (``chain_phase``; #11, the port's own kernel:
+    ``grafx_tpu`` composes these walks): its forms (``CHAIN_SPECS``: the
+    console's composite and bus runs, a lone gate, a gate without a gain
+    smoother before a log-smoothed compressor, and the reverse order)
+    against its plain versions at N = 1, 37, 68 x L = 4109, 8205 and
+    2^17 + 13 (that one compared on its first 2^15 samples), at its own
+    stage length and at T = 96 (``[chain] case=`` lines: primal and
+    forward max abs < 2e-5, the primal's gain equal to the forward's,
+    the adjoint's du <= 1e-5 and each gradient row <= 1e-4 of its max,
+    an absent member's gain exactly 1 and its gradients exactly 0); a
+    row split in two calls carrying the final states against one call,
+    and the first 2^17 samples against the whole 68 x (2^17 + 13) call,
+    bit for bit; and the console's composite (68 rows, its absent gates)
+    and bus compressor (8 rows) through the chain against the composed
+    path on the card (output and every gradient, -60 dB, or the CPU's
+    own float32 spread + 6 dB where float32 determines less).
 
 Eager renders repeat bit for bit (phases 12 and 16 gate it, 25 and 26
 gate the same key's render, 18 the resumed losses, 33 every path).
@@ -346,9 +367,10 @@ phase 32's ``parallel_{step,request}_compiled_nccl_rank<r>``,
 forward`` and ``gradient``, ``request_gs``, ``step_gs``,
 ``stream_block_gs`` and each with ``_compiled``,
 ``stream_block_gs_step_many4_compiled``,
-``fit_render_<chain>_compiled`` and ``fit_step_<chain>_compiled``; #8
-and #9 also carry their time at the gain-smoothed console's 68 x 2^17
-input under ``more_shapes``).
+``fit_render_<chain>_compiled`` and ``fit_step_<chain>_compiled``; the
+chain's entries carry their time at the gain-smoothed console's bus
+input, 8 x 2^17, under ``more_shapes``, their plain versions' shape
+under ``plain_shape`` and their derived serial floor).
 
 The line before the last is ``{"kernels": [...]}``: per kernel its
 errors, times, launches on its path and per run of each path, and its
@@ -375,6 +397,7 @@ phases 25 and 26 the same for their consoles (``request_noise``,
 """
 
 import argparse
+import contextlib
 import copy
 import functools
 import importlib
@@ -459,7 +482,7 @@ from grafx_tpu_torch.render import (
     prepare_render,
     reorder_for_fast_render,
 )
-from grafx_tpu_torch.render.fuse import _scheduled_type_rows
+from grafx_tpu_torch.render.fuse import FusedDynamicsChain, _scheduled_type_rows
 from grafx_tpu_torch.render.order import beam_search
 from grafx_tpu_torch.serving import export_render, export_stream_step, load_render, load_stream_step
 from grafx_tpu_torch.utils import create_empty_parameters, tree_items, tree_leaves, tree_map
@@ -478,8 +501,17 @@ KERNELS = {
     "ballistics_fwd": (GAIN_SRC, "grafx_tpu/ops/ballistics_tpu.py:73"),
     "ballistics_bwd": (GRAD_SRC, "grafx_tpu/ops/ballistics_tpu.py:111"),
     "reverse_scan": (GRAD_SRC, "grafx_tpu/ops/ballistics_tpu.py:178"),
+    # the port's own kernel: no pallas_call; grafx_tpu composes a
+    # gain-smoothed run's walks (its members' gain_from_energy, threaded)
+    "ballistics_chain_core": (GAIN_SRC, "grafx_tpu/render/fuse.py:423"),
+    "ballistics_chain_fwd": (GAIN_SRC, "grafx_tpu/render/fuse.py:423"),
+    "ballistics_chain_bwd": (GRAD_SRC, "grafx_tpu/render/fuse.py:423"),
 }
 NO_PATH = {"reverse_scan": "no caller in grafx_tpu/ or in the port"}
+CHAIN_KERNELS = ("ballistics_chain_core", "ballistics_chain_fwd", "ballistics_chain_bwd")
+OWN_KERNEL = ("the port's own kernel, no pallas_call: grafx_tpu runs the composed path"
+              " (grafx_tpu/render/fuse.py:423, grafx_tpu/processors/dynamics.py:95), each walk"
+              " its own ballistics_core call")
 # the natural-layout experiment computes #7's function: the same kernel replaces it
 LAYOUT_ROW = ("ballistics_core", GAIN_SRC, "benchmarks/ballistics_layout_ab.py:36")
 SERVE_KERNELS = ("ballistics_gain_pair_core", "ballistics_gain_core")
@@ -540,7 +572,18 @@ KERNEL_WORK = {
     "ballistics_fwd": (3, 3, 6),
     "ballistics_bwd": (3, 5, 7),
     "reverse_scan": (3, 0, 2),
+    # the chain at the console's composite (4 walks, 2 members): u in, gain
+    # out, d of each walk with residuals; the adjoint reads u, 4 d, gg and
+    # writes du.  A walk 5, a knee with its log 12, an exp 1, the product
+    # and next energy 4; a reverse walk 7, a knee adjoint 20, the rebuild
+    # 26, the cotangents 10
+    "ballistics_chain_core": (2, 24, 52),
+    "ballistics_chain_fwd": (6, 24, 56),
+    "ballistics_chain_bwd": (7, 40, 104),
 }
+# the chain's work with 2 walks, 1 member (the bus compressors)
+CHAIN_WORK_ONE = {"ballistics_chain_core": (2, 12, 24), "ballistics_chain_fwd": (4, 12, 26),
+                  "ballistics_chain_bwd": (5, 20, 52)}
 
 
 class SmokeFailure(RuntimeError):
@@ -611,11 +654,11 @@ def max_err(got, ref):
     return (got - ref).abs().max().item()
 
 
-def bound(name, n, length):
+def bound(name, n, length, work=None):
     """``(bound_ms, bound_by)`` of one call on ``(n, length)`` rows: the
     larger of its bytes over the memory rate and its operations over the
-    float32 rate."""
-    arrays, per_row, ops = KERNEL_WORK[name]
+    float32 rate (``work`` in place of the kernel's KERNEL_WORK)."""
+    arrays, per_row, ops = work or KERNEL_WORK[name]
     bytes_ms = 1e3 * 4 * (arrays * n * length + per_row * n) / MEM_BYTES_PER_S
     ops_ms = 1e3 * ops * n * length / F32_OPS_PER_S
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
@@ -3484,6 +3527,7 @@ LAUNCHERS = {
     "_gain_fwd_cuda": ("ballistics_gain_core", "ballistics_gain_fwd", "ballistics_gain_bwd"),
     "_walk_fwd_cuda": ("ballistics_core", "ballistics_fwd", "ballistics_bwd"),
     "_pair_fwd_cuda": ("ballistics_gain_pair_core", "ballistics_gain_pair_fwd", "ballistics_gain_pair_bwd"),
+    "_chain_fwd_cuda": CHAIN_KERNELS,
 }
 
 
@@ -3492,10 +3536,13 @@ class KernelInputs:
     each forward kernel at each ``(rows, length)`` and kind, as the path
     gives them (outside CUDA-graph captures, whose replays repeat the
     shapes of the eager call before them): ``self.cases`` maps
-    ``(launcher, shape, kind)`` to ``(u, consts, kinds, inits)``."""
+    ``(launcher, shape, kind)`` to ``(u, consts, kinds, inits)``; for the
+    dynamics chain ``kind`` is its spec and ``inits`` the walks' initial
+    states ``zi``."""
 
     def __init__(self):
         self.cases, self._saved = {}, {}
+        self.plain_ms = {}  # the chain's plain versions' ms by case (check_path_inputs)
 
     def _keep(self, launcher, u, consts, kinds, inits):
         key = (launcher, tuple(u.shape), kinds)
@@ -3504,7 +3551,7 @@ class KernelInputs:
 
     def __enter__(self):
         self._saved = {name: getattr(bal, name) for name in LAUNCHERS}
-        gain, walk, pair = (self._saved[name] for name in LAUNCHERS)
+        gain, walk, pair, chain = (self._saved[name] for name in LAUNCHERS)
 
         def gain_fwd(name, u, consts, kind, res, samples=None):
             self._keep("_gain_fwd_cuda", u, consts, kind, None)
@@ -3518,7 +3565,15 @@ class KernelInputs:
             self._keep("_pair_fwd_cuda", u, consts, tuple(kinds), tuple(inits))
             return pair(name, u, consts, kinds, inits, res, samples)
 
+        def chain_fwd(name, u, consts, zi, spec, res, samples=None):
+            key = ("_chain_fwd_cuda", tuple(u.shape), tuple(spec))
+            if key not in self.cases and not torch.cuda.is_current_stream_capturing():
+                self.cases[key] = (u.detach().clone(), consts.detach().clone(), tuple(spec),
+                                   zi.detach().clone())
+            return chain(name, u, consts, zi, spec, res, samples)
+
         bal._gain_fwd_cuda, bal._walk_fwd_cuda, bal._pair_fwd_cuda = gain_fwd, walk_fwd, pair_fwd
+        bal._chain_fwd_cuda = chain_fwd
         return self
 
     def __exit__(self, *exc):
@@ -3537,7 +3592,10 @@ def check_path_inputs(label, inputs, launches, stats):
     checked = {}
     for (launcher, shape, kinds), (u, consts, _, inits) in sorted(inputs.cases.items(), key=str):
         case_label = f"{label} {shape} {kinds or ''}".strip()
-        if launcher == "_walk_fwd_cuda":
+        if launcher == "_chain_fwd_cuda":
+            inputs.plain_ms[(launcher, shape, kinds)] = check_chain(case_label, u, consts, inits, kinds, stats,
+                                                                    gen, timed=True)
+        elif launcher == "_walk_fwd_cuda":
             check_walk(case_label, u, *consts, stats)
             if launches.get("ballistics_fwd") or launches.get("ballistics_bwd"):
                 case = (u, *consts, torch.randn(shape, generator=gen, device="cuda"),
@@ -3684,12 +3742,13 @@ LIBRARY_WALK_LEN = 2**15  # the CPU comparison's length where the CPU path runs 
 LIBRARY_STD = {"poles": 1.5, "twoR": 2.0}
 LIBRARY_FILTERS = (AllPassFilter, BandPassFilter, BandRejectFilter, BiquadFilter, HighPassFilter,
                    PoleZeroFilter, StateVariableFilter)
-# the gain-smoothed console's launches a run: the composites' gate gain,
-# compressor energy and compressor gain walk 68 rows, the bus compressors'
-# energy and gain 8 (a block: 17 and 2)
-GS_REQUEST = {"ballistics_core": 5}
-GS_STEP = {"ballistics_fwd": 5, "ballistics_bwd": 5}
-GS_BLOCK = {"ballistics_core": 5}
+# the gain-smoothed console's launches a run: the dynamics chain over the
+# composites' four walks (gate energy and gain, compressor energy and
+# gain; 68 rows), then over the bus compressors' two (energy, gain; 8
+# rows); a block: 17 and 2
+GS_REQUEST = {"ballistics_chain_core": 2}
+GS_STEP = {"ballistics_chain_fwd": 2, "ballistics_chain_bwd": 2}
+GS_BLOCK = {"ballistics_chain_core": 2}
 BUILDER_STEPS = 10
 
 
@@ -3914,6 +3973,291 @@ def library_slice_phase(smi, stats):
         torch.cuda.empty_cache()
 
 
+# phase 36 (and 35 (b)'s kernel checks): the dynamics chain
+CHAIN_SWEEP_SAMPLES = (128, 256, 512, 1024)  # the chain's stage lengths timed at the console's shapes
+CHAIN_PLAIN_LEN = 2**15  # the plain chain's loop takes ~7 s a forward at 2^15 (four walks): checks cut rows there
+CHAIN_SPECS = (  # the console's composite and bus runs, then the other forms the kernel takes
+    (("noisegate", "log"), ("compressor", "linear")),
+    (("compressor", "linear"),),
+    (("noisegate", "linear"),),
+    (("noisegate", None), ("compressor", "log")),
+    (("compressor", "log"), ("noisegate", None)),
+)
+
+
+def chain_operands(gen, n, spec):
+    """``(consts, zi)`` of a chain on the card: per member the ranges of
+    :func:`gain_consts` (a leading gate of two smooths its energy as the
+    exact one-pole, from 0), its gain walk's at/rt from the compressor's
+    ranges; member 0 absent on every third row and member 1 on every
+    fifth; initial states 1 (the one-pole 0), as a request's."""
+    rows, zi = [], []
+    for i, (kind, smooth) in enumerate(spec):
+        onepole = i == 0 and len(spec) == 2 and kind == "noisegate"
+        rows += gain_consts(gen, n, kind, onepole=onepole)
+        at_g, rt_g = gain_consts(gen, n, "compressor")[:2] if smooth else (torch.zeros(n, device="cuda"),) * 2
+        keep = (torch.arange(n, device="cuda") % (3 if i == 0 else 5) != 1).float()
+        rows += [at_g, rt_g, keep]
+        zi += [0.0 if onepole else 1.0] + ([1.0] if smooth else [])
+    return torch.stack(rows), torch.stack([torch.full((n,), v, device="cuda") for v in zi])
+
+
+def check_chain(label, u, consts, zi, spec, stats, gen, samples=(None,), timed=False):
+    """The chain's three entry points against their plain versions on the
+    first CHAIN_PLAIN_LEN samples of ``u``'s rows (all where shorter), at
+    each stage length of ``samples`` (None: the wrapper's pick), every
+    stage length's outputs equal bit for bit: (a) the primal's gain and
+    (b) the forward's gain and residuals within MAX_ABS (and the final
+    states where the rows are not cut), (a)'s gain and states equal to
+    (b)'s; (c) the adjoint on (b)'s residuals and a drawn cotangent, at
+    the chunk its wrapper picks for ``u``'s whole rows (the main path's:
+    288 at 68 x 2^17, with the carry pass), within DU_REL (du) and
+    GRAD_REL (each constant's and initial state's row); an
+    absent member's gain rows exactly 1 (a lone member) and its gradient
+    rows exactly 0.  Each plain version runs once; with ``timed``, timed,
+    and the primal's own plain version is the primal's reference (else
+    the plain forward's gain).  Returns the plain versions' ms
+    (``timed``)."""
+    n, length = u.shape
+    cut = min(length, CHAIN_PLAIN_LEN)
+    head = u[:, :cut].contiguous()
+    plain_ms = {}
+
+    def plain(name, fn):
+        if not timed:
+            return fn()
+        plain_ms[name], out = device_ms(fn, reps=1)
+        return out
+
+    ref = plain("ballistics_chain_fwd", lambda: bal.ballistics_chain_fwd_plain(head, consts, zi, spec))
+    prim_ref = (plain("ballistics_chain_core", lambda: bal.ballistics_chain_plain(head, consts, zi, spec))
+                if timed else (ref[0], ref[2]))
+    first = None
+    for t in samples:
+        prim, last = bal._chain_fwd_cuda("check", u, consts, zi, spec, False, t)
+        fwd = bal._chain_fwd_cuda("check", u, consts, zi, spec, True, t)
+        torch.cuda.synchronize()
+        at = f"{label} T {t or 'picked'}"
+        check(torch.equal(fwd[0], prim) and torch.equal(fwd[2], last),
+              f"ballistics_chain_fwd {at}: the gain or final states differ from the primal's")
+        if first is None:
+            first = fwd
+        else:
+            check(all(torch.equal(a, b) for a, b in zip(fwd, first)),
+                  f"ballistics_chain_fwd {at}: differs from its call at T {samples[0] or 'picked'}")
+        err = max_err(prim[:, :cut], prim_ref[0])
+        ferr = max(max_err(fwd[0][:, :cut], ref[0]), max_err(fwd[1][..., :cut], ref[1]))
+        if cut == length:
+            err = max(err, max_err(last, prim_ref[1]))
+            ferr = max(ferr, max_err(last, ref[2]))
+        check(err < MAX_ABS, f"ballistics_chain_core {at}: max abs err {err} >= {MAX_ABS}")
+        check(ferr < MAX_ABS, f"ballistics_chain_fwd {at}: max abs err {ferr} >= {MAX_ABS}")
+        stats["ballistics_chain_core"]["max_abs_err"] = max(stats["ballistics_chain_core"]["max_abs_err"], err)
+        stats["ballistics_chain_fwd"]["max_abs_err"] = max(stats["ballistics_chain_fwd"]["max_abs_err"], ferr)
+    fwd_head = first if cut == length else bal._chain_fwd_cuda("check", head, consts, zi, spec, True, samples[0])
+    gg = torch.randn(n, cut, generator=gen, device="cuda")
+    # the reverse walk's chunk as the wrapper picks it for u's whole rows (the main path's)
+    chunk = chunking((n, length))["chunk"]
+    bwd = bal.ballistics_chain_bwd(head, fwd_head[1], fwd_head[2], gg, consts, spec, chunk=chunk)
+    bwd_ref = plain("ballistics_chain_bwd",
+                    lambda: bal.ballistics_chain_bwd_plain(head, fwd_head[1], fwd_head[2], gg, consts, spec))
+    torch.cuda.synchronize()
+    du_err, du_scale = max_err(bwd[0], bwd_ref[0]), bwd_ref[0].abs().max().item()
+    check(du_err <= DU_REL * du_scale, f"ballistics_chain_bwd {label}: du err {du_err} > {DU_REL} x {du_scale}")
+    rel, worst = 0.0, du_err
+    for q, (g, r) in enumerate(zip(torch.cat(bwd[1:]), torch.cat(bwd_ref[1:]))):
+        e, scale = max_err(g, r), r.abs().max().item()
+        if scale == 0.0:
+            check(bool((g == 0).all()), f"ballistics_chain_bwd {label}: gradient row {q} is 0 in the plain"
+                                        " version, not in the kernel's")
+        check(e <= GRAD_REL * scale, f"ballistics_chain_bwd {label}: gradient row {q} err {e} > {GRAD_REL} x {scale}")
+        rel, worst = max(rel, e / scale if scale > 0 else 0.0), max(worst, e)
+    stats["ballistics_chain_bwd"]["max_abs_err"] = max(stats["ballistics_chain_bwd"]["max_abs_err"], worst)
+    members = bwd[1].reshape(len(spec), len(bal.CHAIN_ROWS), n)
+    for i in range(len(spec)):
+        rows = consts[8 * i + 7] <= 0.5
+        check(bool((members[i][:, rows] == 0).all()), f"ballistics_chain_bwd {label}: absent member {i}'s"
+                                                       " gradients are not 0")
+        if len(spec) == 1:
+            check(bool((prim[rows] == 1.0).all()), f"ballistics_chain_core {label}: absent gain != 1")
+            check(bool((bwd[0][rows] == 0).all()), f"ballistics_chain_bwd {label}: absent du != 0")
+    say("chain", case=label, spec=spec, samples=[t or "picked" for t in samples], plain_compared_at=f"{n} x {cut}",
+        primal_err=f"{err:.3g}", fwd_err=f"{ferr:.3g}", du_err=f"{du_err:.3g}", du_scale=f"{du_scale:.3g}",
+        grad_rel_err=f"{rel:.3g}", primal_equals_fwd=True, stage_lengths_bit_equal=True,
+        adjoint_chunk_picked_for=(n, length), **chunking((n, cut), chunk),
+        **({"plain_ms": {k: round(v, 1) for k, v in plain_ms.items()}} if timed else {}))
+    return plain_ms
+
+
+def time_chain(u, consts, zi, spec, stats, where, main, plain_ms):
+    """The chain's three entry points on ``u``'s rows, 5 calls each after
+    a warm-up (CUDA events), beside the plain versions' ``plain_ms``
+    (:func:`check_chain`'s, at the first CHAIN_PLAIN_LEN samples); then
+    the forwards over CHAIN_SWEEP_SAMPLES (``walk_sweep``) and the
+    adjoint over SWEEP_CHUNKS (``chunk_sweep``), 3 calls each;
+    ``main``: the kernels' row (the console's composite), else an extra
+    shape."""
+    n, length = u.shape
+    plain_n = min(length, CHAIN_PLAIN_LEN)
+    fwd = bal.ballistics_chain_fwd(u, consts, zi, spec)
+    gg = torch.randn(u.shape, device="cuda")
+    kernel = {
+        "ballistics_chain_core": lambda: bal._chain_fwd_cuda("time", u, consts, zi, spec, False),
+        "ballistics_chain_fwd": lambda: bal._chain_fwd_cuda("time", u, consts, zi, spec, True),
+        "ballistics_chain_bwd": lambda: bal.ballistics_chain_bwd(u, fwd[1], fwd[2], gg, consts, spec),
+    }
+    work = None if len(bal.chain_walks(spec)) == 4 else CHAIN_WORK_ONE
+    fields = {}
+    for name in CHAIN_KERNELS:
+        kernel[name]()  # warm-up
+        ms = device_ms(kernel[name], reps=5)[0]
+        more = chunking((n, length)) if name == "ballistics_chain_bwd" else walk_stage("ballistics_core", (n, length))
+        entry = {"path": where, "shape": [n, length], "ms": ms, "plain_ms": plain_ms[name],
+                 "plain_shape": [n, plain_n], "bound_ms": bound(name, n, length, work and work[name])[0],
+                 "floor_ms": 0.662 * length / 2**17 if name != "ballistics_chain_bwd" else None, **more}
+        if main:
+            stats[name].update(ms=ms, plain_ms=plain_ms[name], plain_shape=[n, plain_n], shape=(n, length), **more)
+        else:
+            stats[name]["more"].append(entry)
+        fields[name] = f"{ms:.3f} (plain {plain_ms[name]:.1f} at {n}x{plain_n}, bound {entry['bound_ms']:.4f})"
+    say("chain", timed=where, shape=(n, length), spec=spec, kernel_ms=fields)
+    # the forwards' stage length and the adjoint's chunk against their time, 3 calls after a warm-up
+    sweeps = [(name, "walk_sweep", {"samples": t}, lambda t=t, res=res: bal._chain_fwd_cuda("sweep", u, consts, zi,
+                                                                                           spec, res, t))
+              for name, res in (("ballistics_chain_core", False), ("ballistics_chain_fwd", True))
+              for t in CHAIN_SWEEP_SAMPLES]
+    sweeps += [("ballistics_chain_bwd", "chunk_sweep", chunking((n, length), c),
+                lambda c=c: bal.ballistics_chain_bwd(u, fwd[1], fwd[2], gg, consts, spec, chunk=c))
+               for c in SWEEP_CHUNKS]
+    swept = {}
+    for name, key, at, fn in sweeps:
+        fn()  # warm-up
+        ms = device_ms(fn, reps=3)[0]
+        stats[name][key].append({"path": where, "shape": [n, length], **at, "ms": ms})
+        swept.setdefault(name, {})[next(iter(at.values()))] = round(ms, 4)
+    say("chain", sweep=where, shape=(n, length), by_samples_or_chunk_ms=swept)
+    return fields
+
+
+@contextlib.contextmanager
+def composed_dynamics(proc):
+    """While entered, ``proc``'s dynamics processors compose (each walk
+    its own ``ballistics_core``, the knees in PyTorch), as before the
+    chain op: its yardstick on the card.  Their ``chain_spec``, the walk
+    op decided at construction, is unset meanwhile."""
+    saved = [(m, m.chain_spec) for m in proc.modules() if getattr(m, "chain_spec", None) is not None]
+    for m, _ in saved:
+        m.chain_spec = None
+    try:
+        yield
+    finally:
+        for m, spec in saved:
+            m.chain_spec = spec
+
+
+def chain_vs_composed(label, proc, x, params, w):
+    """``proc`` (a gain-smoothed member or composite) on the card through
+    the chain and composed: its output and the gradients of ``sum(y w)``
+    in every parameter, within -60 dB (output, concatenated gradient), or
+    where float32 determines less, within the CPU's own float32 spread +
+    SPREAD_DB (:func:`spread_held`: the composed path on the CPU, float32
+    and float64).  Prints every leaf's dB, and the forward's ms (no
+    gradient; 5 calls after a warm-up, CUDA events) both ways."""
+    def run(device, dtype=torch.float32, composed=False):
+        p = tree_map(lambda v: v.detach().to(device, dtype).clone().requires_grad_(True), params)
+        if "_absent" in p:
+            p["_absent"] = p["_absent"].detach()
+        proc.to(device, dtype)
+        if composed:
+            with composed_dynamics(proc):
+                y = proc(x.to(device, dtype), **p)
+        else:
+            y = proc(x.to(device, dtype), **p)
+        (y * w.to(device, dtype)).sum().backward()
+        grads = {k: v.grad.detach().cpu().double() for k, v in tree_items(p) if v.grad is not None}
+        proc.to("cuda", torch.float32)
+        return y.detach().cpu().double(), grads
+
+    y, g = run("cuda")
+    y_c, g_c = run("cuda", composed=True)
+    forward_ms = {}  # the forward alone, no gradient: the chain against the walks and knees it replaced
+    with torch.no_grad():
+        xc, pc = x.cuda(), tree_map(lambda v: v.cuda(), params)
+        for how in ("chain", "composed"):
+            with composed_dynamics(proc) if how == "composed" else contextlib.nullcontext():
+                proc(xc, **pc)  # warm-up
+                forward_ms[how] = round(device_ms(lambda: proc(xc, **pc), reps=5)[0], 4)
+        del xc, pc
+    cat = lambda d: torch.cat([d[k].ravel() for k in sorted(d)])  # noqa: E731
+    results = {"output": (y, y_c), "gradient": (cat(g), cat(g_c))}
+    dbs = {k: db(a - b, b) for k, (a, b) in results.items()}
+    leaf_db = {k: round(db(g[k] - g_c[k], g_c[k]), 1) for k in g_c if bool((g_c[k] != 0).any())}
+    held = {}
+    missed = [k for k, v in dbs.items() if v > -60.0]
+    if missed:
+        y32, g32 = run("cpu", composed=True)
+        y64, g64 = run("cpu", torch.float64, composed=True)
+        cpu = {"output": (y32, y64), "gradient": (cat(g32), cat(g64))}
+        held = {k: spread_held(f"chain vs composed {label}", k, results[k][0], *cpu[k]) for k in missed}
+    say("chain", vs_composed=label, rows=x.shape[0], length=x.shape[-1], output_db=f"{dbs['output']:.1f}",
+        grad_db=f"{dbs['gradient']:.1f}", leaf_db=leaf_db, forward_ms=forward_ms, bound="-60 dB" if not held else
+        {"-60 dB": [k for k in dbs if k not in held], "cpu float32 spread + 6 dB": held})
+
+
+def chain_phase(smi, stats):
+    """Phase 36: the dynamics chain beyond the console's own inputs (phase
+    35 (b) holds it there): its forms (CHAIN_SPECS) against the plain
+    versions at N = 1, 37, 68 x L = 4109, 8205 and 2^17 + 13 (that one
+    compared on its first 2^15 samples), at its own stage length and at T
+    = 96; a row split in two calls carrying the final states against one
+    call and causality at 68 x (2^17 + 13), bit for bit; and the
+    console's member configurations through the chain against the
+    composed path on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(36)
+    start = time.perf_counter()
+    with torch.no_grad():
+        k = 0
+        for n in RAGGED_ROWS:
+            for length in RAGGED_LENGTHS + (AUDIO_LEN + 13,):
+                spec = CHAIN_SPECS[k % len(CHAIN_SPECS)]
+                k += 1
+                u = energy(gen, n, length)
+                consts, zi = chain_operands(gen, n, spec)
+                check_chain(f"ragged ({n}, {length})", u, consts, zi, spec, stats, gen, (None, FORCED_SAMPLES))
+        # the split call and causality at 68 x (2^17 + 13) (row starts not 16-byte aligned)
+        n, spec = BATCH * CHAINS, CHAIN_SPECS[0]
+        u = energy(gen, n, AUDIO_LEN + 13)
+        consts, zi = chain_operands(gen, n, spec)
+        whole = bal._chain_fwd_cuda("split", u, consts, zi, spec, True)
+        prim, last = bal._chain_fwd_cuda("split", u, consts, zi, spec, False)
+        cut = AUDIO_LEN // 2 + 7
+        first, mid = bal._chain_fwd_cuda("split", u[:, :cut].contiguous(), consts, zi, spec, False)
+        second, end = bal._chain_fwd_cuda("split", u[:, cut:].contiguous(), consts, mid, spec, False)
+        head = bal._chain_fwd_cuda("split", u[:, :AUDIO_LEN].contiguous(), consts, zi, spec, True)
+        torch.cuda.synchronize()
+        check(torch.equal(torch.cat([first, second], dim=1), prim) and torch.equal(end, last),
+              f"ballistics_chain_core: the row split at {cut} differs from one call")
+        check(torch.equal(head[0], whole[0][:, :AUDIO_LEN]) and torch.equal(head[1], whole[1][..., :AUDIO_LEN]),
+              f"ballistics_chain_fwd: the first {AUDIO_LEN} samples differ from the whole call's")
+        say("chain", split_at=cut, shape=tuple(u.shape), state_carry="exact",
+            causality=f"({n}, {AUDIO_LEN + 13}) vs ({n}, {AUDIO_LEN})", bit_equal=True)
+        del u, whole, prim, first, second, head
+    # the console's member configurations, composed against the chain
+    rng = np.random.default_rng(36)
+    gs = gain_smoothed_processors()
+    composite = FusedDynamicsChain([("0_noisegate", gs["noisegate"]), ("1_compressor", gs["compressor"])])
+    for label, proc, n in (("composite", composite, BATCH * CHAINS), ("bus compressor", gs["compressor"], BATCH * 2)):
+        g = torch.Generator().manual_seed(n)
+        x = console_input((n, 2, AUDIO_LEN), g, "cpu")
+        params = tree_map(torch.from_numpy, numpy_parameters(proc.parameter_size(), n, rng, std=0.1))
+        if "_absent" in params:  # the console's: 11 of every 17 gates absent
+            params["_absent"] = torch.stack([(torch.arange(n) % CHAINS) % 3 != 0,
+                                             torch.zeros(n, dtype=torch.bool)], dim=1).float()
+        chain_vs_composed(label, proc.cuda(), x, params, torch.randn(n, 2, AUDIO_LEN, generator=g))
+    say("chain", phase_36_s=f"{time.perf_counter() - start:.1f}", card=repr(smi))
+
+
+
 def gain_smoothed_processors():
     """Phase 35 (b)'s console: bench.py's processors with the compressor
     and the gate smoothing their gains (tests/test_torch_dynamics.py's two
@@ -3926,10 +4270,11 @@ def gain_smoothed_processors():
 
 def gain_smoothed_kernels(smi, stats):
     """Phase 35 (b)'s kernel checks: an eager request and an eager step of
-    the console at full width, with the forward walks' inputs kept
-    (:class:`KernelInputs`), and each kernel held against its plain version
-    on them (:func:`check_path_inputs`: #7, split in two; #8 and #9 on a
-    drawn cotangent); #8 and #9 timed on the 68-row input."""
+    the console at full width, with the chain's inputs kept
+    (:class:`KernelInputs`), and its three entry points held against their
+    plain versions on them (:func:`check_path_inputs`, :func:`check_chain`:
+    the first 2^15 samples of each row); the chain timed on the composites'
+    68-row input (the kernels' row) and the bus compressors' 8 rows."""
     console = bench_console(CHAINS, seed=0, device="cuda", processors=gain_smoothed_processors())
     render = make_render_fn(console.fused_processors, console.plan, jit=False)
     trainer = bench_trainer(CHAINS, seed=0, device="cuda", processors=gain_smoothed_processors(), jit=False)
@@ -3949,21 +4294,15 @@ def gain_smoothed_kernels(smi, stats):
     with torch.no_grad():
         checked = check_path_inputs("gain-smoothed console", inputs, launches, stats)
         timed = {}
-        for (launcher, shape, _), (u, (zi, at, rt), _, _) in inputs.cases.items():
-            if shape[0] != BATCH * CHAINS:
-                continue
-            gg = torch.randn(shape, generator=g, device="cuda")
-            _, d = bal.ballistics_fwd(u, zi, at, rt)
-            for name, kern in (("ballistics_fwd", lambda: bal.ballistics_fwd(u, zi, at, rt)),
-                               ("ballistics_bwd", lambda: bal.ballistics_bwd(d, gg, at, rt))):
-                kern()  # warm-up
-                ms = device_ms(kern, reps=5)[0]
-                more = chunking(shape) if name == "ballistics_bwd" else walk_stage(name, shape)
-                stats[name]["more"].append({"path": "gain-smoothed console", "shape": list(shape), "ms": ms,
-                                            "plain_ms": None, "bound_ms": bound(name, *shape)[0], **more})
-                timed[name] = f"{ms:.3f}"
+        for (launcher, shape, spec), (u, consts, _, zi) in sorted(inputs.cases.items(), key=str):
+            if launcher == "_chain_fwd_cuda" and shape[1] == AUDIO_LEN:
+                main = shape[0] == BATCH * CHAINS
+                where = "gain-smoothed console, " + ("composites" if main else "bus compressors")
+                timed[f"{shape[0]}x{shape[1]}"] = time_chain(u, consts, zi, spec, stats, where, main,
+                                                             inputs.plain_ms[(launcher, shape, spec)])
+    check(len(timed) == 2, f"gain-smoothed kernels: the chain timed at {list(timed)}, not at 68 and 8 rows")
     say("gain_smoothed", kernels_checked=checked, launches_a_request_and_a_step=launches,
-        kernel_ms_at_68x2e17=timed, card=repr(smi))
+        chain_ms=timed, card=repr(smi))
 
 
 def gain_smoothed_phase(args, smi, stats):
@@ -4058,9 +4397,13 @@ def kernel_row(name, source, replaces, stats):
            "launches": s.get("launches", 0), "max_abs_err": s["max_abs_err"], "ms": s["ms"],
            "plain_ms": s["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
            "library_ms": None, "shape": list(s["shape"]), "launches_per_run": s["per_run"]}
-    for key in ("device_busy_ms", "host_ms", "chunk", "chunks", "samples"):
+    for key in ("device_busy_ms", "host_ms", "chunk", "chunks", "samples", "plain_shape"):
         if key in s:
             row[key] = s[key]
+    if name in CHAIN_KERNELS:
+        row["counterpart"] = OWN_KERNEL
+        if name != "ballistics_chain_bwd":
+            row["floor_ms"] = 0.662 * s["shape"][1] / 2**17  # one walk's serial chain (PERF.md section 6)
     if s["more"]:
         row["more_shapes"] = s["more"]
     if s["chunk_sweep"]:
@@ -4265,6 +4608,12 @@ def main():
     phases_at = time.perf_counter()
     library_card_phase(args, smi, stats)
     say("library35", phase_35_s=f"{time.perf_counter() - phases_at:.1f}")
+
+    # 36. the dynamics chain at ragged shapes, split, causal, against the
+    # composed path on the card
+    phases_at = time.perf_counter()
+    chain_phase(smi, stats)
+    say("chain", phase_36_s_whole=f"{time.perf_counter() - phases_at:.1f}")
 
     for name in KERNELS:
         check(name in NO_PATH or "launches" in stats[name], f"{name} ran on no path")

@@ -1,8 +1,8 @@
 // Shared pieces of the ballistics gain kernels (ballistics_gain.cu,
 // ballistics_grad.cu): the 32 x 32 time tiles a reverse walk stages
-// through shared memory, the step of every forward walk, and the
-// quadratic knee of grafx_tpu/ops/ballistics_tpu.py (_knee_f, _knee_fp,
-// _knee_fhk).
+// through shared memory, the step of every forward walk, the quadratic
+// knee of grafx_tpu/ops/ballistics_tpu.py (_knee_f, _knee_fp, _knee_fhk)
+// and the layout of a dynamics chain (ChainSpec).
 //
 // kind 0: compressor (cf = 1/ratio - 1); kind 1: noise gate
 // (cf = ratio - 1).  logf/expf are the accurate library versions and
@@ -17,6 +17,7 @@ namespace grafx {
 
 constexpr int kTile = 32;
 constexpr float kEps = 1e-5f;
+constexpr int kChainWalks = 4;  // a dynamics chain's walks at most: two members' energy and gain
 
 using Tile = float[kTile][kTile + 1];  // +1: row and column reads hit 32 banks
 
@@ -71,5 +72,39 @@ __device__ __forceinline__ float knee_fhk(float x, float hk, int kind) {
 __device__ __forceinline__ float knee_gain(float y, float th, float cf, float hk, int kind) {
   return expf(cf * knee_f(logf(y + kEps) - th, hk, kind));
 }
+
+// A dynamics chain's members and walks, from the code of
+// ops/ballistics.py:chain_code.  Walk r is member wm[r]'s energy walk, or
+// its gain walk where wg[r]; member i's energy walk is walk first[i], its
+// gain walk (where smooth[i] != 0) the next.
+struct ChainSpec {
+  int members, walks;
+  int kind[2], smooth[2];  // smooth: 0 none, 1 linear, 2 log
+  int first[2];
+  int wm[kChainWalks], wg[kChainWalks];
+
+  __host__ __device__ explicit ChainSpec(int code) : members((code & 1) + 1), walks(0) {
+    for (int i = 0; i < 2; ++i) {
+      kind[i] = (code >> (1 + 3 * i)) & 1;
+      smooth[i] = (code >> (2 + 3 * i)) & 3;
+    }
+    for (int i = 0; i < members; ++i) {
+      first[i] = walks;
+      for (int g = 0; g <= (smooth[i] != 0); ++g) {
+        wm[walks] = i;
+        wg[walks++] = g;
+      }
+    }
+  }
+
+  // a code ops/ballistics.py:chain_code can give
+  __host__ __device__ static bool valid(int code) {
+    if (code < 0 || code >= 128) return false;
+    for (int i = 0; i <= (code & 1); ++i) {
+      if (((code >> (2 + 3 * i)) & 3) == 3) return false;
+    }
+    return true;
+  }
+};
 
 }  // namespace grafx

@@ -10,7 +10,14 @@
 //   * grafx_ballistics_fwd     <- _kernel                    (ballistics_tpu.py:35),
 //                                 and with d set <- _fwd_d_kernel (ballistics_tpu.py:73)
 // and the natural-layout experiment of benchmarks/ballistics_layout_ab.py
-// (_kernel_nat, :36), which computes the same function as _kernel.
+// (_kernel_nat, :36), which computes the same function as _kernel; and
+// holds one kernel of the port's own, with no Pallas counterpart:
+//   * grafx_chain_fwd          the dynamics chain (ops/ballistics.py:
+//                              ballistics_chain_core), for grafx_tpu's
+//                              composed path (grafx_tpu/render/fuse.py:423,
+//                              grafx_tpu/processors/dynamics.py:95), where
+//                              each walk of a gain-smoothed run is its own
+//                              ballistics_core call.
 // The *_res versions also write the residuals the adjoints
 // (ballistics_grad.cu) need: d[n] = x[n] - y[n-1] of each walk and, for
 // the gains, its final state y[L-1].  grafx_ballistics_fwd is the walk
@@ -74,6 +81,17 @@
 //     waits for all of member a, and ga never goes through device memory.
 //     The pair then costs about one walk, where two walks with the knees
 //     between them in separate passes cost two (PERF.md).
+//   * The chain is pair_kernel grown to a run's every walk, up to four
+//     (a gate's energy and gain, then a compressor's energy, over the
+//     gated energy, and gain): chain_kernel.  Walker warp r walks
+//     recursion r a stage behind walker r - 1; eight knee warps compute,
+//     between the walks, each stage's knee, the gain walk's input (the
+//     log gain, or its exp), a member's gain (selected to exactly 1 where
+//     it is absent), the product and the next member's energy, all in
+//     shared memory.  Its time is one walk's plus R - 1 stages of pipeline
+//     fill: at 68 x 2^17 four walks take about what one does (PERF.md).
+//     The ring must hold R + 1 stages: the knee warps refill a stage's
+//     slot only once walk R - 1 is done with the stage before it.
 // Each kernel's time on the H100 beside its bound is in PERF.md section 6
 // (chip_smoke.py): at 2^17 samples every one sits on the walker's chain,
 // far above its bytes' bound, which no serial walk can reach.
@@ -96,6 +114,8 @@ constexpr int kLoadArrivals = 33;  // a stage's load: the bulk copy's lane, then
 constexpr int kKneeThreads = 256;
 constexpr int kKneeWarps = 4;  // pair_kernel's knee warps (the first also moves the row)
 constexpr int kPairThreads = 32 * (2 + kKneeWarps);
+constexpr int kChainKneeWarps = 8;  // chain_kernel's (after a walker warp for each of its walks)
+constexpr int kChainThreads = 32 * (kChainWalks + kChainKneeWarps);
 
 // ---------------------------------------------------------------------------
 // mbarriers and bulk copies (PTX)
@@ -489,6 +509,146 @@ pair_kernel(const float* __restrict__ u, float* __restrict__ gain, float* __rest
 }
 
 // ---------------------------------------------------------------------------
+// The dynamics chain (the port's own kernel)
+// ---------------------------------------------------------------------------
+
+// The chain over u, a block a row: walker warp r (lane 0) walks recursion
+// r a stage behind walker r - 1; the knee warps compute, between the
+// walks, each stage's knee, gain walk input, member gain, product and
+// next member's energy in shared memory; the first knee warp also moves
+// the row.  gain = the product; last (R, n) = each walk's final state
+// where not null; with RES d (R, n, len) = each walk's residual.  c: (8 M,
+// n) member constants (ops/ballistics.py:CHAIN_ROWS); zi: (R, n).
+// Buffers: U (0) u; P (1) each walk's output; Q the next walk's input (P
+// itself without RES: every walk after the first runs in place; with RES
+// buffer 2, so that the knee warps still see a walk's input for its
+// residual); G the gain.  With RES the knee warps store each residual to
+// d as they compute it (coalesced plain stores), so that the ring holds
+// four arrays a stage (kept there for the copy warp's bulk stores, the
+// four residuals would make it eight, and leave six stages at T = 1024).
+template <bool RES>
+__global__ void __launch_bounds__(kChainThreads)
+chain_kernel(const float* __restrict__ u, float* __restrict__ gain, float* __restrict__ d,
+             float* __restrict__ last, const float* __restrict__ c,
+             const float* __restrict__ zi, int n, long long len, int code, int T, int S) {
+  extern __shared__ __align__(16) float ring_smem[];
+  __shared__ uint64_t full[kMaxStages], walked[kChainWalks][kMaxStages],
+      kneed[kChainWalks - 1][kMaxStages];
+  __shared__ float enter[kChainWalks][kMaxStages];  // each walk's state entering each stage
+  constexpr int kU = 0, kP = 1, kQ = RES ? 2 : 1, kG = RES ? 3 : 2;
+  const ChainSpec spec(code);
+  const int R = spec.walks;
+  const Ring ring{ring_smem, T, S, RES ? 4 : 3, len};
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x;
+  const long long row_off = (long long)row * len;
+  const int stages = ring.count_stages();
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S; ++i) {
+      mbar_init(&full[i], kLoadArrivals);
+      for (int r = 0; r < kChainWalks; ++r) mbar_init(&walked[r][i], 1);
+      for (int r = 0; r + 1 < kChainWalks; ++r) mbar_init(&kneed[r][i], 32 * kChainKneeWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp < kChainWalks) {  // the walkers: r walks U (r = 0) or Q into P
+    const int r = warp;
+    if (lane != 0 || r >= R) return;
+    const int m = spec.wm[r];
+    const float* cm = c + (long long)(8 * m + (spec.wg[r] ? 5 : 0)) * n;
+    const float at = cm[row], rt = cm[n + row];
+    float s = zi[(long long)r * n + row];
+    Cursor at_k;
+    for (int k = 0; k < stages; ++k, at_k.next(S)) {
+      const int slot = at_k.slot;
+      mbar_wait(r == 0 ? &full[slot] : &kneed[r - 1][slot], at_k.phase);
+      if (RES) enter[r][slot] = s;
+      s = walk_stage(ring.buf(slot, r == 0 ? kU : kQ), ring.buf(slot, kP), ring.count(k), s, at,
+                     rt);
+      fence_shared_to_bulk();
+      mbar_arrive(&walked[r][slot]);
+    }
+    if (last != nullptr) last[(long long)r * n + row] = s;
+    return;
+  }
+
+  // the knee warps
+  const int t = threadIdx.x - 32 * kChainWalks;
+  const bool mover = warp == kChainWalks;
+  float th[2] = {}, cf[2] = {}, hk[2] = {};
+  bool present[2] = {};
+  for (int i = 0; i < spec.members; ++i) {
+    const float* cm = c + (long long)8 * i * n + row;
+    th[i] = cm[2 * n];
+    cf[i] = cm[3 * n];
+    hk[i] = cm[4 * n];
+    present[i] = cm[7 * n] > 0.5f;
+  }
+  if (mover) {
+    for (int k = 0; k < min(S, stages); ++k) load_stage(ring, full, u + row_off, lane, k, k);
+  }
+  Cursor at_r[kChainWalks];  // step r's cursor, at stage k - r
+  for (int k = 0; k < stages + R - 1; ++k) {
+    for (int r = 0; r < R; ++r) {
+      const int kr = k - r;
+      if (kr < 0 || kr >= stages) continue;
+      const int slot = at_r[r].slot;
+      mbar_wait(&walked[r][slot], at_r[r].phase);
+      const int mcount = ring.count(kr);
+      const int i = spec.wm[r], kind = spec.kind[i], smooth = spec.smooth[i];
+      const bool gain_walk = spec.wg[r], last_walk = r + 1 == R;
+      const float* ub = ring.buf(slot, kU);
+      const float* pb = ring.buf(slot, kP);
+      const float* xb = ring.buf(slot, r == 0 ? kU : kQ);  // the walk's input
+      float* qb = ring.buf(slot, kQ);
+      float* gb = ring.buf(slot, kG);
+      float* dr = RES ? d + ((long long)r * n + row) * len + (long long)kr * T : nullptr;
+      for (int j = t; j < mcount; j += 32 * kChainKneeWarps) {
+        const float y = pb[j];
+        if (RES) dr[j] = xb[j] - (j > 0 ? pb[j - 1] : enter[r][slot]);
+        float g;
+        if (!gain_walk) {
+          const float lg = cf[i] * knee_f(logf(y + kEps) - th[i], hk[i], kind);
+          if (smooth != 0) {  // the member's gain walk's input
+            qb[j] = smooth == 2 ? lg : expf(lg);
+            continue;
+          }
+          g = expf(lg);
+        } else {
+          g = smooth == 2 ? expf(y) : y;
+        }
+        g = present[i] ? g : 1.0f;
+        const float prod = i == 0 ? g : gb[j] * g;
+        gb[j] = prod;
+        if (i + 1 < spec.members) qb[j] = prod * prod * ub[j];  // the next member's energy
+      }
+      at_r[r].next(S);
+      if (!last_walk) {
+        mbar_arrive(&kneed[r][slot]);
+        continue;
+      }
+      // the stage is done: its stores, then the refill of the slot before it
+      fence_shared_to_bulk();
+      asm volatile("bar.sync 1, %0;" ::"n"(32 * kChainKneeWarps) : "memory");
+      if (mover) {
+        const long long t0 = row_off + (long long)kr * T;
+        store_row(gain + t0, gb, mcount, lane);
+        bulk_commit();
+        if (kr >= 1 && kr - 1 + S < stages) {
+          bulk_wait_read_all_but_last();
+          __syncwarp();  // and every lane's plain stores
+          load_stage(ring, full, u + row_off, lane, kr - 1 + S, slot == 0 ? S - 1 : slot - 1);
+        }
+      }
+    }
+  }
+  if (mover) bulk_wait_all();
+}
+
+// ---------------------------------------------------------------------------
 // Launches
 // ---------------------------------------------------------------------------
 
@@ -590,6 +750,35 @@ int gain_pair_fwd(const float* u, float* gain, float* d_a, float* d_b, float* v_
   return (int)cudaGetLastError();
 }
 
+// The chain; d null for the primal, last may be null.
+int chain_fwd(const float* u, float* gain, float* d, float* last, const float* consts,
+              const float* zi, int n, long long len, int code, int T, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (bad_shape(n, len, 0) || !ChainSpec::valid(code)) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || len <= 0) return 0;
+  const ChainSpec spec(code);
+  const bool res = d != nullptr;
+  const int nbuf = res ? 4 : 3;
+  const int fit = ring_stages(T, nbuf, n, device);
+  if (fit == 0) return (int)cudaErrorInvalidValue;
+  // the ring must hold a stage for each walk and one more (chain_kernel's
+  // refill order), whatever the rows sharing an SM leave
+  const int S = std::max(fit, spec.walks + 1);
+  const size_t bytes = (size_t)S * nbuf * (T + 4) * sizeof(float);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (res) {
+    if ((err = allow_smem(chain_kernel<true>, bytes))) return (int)err;
+    chain_kernel<true><<<n, kChainThreads, bytes, s>>>(u, gain, d, last, consts, zi, n, len, code,
+                                                       T, S);
+  } else {
+    if ((err = allow_smem(chain_kernel<false>, bytes))) return (int)err;
+    chain_kernel<false><<<n, kChainThreads, bytes, s>>>(u, gain, nullptr, last, consts, zi, n, len,
+                                                        code, T, S);
+  }
+  return (int)cudaGetLastError();
+}
+
 // The plain walk: y from the per-row initial states zi; where d is not
 // null, also its residual d[n] = u[n] - y[n-1] (y[-1] = zi).
 int ballistics_fwd(const float* u, float* y, float* d, const float* consts, int n,
@@ -640,6 +829,17 @@ int grafx_gain_pair_fwd_res(const float* u, float* gain, float* d_a, float* d_b,
                             void* stream) {
   return gain_pair_fwd(u, gain, d_a, d_b, v_last, u_last, consts, n, len, kind_a, kind_b, init_a,
                        init_b, samples, device, stream);
+}
+
+// The dynamics chain of ops/ballistics.py:ballistics_chain_core.  u and
+// gain (n, len); d (R, n, len) or null (the primal); last (R, n) or null;
+// consts (8 M, n), member i's rows at 8 i: at, rt, th, cf, hk, at_g, rt_g,
+// present; zi (R, n); code: ops/ballistics.py:chain_code (R walks, M
+// members).
+int grafx_chain_fwd(const float* u, float* gain, float* d, float* last, const float* consts,
+                    const float* zi, int n, long long len, int code, int samples, int device,
+                    void* stream) {
+  return chain_fwd(u, gain, d, last, consts, zi, n, len, code, samples, device, stream);
 }
 
 // u, y and d (n, len), d may be null; consts (3, n) with rows zi, at, rt.

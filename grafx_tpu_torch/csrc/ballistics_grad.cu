@@ -8,6 +8,8 @@
 //   * grafx_gain_pair_bwd  <- _bwd_gain_pair_kernel  (ballistics_tpu.py:892)
 //   * grafx_ballistics_bwd <- _bwd_fused_kernel      (ballistics_tpu.py:111)
 //   * grafx_reverse_scan   <- _bwd_kernel            (ballistics_tpu.py:178)
+// and holds the adjoint of the port's own dynamics chain (grafx_chain_bwd,
+// for grafx_chain_fwd in ballistics_gain.cu; no Pallas counterpart).
 //
 // Inputs are the residuals of the forwards in ballistics_gain.cu: per
 // walk d[n] = x[n] - y[n-1] and the final state y[L-1].  The envelope is
@@ -75,6 +77,16 @@
 // Its bytes are 12 per sample (d and g in, du out); on the 4-tile frame
 // sequences of a factorized compressor it walks whole rows and is bound
 // by its two launches.
+// The dynamics chain's adjoint (grafx_chain_bwd) is #4 grown to a run's
+// every walk: elementwise passes rebuild each member's gain from the
+// residuals (chain_rebuild), then member by member from the last, the
+// cotangent of its gain (chain_cotangent: the other member's gain, and
+// for the first of two its effect through the second's energy g^2 u),
+// its gain walk's chunked reverse walk, its knee adjoint (chain_knee_bwd)
+// and its energy walk's chunked reverse walk; an absent member's
+// cotangent is 0, so each of its gradients is exactly 0.  At 68 x 2^17
+// its four walks and seven elementwise passes take ~0.9 ms against 0.075
+// of bytes (PERF.md): fusing the passes into the walks is open work.
 // grafx_reverse_scan is the general first-order reverse recurrence
 // gh[n] = g[n] + a[n] gh[n+1] (gh[L] = 0) with the coefficient at n itself,
 // not at n + 1 as the ballistics adjoint carries it.  It is the same
@@ -423,6 +435,114 @@ reduce_kernel(const float* __restrict__ part, float* __restrict__ out, long long
   }
 }
 
+// ---------------------------------------------------------------------------
+// The dynamics chain's adjoint (the port's own kernel)
+// ---------------------------------------------------------------------------
+
+// The chain's operands for its elementwise passes: d (R, n, len) and last
+// (R, n) the forward's residuals and final states, c (8 M, n) the member
+// constants, buf the reverse walks' cotangent, g[i] member i's gain and x1
+// member 1's energy (scratch), part (8 M, n, tiles) the tile partials.
+struct ChainArgs {
+  const float *u, *d, *last, *gg, *c;
+  float *du, *buf, *x1, *part;
+  float* g[2];
+  int n;
+  long long len;
+  ChainSpec spec;
+};
+
+// Member i's energy envelope at sample t of a row (k = row * len + t):
+// (x - d)[t + 1] of its energy walk, its final state at the end.
+__device__ __forceinline__ float chain_envelope(const ChainArgs& a, int i, int row, long long k,
+                                                long long t) {
+  const int r = a.spec.first[i];
+  if (t + 1 >= a.len) return a.last[(long long)r * a.n + row];
+  const float* x = i == 0 ? a.u : a.x1;
+  return x[k + 1] - a.d[(long long)r * a.n * a.len + k + 1];
+}
+
+__device__ __forceinline__ float chain_log_gain(const ChainArgs& a, int i, int row, float e) {
+  const float* cm = a.c + (long long)8 * i * a.n + row;
+  return cm[3 * a.n] * knee_f(logf(e + kEps) - cm[2 * a.n], cm[4 * a.n], a.spec.kind[i]);
+}
+
+// Member i's gain g[i], rebuilt from the residuals as the forward formed
+// it (and, for member 0 of two, member 1's energy x1 = g^2 u), forward
+// member by member.
+__global__ void __launch_bounds__(kElemThreads) chain_rebuild(ChainArgs a, int i) {
+  const int row = blockIdx.y;
+  const long long t = (long long)blockIdx.x * kElemThreads + threadIdx.x;
+  if (t >= a.len) return;
+  const long long k = row * a.len + t;
+  const int smooth = a.spec.smooth[i];
+  float g;
+  if (smooth == 0) {
+    g = expf(chain_log_gain(a, i, row, chain_envelope(a, i, row, k, t)));
+  } else {
+    // the gain walk's output: (v - d)[t + 1], v its input
+    const int r = a.spec.first[i] + 1;
+    float y = a.last[(long long)r * a.n + row];
+    if (t + 1 < a.len) {
+      const float lg = chain_log_gain(a, i, row, chain_envelope(a, i, row, k + 1, t + 1));
+      y = (smooth == 2 ? lg : expf(lg)) - a.d[(long long)r * a.n * a.len + k + 1];
+    }
+    g = smooth == 2 ? expf(y) : y;
+  }
+  g = a.c[(long long)(8 * i + 7) * a.n + row] > 0.5f ? g : 1.0f;
+  a.g[i][k] = g;
+  if (i == 0 && a.spec.members == 2) a.x1[k] = g * g * a.u[k];
+}
+
+// buf = the cotangent entering member i's first reverse walk: with G the
+// cotangent of its gain (gg times the other member's gain, and for member
+// 0 of two also dx1 2 g u through member 1's energy x1 = g^2 u, dx1 in
+// buf; then du = dx1 g^2), 0 where the member is absent: G g into a log
+// gain walk or without one (the cotangent of lg = log g), G into a linear
+// one.
+__global__ void __launch_bounds__(kElemThreads) chain_cotangent(ChainArgs a, int i) {
+  const int row = blockIdx.y;
+  const long long t = (long long)blockIdx.x * kElemThreads + threadIdx.x;
+  if (t >= a.len) return;
+  const long long k = row * a.len + t;
+  const float gi = a.g[i][k];
+  float G = a.gg[k];
+  if (a.spec.members == 2) G = G * a.g[1 - i][k];
+  if (i == 0 && a.spec.members == 2) {
+    const float dx1 = a.buf[k];
+    G = G + dx1 * 2.0f * gi * a.u[k];
+    a.du[k] = dx1 * gi * gi;
+  }
+  G = a.c[(long long)(8 * i + 7) * a.n + row] > 0.5f ? G : 0.0f;
+  a.buf[k] = a.spec.smooth[i] == 1 ? G : G * gi;
+}
+
+// Member i's knee adjoint: from the cotangent dlg of its log gain (buf,
+// times v = exp(lg) after a linear gain walk), the cotangent of its energy
+// envelope (into buf) and the tile sums of its dth, dcf, dhk terms.
+__global__ void __launch_bounds__(kElemThreads) chain_knee_bwd(ChainArgs a, int i) {
+  const int row = blockIdx.y;
+  const long long t = (long long)blockIdx.x * kElemThreads + threadIdx.x;
+  float pth = 0.0f, pcf = 0.0f, phk = 0.0f;
+  if (t < a.len) {
+    const long long k = row * a.len + t;
+    const float* cm = a.c + (long long)8 * i * a.n + row;
+    const float th = cm[2 * a.n], cf = cm[3 * a.n], hk = cm[4 * a.n];
+    const int kind = a.spec.kind[i];
+    const float e = chain_envelope(a, i, row, k, t);
+    const float x = logf(e + kEps) - th;
+    const float f = knee_f(x, hk, kind), fp = knee_fp(x, hk, kind);
+    float dlg = a.buf[k];
+    if (a.spec.smooth[i] == 1) dlg = dlg * expf(cf * f);
+    a.buf[k] = dlg * cf * fp / (e + kEps);
+    pth = -dlg * cf * fp;
+    pcf = dlg * f;
+    phk = dlg * cf * knee_fhk(x, hk, kind);
+  }
+  tile_partials(a.part + (long long)(8 * i + 2) * a.n * ((a.len + kTile - 1) / kTile), a.n, row,
+                a.len, pth, pcf, phk);
+}
+
 bool bad_shape(int n, long long len, int kind, int chunk = kTile) {
   return n > 65535 || (len + kElemThreads - 1) / kElemThreads > 0x7fffffffLL ||
          kind < 0 || kind > 1 || chunk <= 0 || chunk % kTile != 0;
@@ -596,6 +716,68 @@ int grafx_reverse_scan(const float* a, const float* g, float* gh, float* carry, 
   if (n <= 0 || len <= 0) return 0;
   return (int)rwalk<true>(g, a, gh, nullptr, nullptr, nullptr, nullptr, nullptr, carry, n, len,
                           chunk, static_cast<cudaStream_t>(stream));
+}
+
+// The dynamics chain's adjoint (ops/ballistics.py:ballistics_chain_bwd).
+// u, gg and du (n, len); d (R, n, len) and last (R, n) the residuals and
+// final states of grafx_chain_fwd; consts (8 M, n) as there; grads (8 M +
+// R, n), written with the rows of consts (0 for present and an unsmoothed
+// gain's), then each walk's dzi; scratch (2 M, n, len); partials (8 M, n,
+// ceil(len / 32)); carry and chunk as for grafx_gain_bwd, shared by the
+// walks; code: ops/ballistics.py:chain_code.
+int grafx_chain_bwd(const float* u, const float* d, const float* last, const float* gg,
+                    const float* consts, float* du, float* grads, float* scratch,
+                    float* partials, float* carry, int n, long long len, int chunk, int code,
+                    int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (bad_shape(n, len, 0, chunk) || !ChainSpec::valid(code)) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || len <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const ChainSpec spec(code);
+  const int M = spec.members, R = spec.walks;
+  const long long nl = (long long)n * len;
+  const long long tiles = (len + kTile - 1) / kTile;
+  const long long pn = (long long)n * tiles;
+  ChainArgs a{u, d, last, gg, consts, du, scratch, M == 2 ? scratch + 3 * nl : nullptr, partials,
+              {scratch + nl, M == 2 ? scratch + 2 * nl : nullptr}, n, len, spec};
+  const dim3 grid = elem_grid(n, len);
+  if ((err = cudaMemsetAsync(grads, 0, sizeof(float) * (8 * M + R) * n, s))) return (int)err;
+  for (int i = 0; i < M; ++i) {
+    chain_rebuild<<<grid, kElemThreads, 0, s>>>(a, i);
+    if ((err = cudaGetLastError())) return (int)err;
+  }
+  for (int i = M - 1; i >= 0; --i) {
+    const int r = spec.first[i];
+    const float* c = consts + (long long)8 * i * n;
+    float* part = partials + 8 * i * pn;
+    float* dzi = grads + (long long)(8 * M + r) * n;
+    chain_cotangent<<<grid, kElemThreads, 0, s>>>(a, i);
+    if ((err = cudaGetLastError())) return (int)err;
+    if (spec.smooth[i] != 0 &&
+        (err = rwalk<false>(scratch, d + (r + 1) * nl, scratch, c + 5 * n, c + 6 * n, part + 5 * pn,
+                            part + 6 * pn, dzi + n, carry, n, len, chunk, s))) {
+      return (int)err;
+    }
+    chain_knee_bwd<<<grid, kElemThreads, 0, s>>>(a, i);
+    if ((err = cudaGetLastError())) return (int)err;
+    if ((err = rwalk<false>(scratch, d + r * nl, M == 1 ? du : scratch, c, c + n, part, part + pn,
+                            dzi, carry, n, len, chunk, s))) {
+      return (int)err;
+    }
+  }
+  if (M == 2) {
+    add_kernel<<<(unsigned)((nl + kElemThreads - 1) / kElemThreads), kElemThreads, 0, s>>>(
+        du, scratch, nl);
+    if ((err = cudaGetLastError())) return (int)err;
+  }
+  for (int i = 0; i < M; ++i) {
+    if ((err = reduce(partials + 8 * i * pn, grads + (long long)8 * i * n,
+                      spec.smooth[i] != 0 ? 7 : 5, n, tiles, s))) {
+      return (int)err;
+    }
+  }
+  return 0;
 }
 
 }  // extern "C"

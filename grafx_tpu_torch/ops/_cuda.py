@@ -43,6 +43,9 @@ _SOURCES = {
         "grafx_gain_pair_fwd_res": [_p] * 7 + [_i, _ll, _i, _i, _f, _f, _i, _i, _p],
         # u, y, d (null: no residual), consts, n, len, samples, device, stream
         "grafx_ballistics_fwd": [_p] * 4 + [_i, _ll, _i, _i, _p],
+        # u, gain, d (null: the primal), last, consts, zi, n, len, code, samples,
+        # device, stream
+        "grafx_chain_fwd": [_p] * 6 + [_i, _ll, _i, _i, _i, _p],
     },
     "ballistics_grad.cu": {
         # u, d, ylast, gg, consts, du, grads, partials, carry, n, len, chunk, kind,
@@ -55,6 +58,9 @@ _SOURCES = {
         "grafx_ballistics_bwd": [_p] * 7 + [_i, _ll, _i, _i, _p],
         # a, g, gh, carry, n, len, chunk, device, stream
         "grafx_reverse_scan": [_p] * 4 + [_i, _ll, _i, _i, _p],
+        # u, d, last, gg, consts, du, grads, scratch, partials, carry, n, len,
+        # chunk, code, device, stream
+        "grafx_chain_bwd": [_p] * 10 + [_i, _ll, _i, _i, _i, _p],
         # blocks (out), device
         "grafx_walk_blocks_per_sm": [ctypes.POINTER(_i), _i],
     },

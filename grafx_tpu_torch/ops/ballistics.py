@@ -3,8 +3,10 @@
 The port of :func:`grafx_tpu.ops.ballistics.ballistics_core`,
 :func:`~grafx_tpu.ops.ballistics.ballistics_gain_core` and
 :func:`~grafx_tpu.ops.ballistics.ballistics_gain_pair_core` with their
-``custom_vjp``s, and of the reverse scan ``reverse_scan_pallas``.  Ten
-kernels, each with two implementations of one contract:
+``custom_vjp``s, and of the reverse scan ``reverse_scan_pallas``: ten
+kernels; and the dynamics chain, the port's own kernel for a
+gain-smoothed dynamics run (below).  Each has two implementations of one
+contract:
 
 * a plain PyTorch version (``*_plain``): loops over time, vectorized
   over rows.  The wrapper uses it for CPU tensors; it is also the
@@ -29,9 +31,12 @@ wrapper                                replaces (grafx_tpu/ops/ballistics_tpu.py
 :func:`ballistics_fwd`                 ``_fwd_d_kernel``
 :func:`ballistics_bwd`                 ``_bwd_fused_kernel``
 :func:`reverse_scan`                   ``_bwd_kernel``
+:func:`ballistics_chain_core`          none: grafx_tpu composes the walks (no grad)
+:func:`ballistics_chain_fwd`           none (the chain with residuals)
+:func:`ballistics_chain_bwd`           none (its adjoint)
 =====================================  ==================================
 
-The three cores dispatch as the JAX ones do: with grad enabled and any
+The cores dispatch as the JAX ones do: with grad enabled and any
 input requiring grad they run a ``torch.autograd.Function`` whose
 forward saves the JAX residuals (``d = u - y[n-1]``, and for the gains
 the final state) and whose backward is the adjoint kernel; otherwise
@@ -62,12 +67,23 @@ two members walk in one kernel, member b a stage behind member a
 (:func:`walk_samples` picks T; ``csrc/ballistics_gain.cu`` has the
 design).
 
-The primal kernels #1, #2 and #7, which a served render and a stream
-block launch, are ``torch.library`` custom ops
-(``torch.ops.grafx_tpu_torch.ballistics_gain_pair``, ``.ballistics_gain``
-and ``.ballistics``): the CPU implementation is the plain version, the
-CUDA one the kernel's launch, and a fake implementation gives the
-output's shape.  ``torch.export`` so records one op where it would
+The dynamics chain (:func:`ballistics_chain_core`) is a compressor or
+gate that smooths its gain with ballistics, or a gate -> compressor run
+of one or two such members: per member an energy walk, the knee, and a
+gain walk, the members' gains multiplied, each member walking the energy
+gated by the ones before it.  ``grafx_tpu`` runs each of those walks as
+its own ``ballistics_core`` call with the knees between them; the port
+walks them all in one kernel, each walk a stage behind the one before
+(``csrc/ballistics_gain.cu``, ``chain_kernel``), and its adjoint walks
+them back in time chunks with the knee adjoints between
+(``csrc/ballistics_grad.cu``, ``grafx_chain_bwd``).
+
+The primal kernels #1, #2 and #7 and the chain's, which a served render
+and a stream block launch, are ``torch.library`` custom ops
+(``torch.ops.grafx_tpu_torch.ballistics_gain_pair``, ``.ballistics_gain``,
+``.ballistics`` and ``.ballistics_chain``): the CPU implementation is the
+plain version, the CUDA one the kernel's launch, and a fake
+implementation gives the output's shape.  ``torch.export`` so records one op where it would
 otherwise unroll the plain version's loop over time, and could not see a
 ctypes call.
 """
@@ -442,6 +458,141 @@ def ballistics_gain_pair_bwd_plain(
         dat_a, drt_a, dth_a, dcf_a, dhk_a,
         dat_b, drt_b, dth_b, dcf_b, dhk_b,
     )
+
+
+# The dynamics chain: member i's rows of its (8 M, N) constants.
+CHAIN_ROWS = ("at", "rt", "th", "cf", "hk", "at_g", "rt_g", "present")
+_SMOOTHS = {None: 0, "linear": 1, "log": 2}
+
+
+def chain_walks(spec):
+    """The chain's recursions in walk order, ``[(member, is_gain_walk)]``:
+    each member's energy walk, then its gain walk where it smooths its
+    gain."""
+    walks = []
+    for i, (_, smooth) in enumerate(spec):
+        walks.append((i, False))
+        if smooth is not None:
+            walks.append((i, True))
+    return walks
+
+
+def chain_code(spec):
+    """The kernels' integer form of a chain ``spec``: bit 0 the members
+    less one; member i's kind (0 compressor, 1 noise gate) at bit 1 + 3i
+    and its gain smoothing (0 none, 1 linear, 2 log) at bits 2 + 3i."""
+    if not 1 <= len(spec) <= 2:
+        raise ValueError(f"a dynamics chain has one or two members, got {len(spec)}")
+    code = len(spec) - 1
+    for i, (kind, smooth) in enumerate(spec):
+        code |= (_KINDS[kind] | _SMOOTHS[smooth] << 1) << (1 + 3 * i)
+    return code
+
+
+def chain_spec(code):
+    """The ``spec`` of :func:`chain_code`'s ``code``."""
+    kinds, smooths = {v: k for k, v in _KINDS.items()}, {v: k for k, v in _SMOOTHS.items()}
+    return tuple(
+        (kinds[(code >> (1 + 3 * i)) & 1], smooths[(code >> (2 + 3 * i)) & 3])
+        for i in range((code & 1) + 1)
+    )
+
+
+def _chain_members(consts, spec):
+    """Member i's eight ``(N,)`` constant rows (:data:`CHAIN_ROWS`)."""
+    return consts.reshape(len(spec), len(CHAIN_ROWS), -1)
+
+
+def ballistics_chain_plain(u, consts, zi, spec):
+    """Plain version of :func:`ballistics_chain_core` (any device)."""
+    gain, _, last = _chain_forward(u, consts, zi, spec)
+    return gain, last
+
+
+def ballistics_chain_fwd_plain(u, consts, zi, spec):
+    """Plain version of :func:`ballistics_chain_fwd` (any device)."""
+    return _chain_forward(u, consts, zi, spec)
+
+
+def _chain_forward(u, consts, zi, spec):
+    """The chain's gain, each walk's residual ``(R, N, L)`` and final
+    state ``(R, N)``."""
+    members = _chain_members(consts, spec)
+    x, gain, d, last, r = u, None, [], [], 0
+
+    def walk(v, at, rt):
+        nonlocal r
+        y = _walk(v, zi[r], at, rt)
+        d.append(_residual(v, y, zi[r]))
+        last.append(y[:, -1])
+        r += 1
+        return y
+
+    for i, (kind, smooth) in enumerate(spec):
+        at, rt, th, cf, hk, at_g, rt_g, present = members[i]
+        e = walk(x, at, rt)
+        lg = cf[:, None] * _knee_f(torch.log(e + _EPS) - th[:, None], hk[:, None], kind)
+        if smooth is None:
+            g = torch.exp(lg)
+        else:
+            s = walk(lg if smooth == "log" else torch.exp(lg), at_g, rt_g)
+            g = torch.exp(s) if smooth == "log" else s
+        g = torch.where(present[:, None] > 0.5, g, 1.0)
+        gain = g if gain is None else gain * g
+        if i + 1 < len(spec):
+            x = gain * gain * u
+    return gain, torch.stack(d), torch.stack(last)
+
+
+def ballistics_chain_bwd_plain(u, d, last, gg, consts, spec):
+    """Plain version of :func:`ballistics_chain_bwd` (any device)."""
+    members = _chain_members(consts, spec)
+    # the forward again, from the residuals: each walk's output is (x - d)[n+1]
+    fwd, x, gain, r = [], u, None, 0
+    for i, (kind, smooth) in enumerate(spec):
+        at, rt, th, cf, hk, at_g, rt_g, present = members[i]
+        e = _rebuild(x - d[r], last[r])
+        xk, f, fp = _knee_terms(e, th, hk, kind)
+        lg = cf[:, None] * f
+        v = None
+        if smooth is None:
+            graw = torch.exp(lg)
+        else:
+            v = lg if smooth == "log" else torch.exp(lg)
+            s = _rebuild(v - d[r + 1], last[r + 1])
+            graw = torch.exp(s) if smooth == "log" else s
+        g = torch.where(present[:, None] > 0.5, graw, 1.0)
+        fwd.append(dict(x=x, e=e, xk=xk, f=f, fp=fp, v=v, g=g, r=r))
+        r += 1 + (smooth is not None)
+        gain = g if gain is None else gain * g
+        if i + 1 < len(spec):
+            x = gain * gain * u
+    dconsts = torch.zeros_like(members)
+    dzi = torch.zeros_like(last)
+    du, dx = None, None
+    for i in range(len(spec) - 1, -1, -1):
+        kind, smooth = spec[i]
+        at, rt, th, cf, hk, at_g, rt_g, present = members[i]
+        m = fwd[i]
+        # G: the cotangent of the member's gain g_i
+        G = gg if len(spec) == 1 else gg * fwd[1 - i]["g"]
+        if dx is not None:  # member 0's gain also reaches the output through x_1 = g_0^2 u
+            G = G + dx * 2.0 * m["g"] * u
+            du = dx * m["g"] * m["g"]
+        G = torch.where(present[:, None] > 0.5, G, 0.0)
+        r = m["r"]
+        if smooth is None:
+            dlg = G * m["g"]
+        else:
+            gs = G * m["g"] if smooth == "log" else G
+            dv, dconsts[i, 5], dconsts[i, 6], dzi[r + 1] = _reverse_walk(gs, d[r + 1], at_g, rt_g)
+            dlg = dv if smooth == "log" else dv * m["v"]
+        de, dconsts[i, 2], dconsts[i, 3], dconsts[i, 4] = _knee_adjoint(
+            dlg, m["e"], m["xk"], m["f"], m["fp"], cf, hk, kind
+        )
+        dx, dconsts[i, 0], dconsts[i, 1], dzi[r] = _reverse_walk(de, d[r], at, rt)
+    du = dx if du is None else du + dx
+    return du, dconsts.reshape(consts.shape), dzi
 
 
 # ---------------------------------------------------------------------------
@@ -874,6 +1025,139 @@ def reverse_scan(a, g, chunk=None):
     return gh
 
 
+def ballistics_chain_core(u, consts, zi, spec):
+    """A gain-smoothed dynamics run, one or two members (a gate then a
+    compressor, or either alone), in one call: the port's own kernel, for
+    the composed path of ``grafx_tpu`` (each member's ``gain_from_energy``
+    threaded by ``FusedDynamicsChain``), which runs each smoother as its
+    own walk.
+
+    Member i smooths its energy ``e_i = (g_0 ... g_(i-1))^2 u`` by the
+    ballistics walk (an exact one-pole: ``at == rt == 1 - alpha`` from
+    state 0), applies the quadratic knee, ``lg = cf f(log(e + 1e-5) -
+    th)``, and where it smooths its gain walks ``lg`` (``"log"``, then
+    ``exp``) or ``exp(lg)`` (``"linear"``) with its gain's ``at_g``,
+    ``rt_g``; else its gain is ``exp(lg)``.  An absent member
+    (``present`` <= 0.5) has gain exactly 1.  Out: the product of the
+    gains, and each walk's final state.
+
+    Differentiable in ``u``, ``consts`` and ``zi``.  Without grad it
+    launches the primal kernel; with grad it runs
+    :func:`ballistics_chain_fwd` and, backward, :func:`ballistics_chain_bwd`.
+
+    Args:
+        u: ``(N, L)`` energy envelopes.
+        consts: ``(8 M, N)``: member i's rows :data:`CHAIN_ROWS` at 8 i.
+        zi: ``(R, N)`` initial state of each walk, in the order of
+            :func:`chain_walks` (1.0 for ballistics and a gain, 0.0 for
+            the one-pole; a stream carries the final states).
+        spec: per member ``(kind, smooth)``: ``"compressor"`` or
+            ``"noisegate"``, and ``None``, ``"linear"`` or ``"log"``.
+
+    Returns:
+        ``(gain, last)``: ``(N, L)`` gains and ``(R, N)`` final states.
+    """
+    spec = tuple((kind, smooth) for kind, smooth in spec)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in (u, consts, zi)):
+        return _Chain.apply(u, consts, zi, spec)
+    _device(u, "ballistics_chain_core")
+    return torch.ops.grafx_tpu_torch.ballistics_chain(u, consts, zi, chain_code(spec))
+
+
+@torch.library.custom_op("grafx_tpu_torch::ballistics_chain", mutates_args=())
+def _chain_op(u: torch.Tensor, consts: torch.Tensor, zi: torch.Tensor,
+              code: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chain's primal as a custom op; ``code``: :func:`chain_code`."""
+    return ballistics_chain_plain(u, consts, zi, chain_spec(code))
+
+
+@_chain_op.register_kernel("cuda")
+def _chain_op_cuda(u, consts, zi, code):
+    out = _chain_fwd_cuda("ballistics_chain_core", u, consts, zi, chain_spec(code), res=False)
+    ballistics_chain_core.launches += 1
+    return out
+
+
+@_chain_op.register_fake
+def _chain_op_fake(u, consts, zi, code):
+    return torch.empty_like(u), torch.empty_like(zi)
+
+
+def _chain_args(name, u, consts, zi, spec):
+    """Validate the chain's operands for the card; returns them
+    contiguous with the spec's code."""
+    (u,) = _rows(name, u)
+    n, walks = u.shape[0], len(chain_walks(spec))
+    for label, a, rows in (("consts", consts, len(CHAIN_ROWS) * len(spec)), ("zi", zi, walks)):
+        if a.dtype != torch.float32 or a.shape != (rows, n) or a.device != u.device:
+            raise ValueError(f"{name}: {label} must be a float32 ({rows}, {n}) tensor on {u.device},"
+                             f" got {a.dtype} {tuple(a.shape)} on {a.device}")
+    return u, consts.contiguous(), zi.contiguous(), chain_code(spec)
+
+
+def _chain_fwd_cuda(name, u, consts, zi, spec, res, samples=None):
+    """The chain's primal (``res`` False: ``(gain, last)``) or its forward
+    with residuals (``(gain, d, last)``) on the card, the walks' stage of
+    ``samples`` (:func:`walk_samples`)."""
+    u, c, zi, code = _chain_args(name, u, consts, zi, spec)
+    n, length = u.shape
+    gain, last = torch.empty_like(u), u.new_empty(zi.shape)
+    d = u.new_empty(zi.shape[0], n, length) if res else None
+    _run(name, "grafx_chain_fwd", u, u.data_ptr(), gain.data_ptr(), _ptr(d), last.data_ptr(),
+         c.data_ptr(), zi.data_ptr(), n, length, code, walk_samples(length, samples))
+    return (gain, d, last) if res else (gain, last)
+
+
+def ballistics_chain_fwd(u, consts, zi, spec):
+    """The chain plus the adjoint's residuals.
+
+    Returns:
+        ``(gain, d, last)``: ``(N, L)`` gains, ``(R, N, L)`` residuals
+        ``d = x - y[n-1]`` of each walk (input ``x``, output ``y``) and
+        the ``(R, N)`` final states.
+    """
+    name = "ballistics_chain_fwd"
+    if _device(u, name) == "cpu":
+        return ballistics_chain_fwd_plain(u, consts, zi, spec)
+    out = _chain_fwd_cuda(name, u, consts, zi, spec, res=True)
+    ballistics_chain_fwd.launches += 1
+    return out
+
+
+def ballistics_chain_bwd(u, d, last, gg, consts, spec, chunk=None):
+    """Adjoint of :func:`ballistics_chain_fwd` for the gain cotangent
+    ``gg``: the members' reverse walks (decisions held, each linear and
+    walked in time chunks, ``chunk`` as for :func:`ballistics_gain_bwd`)
+    with the knee adjoints between them.
+
+    Returns:
+        ``(du, dconsts, dzi)``: ``(N, L)``, ``(8 M, N)`` (each walk's
+        ``at``/``rt`` and each member's ``th``, ``cf``, ``hk`` per-row
+        sums; 0 for ``present`` and an unsmoothed gain's rows) and ``(R,
+        N)``.
+    """
+    name = "ballistics_chain_bwd"
+    chunk = _walk_chunk(u, chunk)
+    if _device(u, name) == "cpu":
+        return ballistics_chain_bwd_plain(u, d, last, gg, consts, spec)
+    u, gg = _rows(name, u, gg)
+    u, c, last, code = _chain_args(name, u, consts, last, spec)
+    if d.dtype != torch.float32 or d.shape != (last.shape[0], *u.shape) or d.device != u.device:
+        raise ValueError(f"{name}: d must be a float32 {(last.shape[0], *u.shape)} tensor on {u.device}")
+    d = d.contiguous()
+    n, length = u.shape
+    du = torch.empty_like(u)
+    grads = u.new_empty(c.shape[0] + last.shape[0], n)
+    scratch = u.new_empty(2 * len(spec), n, length)
+    partials = u.new_empty(c.shape[0], n, _tiles(u))
+    carry = _carry(u, chunk)
+    _run(name, "grafx_chain_bwd", u, u.data_ptr(), d.data_ptr(), last.data_ptr(), gg.data_ptr(),
+         c.data_ptr(), du.data_ptr(), grads.data_ptr(), scratch.data_ptr(), partials.data_ptr(),
+         _ptr(carry), n, length, chunk, code)
+    ballistics_chain_bwd.launches += 1
+    return du, grads[: c.shape[0]], grads[c.shape[0]:]
+
+
 KERNEL_WRAPPERS = (
     ballistics_gain_pair_core,
     ballistics_gain_core,
@@ -885,6 +1169,9 @@ KERNEL_WRAPPERS = (
     ballistics_fwd,
     ballistics_bwd,
     reverse_scan,
+    ballistics_chain_core,
+    ballistics_chain_fwd,
+    ballistics_chain_bwd,
 )
 for _w in KERNEL_WRAPPERS:
     _w.launches = 0
@@ -947,6 +1234,27 @@ class _GainPair(torch.autograd.Function):
             u, d_a, d_b, v_last, u_last, gg, *consts, kinds=ctx.kinds
         )
         return (*grads, None, None)
+
+
+class _Chain(torch.autograd.Function):
+    """:func:`ballistics_chain_core` under gradient: the forward saves the
+    residuals of every walk, the backward is the chain's adjoint.  The
+    final states are no differentiable output."""
+
+    @staticmethod
+    def forward(ctx, u, consts, zi, spec):
+        gain, d, last = ballistics_chain_fwd(u, consts, zi, spec)
+        ctx.save_for_backward(u, d, last, consts)
+        ctx.spec = spec
+        ctx.mark_non_differentiable(last)
+        return gain, last
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gg, _):
+        u, d, last, consts = ctx.saved_tensors
+        du, dconsts, dzi = ballistics_chain_bwd(u, d, last, gg, consts, ctx.spec)
+        return du, dconsts, dzi, None
 
 
 class _Ballistics(torch.autograd.Function):

@@ -14,16 +14,25 @@ core.envelope`) with the knee math, forward and under gradient; so does
 ballistics walk (:func:`~grafx_tpu_torch.ops.ballistics.ballistics_core`)
 over frame means.
 
-Streaming (``stream_init`` / ``stream_step``) always composes, as
-``grafx_tpu`` does: the fused kernels do not return the final envelope a
-stream carries into its next block.
+A compressor or gate that smooths its gain with ballistics (and has a
+quadratic knee and a ballistics or exact one-pole energy smoother) runs
+its energy walk, knee and gain walk as one dynamics chain op
+(:func:`grafx_tpu_torch.ops.ballistics.ballistics_chain_core`, the port's
+own kernel), forward, under gradient and streamed: the chain returns
+every walk's final state.  :func:`dynamics_chain_spec` decides from the
+configuration alone, once per processor, whether a run takes it;
+:func:`dynamics_chain` builds its operands only then.
+
+Other streams (``stream_init`` / ``stream_step``) compose, as
+``grafx_tpu`` does: the fused gain kernels do not return the final
+envelope a stream carries into its next block.
 """
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from grafx_tpu_torch.ops.ballistics import ballistics_gain_core
+from grafx_tpu_torch.ops.ballistics import ballistics_chain_core, ballistics_gain_core
 from grafx_tpu_torch.processors.core.envelope import Ballistics, TruncatedOnePoleIIRFilter
 
 
@@ -55,6 +64,67 @@ def smoother_recursion(smoother, z_alpha):
     return None
 
 
+def dynamics_chain_spec(procs):
+    """The dynamics chain op's spec for a run of ``procs`` (one or two,
+    in order), decided from their configurations alone: each member's
+    :attr:`Compressor.chain_member`, or ``None`` where a member does not
+    qualify or none smooths its gain (the fused gain ops serve those
+    runs).  Shared with ``render.fuse.FusedDynamicsChain``."""
+    if not 1 <= len(procs) <= 2:
+        return None
+    spec = tuple(getattr(proc, "chain_member", None) for proc in procs)
+    if None in spec or all(smooth is None for _, smooth in spec):
+        return None
+    return spec
+
+
+def dynamics_chain(spec, members, present=None):
+    """The operands of the dynamics chain op for a run of ``members``,
+    ``[(processor, params)]`` of spec ``spec`` (:func:`dynamics_chain_spec`;
+    ``present``: ``(N, M)`` bool, False where a member is absent):
+    ``(consts, inits)``, its ``(8 M, N)`` constants and a request's initial
+    state of each walk (1 for ballistics and a gain, 0 for the one-pole;
+    :func:`request_states`; a stream passes its own)."""
+    rows, inits = [], []
+    for i, ((_, smooth), (proc, p)) in enumerate(zip(spec, members)):
+        at, rt, init = smoother_recursion(proc.energy_smoother_module, p["z_alpha_pre"])
+        th, cf, hk = proc.knee_constants(p["log_threshold"], p["log_ratio"], p["log_knee"])
+        keep = torch.ones_like(cf) if present is None else present[..., i].to(cf.dtype)
+        if smooth is None:
+            at_g = rt_g = torch.zeros_like(at)
+            inits.append(init)
+        else:
+            at_g, rt_g, gain_init = smoother_recursion(proc.gain_smoother_module, p["z_alpha_post"])
+            inits += [init, gain_init]
+        rows += [at, rt, th, cf, hk, at_g, rt_g, keep]
+    return torch.stack(rows), inits
+
+
+def request_states(consts, inits):
+    """The chain's ``(R, N)`` initial states of a request from
+    :func:`dynamics_chain`'s ``inits``."""
+    return torch.stack([torch.full_like(consts[0], v) for v in inits])
+
+
+def chain_states(spec, states):
+    """The chain's ``(R, N)`` initial states from the members' stream
+    states (``{"energy": ..., "gain": ...}`` each), in walk order."""
+    return torch.stack([
+        state[key] for (_, smooth), state in zip(spec, states)
+        for key in (("energy",) if smooth is None else ("energy", "gain"))
+    ])
+
+
+def member_states(spec, last):
+    """The members' stream states from the chain's ``(R, N)`` final
+    states (the inverse of :func:`chain_states`)."""
+    states, r = [], 0
+    for _, smooth in spec:
+        states.append({"energy": last[r], "gain": None if smooth is None else last[r + 1]})
+        r += 1 if smooth is None else 2
+    return states
+
+
 class Compressor(nn.Module):
     """Feed-forward compressor with selectable energy/gain smoothing and
     knee shape (reference: dynamics.py:213-489)."""
@@ -82,6 +152,8 @@ class Compressor(nn.Module):
             raise ValueError(f"Unknown knee: {knee}")
         self.knee = knee
         self.gain_smooth_in_log = gain_smooth_in_log
+        #: the dynamics chain op's spec of this processor alone, or None
+        self.chain_spec = dynamics_chain_spec([self])
 
     def forward(
         self,
@@ -104,10 +176,30 @@ class Compressor(nn.Module):
         )
         return gain[:, None, :] * input_signals
 
+    @property
+    def chain_member(self):
+        """``(kind, smooth)`` of this processor in a walk op, from its
+        configuration alone: ``smooth`` is ``None`` without a gain
+        smoother (the fused gain ops' members), else ``"log"`` or
+        ``"linear"`` (the dynamics chain's); ``None`` unless the knee is
+        quadratic, the energy smoother a ballistics or exact one-pole
+        recursion (:func:`smoother_recursion`) and the gain smoother, if
+        any, ballistics (a one-pole gain smoother ends in a relu, which
+        the walk lacks, and a log gain is negative)."""
+        energy, gain = self.energy_smoother_module, self.gain_smoother_module
+        exact = isinstance(energy, TruncatedOnePoleIIRFilter) and energy.exact
+        if self.knee != "quadratic" or not (exact or isinstance(energy, Ballistics)):
+            return None
+        if gain is None:
+            return self._fused_kind, None
+        if not isinstance(gain, Ballistics):
+            return None
+        return self._fused_kind, "log" if self.gain_smooth_in_log else "linear"
+
     def fused_recursion(self, z_alpha_pre):
         """``(at, rt, init)`` when the gain can run as the fused smoother
         + knee op, else ``None``."""
-        if self.knee != "quadratic" or self.gain_smoother is not None:
+        if self.chain_member is None or self.chain_member[1] is not None:
             return None
         return smoother_recursion(self.energy_smoother_module, z_alpha_pre)
 
@@ -128,6 +220,11 @@ class Compressor(nn.Module):
         z_alpha_post=None,
     ):
         """Linear gain time series from the ``(N, L)`` input energy."""
+        if self.chain_spec is not None:
+            params = dict(log_threshold=log_threshold, log_ratio=log_ratio, log_knee=log_knee,
+                          z_alpha_pre=z_alpha_pre, z_alpha_post=z_alpha_post)
+            consts, inits = dynamics_chain(self.chain_spec, [(self, params)])
+            return ballistics_chain_core(energy, consts, request_states(consts, inits), self.chain_spec)[0]
         rec = self.fused_recursion(z_alpha_pre)
         if rec is not None:
             at, rt, init = rec
@@ -167,6 +264,11 @@ class Compressor(nn.Module):
     def gain_stream_from_energy(self, energy, state, cache):
         """Streaming counterpart of :meth:`gain_from_energy`: one block of
         ``(N, block)`` input energy -> ``(gain, new state)``."""
+        spec = self.chain_spec
+        if spec is not None:
+            consts, _ = dynamics_chain(spec, [(self, cache)])
+            gain, last = ballistics_chain_core(energy, consts, chain_states(spec, [state]), spec)
+            return gain, member_states(spec, last)[0]
         e_state, g_state = state["energy"], state["gain"]
         if self.energy_smoother_module is not None:
             energy, e_state = self.energy_smoother_module.stream(
@@ -335,6 +437,7 @@ class FactorizedCompressor(Compressor):
         )
         self.frame_len = frame_len
         self.energy_smoother_module = _FrameSmoother(frame_len)
+        self.chain_spec = dynamics_chain_spec([self])  # None: not a per-sample walk
 
     def stream_init(self, num_channels, block_len, **params):
         raise NotImplementedError(

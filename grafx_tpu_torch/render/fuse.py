@@ -31,10 +31,13 @@ from torch import nn
 
 from grafx_tpu_torch.data.configs import UTILITY_TYPES, NodeConfigs
 from grafx_tpu_torch.data.graph import GRAFX
-from grafx_tpu_torch.ops.ballistics import ballistics_gain_pair_core
+from grafx_tpu_torch.ops.ballistics import ballistics_chain_core, ballistics_gain_pair_core
 from grafx_tpu_torch.ops.fftconv import conv_stream_apply, conv_stream_init, fft_convolve
 from grafx_tpu_torch.processors.core.iir import IIRFilter
 from grafx_tpu_torch.processors.core.utils import accepts_noise_key, lti_kind_of
+from grafx_tpu_torch.processors.dynamics import (
+    chain_states, dynamics_chain, dynamics_chain_spec, member_states, request_states,
+)
 from grafx_tpu_torch.random import fold_in
 from grafx_tpu_torch.render.order.graph import compute_render_order
 from grafx_tpu_torch.render.order.tensor import node_id_from_render_order
@@ -198,29 +201,42 @@ class FusedDynamicsChain(_FusedChain):
     A 2-member run whose members smooth with ballistics or the exact
     one-pole, with quadratic knees and no gain smoothing, runs as ONE
     walk over time (:func:`~grafx_tpu_torch.ops.ballistics.
-    ballistics_gain_pair_core`); other runs compose the members' gains
-    (each member's ``gain_from_energy``: a ``FactorizedCompressor``
-    member has no per-sample walk, so a gate before it runs its own fused
-    gain op and the compressor its frame smoother).
+    ballistics_gain_pair_core`).  A run of one or two such members of
+    which some smooth their gains with ballistics runs as ONE dynamics
+    chain op (:func:`~grafx_tpu_torch.ops.ballistics.
+    ballistics_chain_core`, the port's own kernel: every energy and gain
+    walk of the run in one pass), forward, under gradient and streamed.
+    Other runs compose the members' gains (each member's
+    ``gain_from_energy``: a ``FactorizedCompressor`` member has no
+    per-sample walk, so a gate before it runs its own fused gain op and
+    the compressor its frame smoother).
 
     Padding (``fuse_serial_lti(dynamics_pad=...)``): the per-node
     ``_absent`` parameter ``(N, k)`` (> 0.5 = absent) marks a missing
-    member, whose gain is then exactly 1 (``cf = 0`` on the pair walk).
+    member, whose gain is then exactly 1 (``cf = 0`` on the pair walk,
+    selected on the chain).
     """
+
+    def __init__(self, named_processors):
+        super().__init__(named_processors)
+        procs = [proc for _, proc in self.members]
+        # which walk op serves the run, decided once from the configuration
+        self.chain_spec = dynamics_chain_spec(procs)
+        self.pair = len(procs) == 2 and all(
+            getattr(proc, "chain_member", None) is not None and proc.chain_member[1] is None
+            for proc in procs
+        )
 
     def _pair_kernel_args(self, nested_params):
         """Per-member recursion and knee constants if the single-walk
         pair path applies, else ``None``."""
-        if len(self.members) != 2:
+        if not self.pair:
             return None
         absent = nested_params.get("_absent")
         consts = []
         for idx, (name, proc) in enumerate(self.members):
             p = nested_params[name]
-            rec = proc.fused_recursion(p.get("z_alpha_pre"))
-            if rec is None:
-                return None
-            at, rt, init = rec
+            at, rt, init = proc.fused_recursion(p.get("z_alpha_pre"))
             th, cf, hk = proc.knee_constants(
                 p["log_threshold"], p["log_ratio"], p["log_knee"]
             )
@@ -232,6 +248,14 @@ class FusedDynamicsChain(_FusedChain):
                      kind=proc._fused_kind, init=init)
             )
         return consts
+
+    def _chain_kernel_args(self, params):
+        """:func:`~grafx_tpu_torch.processors.dynamics.dynamics_chain` of
+        the run (``params``: each member's by name, ``_absent``); call
+        only where :attr:`chain_spec` is set."""
+        absent = params.get("_absent")
+        return dynamics_chain(self.chain_spec, [(proc, params[name]) for name, proc in self.members],
+                              None if absent is None else absent <= 0.5)
 
     def forward(self, input_signals, **nested_params):
         energy = torch.mean(torch.square(input_signals), dim=-2)
@@ -245,6 +269,10 @@ class FusedDynamicsChain(_FusedChain):
                 (a["kind"], b["kind"]),
                 (a["init"], b["init"]),
             )
+            return gain[:, None, :] * input_signals
+        if self.chain_spec is not None:
+            consts, inits = self._chain_kernel_args(nested_params)
+            gain = ballistics_chain_core(energy, consts, request_states(consts, inits), self.chain_spec)[0]
             return gain[:, None, :] * input_signals
         gain = self._gain_product(
             energy, nested_params.get("_absent"),
@@ -269,8 +297,10 @@ class FusedDynamicsChain(_FusedChain):
 
     def stream_init(self, num_channels, block_len, **nested_params):
         """Streaming contract: carry every member's smoother state; a
-        block threads the gain products as ``forward``'s composed path
-        does (the pair walk does not return its final envelopes)."""
+        block runs the dynamics chain op where ``forward`` does (it takes
+        and returns each walk's state), else threads the gain products as
+        ``forward``'s composed path does (the pair walk does not return
+        its final envelopes)."""
         states, caches = {}, {}
         for name, proc in self.members:
             states[name], caches[name] = proc.stream_init(
@@ -281,13 +311,21 @@ class FusedDynamicsChain(_FusedChain):
         return states, caches
 
     def stream_step(self, x, state, cache):
+        energy = torch.mean(torch.square(x), dim=-2)
+        spec = self.chain_spec
+        if spec is not None:
+            consts, _ = self._chain_kernel_args(cache)
+            names = [name for name, _ in self.members]
+            gain, last = ballistics_chain_core(
+                energy, consts, chain_states(spec, [state[name] for name in names]), spec
+            )
+            return gain[:, None, :] * x, dict(zip(names, member_states(spec, last)))
         new_state = {}
 
         def member_gain(name, proc, e):
             g, new_state[name] = proc.gain_stream_from_energy(e, state[name], cache[name])
             return g
 
-        energy = torch.mean(torch.square(x), dim=-2)
         gain = self._gain_product(energy, cache.get("_absent"), member_gain)
         return gain[:, None, :] * x, new_state
 

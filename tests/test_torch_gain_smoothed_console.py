@@ -62,9 +62,10 @@ from test_torch_train import PLAIN_VERSIONS, absent_rows, console_input, count_c
 NUM_CHAINS, BATCH, L, BLOCK = 3, 2, 2**12, 1024
 GRAD_DB = -60.0  # tests/test_torch_dynamics.py: each dynamics parameter's gradient
 PAIR = "fused(noisegate+compressor)"
-# the ballistics walks of one run: the composites' gate gain, compressor
-# energy and compressor gain, and the bus compressors' energy and gain
-WALKS = 5
+# the dynamics chain calls of one run: the composites' (gate energy and
+# gain, compressor energy and gain) and the bus compressors' (energy, gain)
+CHAIN_CALLS = 2
+CHAIN_PLAIN = ("ballistics_chain_plain", "ballistics_chain_fwd_plain", "ballistics_chain_bwd_plain")
 
 
 def gain_smoothed(lib):
@@ -123,7 +124,7 @@ def run():
         tree_map(lambda p, v: p.copy_(v), trainer.params, migrated)
     calls = {}
     with pytest.MonkeyPatch.context() as mp:
-        calls["step"] = count_calls(mp, bal, PLAIN_VERSIONS)
+        calls["step"] = count_calls(mp, bal, PLAIN_VERSIONS + CHAIN_PLAIN)
         total, audio = trainer.loss(torch.tensor(x), torch.tensor(target))
         total.backward()
     grads = tree_map(lambda p: np.zeros(p.shape, np.float32) if p.grad is None else p.grad.numpy(),
@@ -135,12 +136,12 @@ def run():
     trainer64.loss(torch.tensor(x).double(), torch.tensor(target).double())[0].backward()
     grads64 = tree_map(lambda p: np.zeros(p.shape) if p.grad is None else p.grad.numpy(), trainer64.params)
     with pytest.MonkeyPatch.context() as mp:
-        calls["request"] = count_calls(mp, bal, PLAIN_VERSIONS)
+        calls["request"] = count_calls(mp, bal, PLAIN_VERSIONS + CHAIN_PLAIN)
         with torch.inference_mode():
             y = make_render_fn(c.fused_processors, c.plan)(torch.tensor(x), migrated)[0]
     streamer = StreamRenderer(c.fused_processors, c.plan, migrated, block_len=BLOCK)
     with pytest.MonkeyPatch.context() as mp:
-        calls["stream"] = count_calls(mp, bal, PLAIN_VERSIONS)
+        calls["stream"] = count_calls(mp, bal, PLAIN_VERSIONS + CHAIN_PLAIN)
         streamed = stream(streamer, torch.tensor(x[0]))
     return dict(
         console=c, Gj2=Gj2, procs_j2=procs_j2,
@@ -157,7 +158,8 @@ def test_fused_plan_matches_grafx_tpu(run):
     """The same fused node types in both packages: the gain smoothers
     leave the gate -> compressor runs fused as composites (the bench
     console's types), but neither package's composite takes the pair
-    walk (#1, #3/#4): its members compose."""
+    walk (#1, #3/#4): grafx_tpu's members compose, the port's run the
+    dynamics chain op."""
     types = lambda G: sorted(d["node_type"] for _, d in G.nodes(data=True))  # noqa: E731
     c = run["console"]
     assert types(c.fused_graph) == types(run["Gj2"])
@@ -166,6 +168,8 @@ def test_fused_plan_matches_grafx_tpu(run):
     assert c.fused_processors[PAIR]._pair_kernel_args(params) is None
     assert run["procs_j2"][PAIR]._pair_kernel_args(
         jax.tree.map(lambda v: jnp.asarray(v.numpy()), params)) is None
+    spec = c.fused_processors[PAIR].chain_spec
+    assert spec == (("noisegate", "log"), ("compressor", "linear"))
     for name, proc in c.fused_processors[PAIR].members:
         assert proc.gain_smoother == "ballistics" and proc.fused_recursion(params[name]["z_alpha_pre"]) is None
 
@@ -220,11 +224,12 @@ def test_stream_matches_grafx_tpu(run):
 
 
 def test_request_step_and_block_run_the_walk(run):
-    """On the CPU each wrapper runs its plain version.  A request walks
-    WALKS times (#7), a step runs the walk with residuals and its adjoint
-    WALKS times each (#8, #9), a block WALKS walks; no fused gain or pair
-    op runs anywhere."""
+    """On the CPU each wrapper runs its plain version.  A request runs the
+    dynamics chain CHAIN_CALLS times (the composites, then the bus
+    compressors), a step its forward with residuals and its adjoint
+    CHAIN_CALLS times each, a block CHAIN_CALLS chains; no lone walk, fused gain or
+    pair op runs anywhere."""
     calls = run["calls"]
-    assert calls["request"] == {"ballistics_plain": WALKS}
-    assert calls["step"] == {"ballistics_fwd_plain": WALKS, "ballistics_bwd_plain": WALKS}
-    assert calls["stream"] == {"ballistics_plain": WALKS * (L // BLOCK)}
+    assert calls["request"] == {"ballistics_chain_plain": CHAIN_CALLS}
+    assert calls["step"] == {"ballistics_chain_fwd_plain": CHAIN_CALLS, "ballistics_chain_bwd_plain": CHAIN_CALLS}
+    assert calls["stream"] == {"ballistics_chain_plain": CHAIN_CALLS * (L // BLOCK)}
