@@ -53,7 +53,9 @@ before the result line):
    equals the first 2^17 columns of its call on the whole rows, bit for
    bit (causality); #8 at 68 x 2^17, #5 at 8 x 2^17 and #3 at 68 x 2^17
    are timed over T = 64-1024 (#3 also as two #8 walks with the knees
-   between in PyTorch) (``walk_sweep``); and #3 on twice as many rows as
+   between in PyTorch), and #1, #2, #3, #5 and #7 at their console shapes
+   with their cycles a sample (``walk_sweep``; scripts/walk_link_sweep.py
+   times builds with other link lengths); and #3 on twice as many rows as
    the card has SMs, whose blocks share SMs, equals its call on the first
    half of the rows bit for bit and is timed beside that half;
 4. exactness: the exact IIR cascade against scipy float64;
@@ -332,9 +334,9 @@ before the result line):
     forward max abs < 2e-5, the primal's gain equal to the forward's,
     the adjoint's du <= 1e-5 and each gradient row <= 1e-4 of its max,
     an absent member's gain exactly 1 and its gradients exactly 0); a
-    row split in two calls carrying the final states against one call,
-    and the first 2^17 samples against the whole 68 x (2^17 + 13) call,
-    bit for bit; and the console's composite (68 rows, its absent gates)
+    row split in two calls carrying the stream's state (inside a link)
+    against one call, and the first 2^17 samples against the whole 68 x
+    (2^17 + 13) call, bit for bit; and the console's composite (68 rows, its absent gates)
     and bus compressor (8 rows) through the chain against the composed
     path on the card (output and every gradient, -60 dB, or the CPU's
     own float32 spread + 6 dB where float32 determines less).
@@ -1012,11 +1014,21 @@ def split_pair(u, consts, kinds, inits, samples):
     return ga * bal._knee_gain(u2, th_b, cf_b, hk_b, kinds[1]), d_a, d_b, v[:, -1], u2[:, -1]
 
 
+def sm_clock_mhz():
+    """The card's SM clock as ``nvidia-smi`` reads it now."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.split()[0])
+
+
 def walk_sweep(gen, stats):
     """The forward walks' stage length against their time: #8 at 68 x
     2^17, #5 at 8 x 2^17 and #3 at 68 x 2^17 over SWEEP_SAMPLES, #3 fused
     and split (:func:`split_pair`), the split one first held to the fused
-    one; each over 3 calls after a warm-up."""
+    one; then #1 and #3 at 68 x 2^17, #2 and #5 at 8 x 2^17 and #7 at 68 x
+    2^17, each held to its plain version, with its cycles a sample
+    (:func:`link_timings`).  Each over 3 calls after a warm-up."""
     (pair, _), (bus, _) = console_cases(gen)[:2]
     walk = walk_args(gen, BATCH * CHAINS, AUDIO_LEN)
     fused = pair.forward()
@@ -1042,6 +1054,45 @@ def walk_sweep(gen, stats):
                                               "ms": ms})
             say("kernels", sweep=name, shape=tuple(shape), samples=samples, **extra,
                 kernel_ms=f"{ms:.3f}")
+    for row in link_timings(pair, bus, walk):
+        stats[row["kernel"]]["walk_sweep"].append(row)
+
+
+def link_timings(pair, bus, walk, link=None):
+    """#1 and #3 on ``pair``, #2 and #5 on ``bus`` and #7 on ``walk``
+    (:func:`console_cases`, :func:`walk_args`), each held to its plain
+    version and timed over 3 calls after a warm-up, with its cycles a
+    sample (ms x the SM clock read right after the timing / samples a
+    row), in the build that ``_cuda.library()`` returns, whose links are
+    ``link`` samples (``bal.WALK_LINK`` for None); returns a row a
+    kernel."""
+    link = link or bal.WALK_LINK
+    refs = {"ballistics_gain_pair_core": pair.forward(plain=True)[0],
+            "ballistics_gain_core": bus.forward(plain=True)[0],
+            "ballistics_core": bal.ballistics_plain(*walk)}
+    refs["ballistics_gain_pair_fwd"] = refs["ballistics_gain_pair_core"]
+    refs["ballistics_gain_fwd"] = refs["ballistics_gain_core"]
+    entries = [
+        ("ballistics_gain_pair_core", pair.u.shape, lambda: forward_at(pair, False, None)),
+        ("ballistics_gain_pair_fwd", pair.u.shape, lambda: forward_at(pair, True, None)[0]),
+        ("ballistics_gain_core", bus.u.shape, lambda: forward_at(bus, False, None)),
+        ("ballistics_gain_fwd", bus.u.shape, lambda: forward_at(bus, True, None)[0]),
+        ("ballistics_core", walk[0].shape,
+         lambda: bal._walk_fwd_cuda("sweep", walk[0], walk[1:], False)),
+    ]
+    rows = []
+    for name, shape, fn in entries:
+        out = fn()  # warm-up
+        err = max_err(out, refs[name])
+        check(err < MAX_ABS, f"{name} with links of {link}: max abs err {err} >= {MAX_ABS}")
+        ms = device_ms(fn, reps=3)[0]
+        mhz = sm_clock_mhz()
+        cycles = ms * 1e-3 * mhz * 1e6 / shape[1]
+        rows.append({"kernel": name, "shape": list(shape), "link": link, "ms": ms,
+                     "sm_clock_mhz": mhz, "cycles_a_sample": cycles, "max_abs_err": err})
+        say("kernels", link_sweep=name, shape=tuple(shape), link=link, kernel_ms=f"{ms:.3f}",
+            sm_clock_mhz=mhz, cycles_a_sample=f"{cycles:.2f}", err=f"{err:.3g}")
+    return rows
 
 
 def check_many_rows(gen, stats):
@@ -1077,7 +1128,7 @@ def check_many_rows(gen, stats):
 
 def check_walk(label, u, zi, at, rt, stats, timed=False):
     """Hold kernel #7 against its plain version, and the walk split in
-    two halves (the second from the first's last sample) against one
+    two halves (the second from the first's stream state) against one
     walk, bit for bit.  With ``timed``, the plain version's one run and
     the kernel over 5 runs after a warm-up are timed."""
     name = "ballistics_core"
@@ -1087,8 +1138,8 @@ def check_walk(label, u, zi, at, rt, stats, timed=False):
     else:
         ref = bal.ballistics_plain(u, zi, at, rt)
     half = u.shape[1] // 2
-    first = bal.ballistics_core(u[:, :half], zi, at, rt)
-    second = bal.ballistics_core(u[:, half:], first[:, -1], at, rt)
+    first, state = bal.ballistics_stream(u[:, :half], bal.walk_state(zi), at, rt)
+    second, _ = bal.ballistics_stream(u[:, half:], state, at, rt)
     torch.cuda.synchronize()
     err = max_err(y, ref)
     check(err < MAX_ABS, f"{name} {label}: max abs err {err} >= {MAX_ABS}")
@@ -4209,8 +4260,9 @@ def chain_phase(smi, stats):
     35 (b) holds it there): its forms (CHAIN_SPECS) against the plain
     versions at N = 1, 37, 68 x L = 4109, 8205 and 2^17 + 13 (that one
     compared on its first 2^15 samples), at its own stage length and at T
-    = 96; a row split in two calls carrying the final states against one
-    call and causality at 68 x (2^17 + 13), bit for bit; and the
+    = 96; a row split in two calls (inside a link) carrying the stream's
+    state against one call and causality at 68 x (2^17 + 13), bit for
+    bit; and the
     console's member configurations through the chain against the
     composed path on the card."""
     gen = torch.Generator(device="cuda").manual_seed(36)
@@ -4231,11 +4283,13 @@ def chain_phase(smi, stats):
         whole = bal._chain_fwd_cuda("split", u, consts, zi, spec, True)
         prim, last = bal._chain_fwd_cuda("split", u, consts, zi, spec, False)
         cut = AUDIO_LEN // 2 + 7
-        first, mid = bal._chain_fwd_cuda("split", u[:, :cut].contiguous(), consts, zi, spec, False)
-        second, end = bal._chain_fwd_cuda("split", u[:, cut:].contiguous(), consts, mid, spec, False)
+        first, mid = bal.ballistics_chain_stream(u[:, :cut], consts, bal.walk_state(zi), spec)
+        second, end = bal.ballistics_chain_stream(u[:, cut:], consts, mid, spec)
+        end_one = bal.ballistics_chain_stream(u, consts, bal.walk_state(zi), spec)[1]
         head = bal._chain_fwd_cuda("split", u[:, :AUDIO_LEN].contiguous(), consts, zi, spec, True)
         torch.cuda.synchronize()
-        check(torch.equal(torch.cat([first, second], dim=1), prim) and torch.equal(end, last),
+        check(torch.equal(torch.cat([first, second], dim=1), prim)
+              and all(torch.equal(a, b) for a, b in zip(end, end_one)),
               f"ballistics_chain_core: the row split at {cut} differs from one call")
         check(torch.equal(head[0], whole[0][:, :AUDIO_LEN]) and torch.equal(head[1], whole[1][..., :AUDIO_LEN]),
               f"ballistics_chain_fwd: the first {AUDIO_LEN} samples differ from the whole call's")

@@ -38,6 +38,12 @@ from grafx_tpu_torch.utils import check_device, count_nodes_per_type, create_emp
 
 SR = 44100
 LR, MOMENTUM = 3e-3, 0.9
+# The MR-STFT loss's log-magnitude term has slope 1 / (|X| + 1e-7): a bin of
+# the render's spectrum at float32's noise floor can carry nearly the whole
+# gradient, whose norm is then rounding noise (up to ~1e4 where a step's
+# median is ~1.6), and one such step throws the fit off.  The update clips
+# the gradient's global norm to about that median.
+MAX_GRAD_NORM = 2.0
 
 
 def synthetic_stems(num_tracks, length, generator):
@@ -98,9 +104,10 @@ def loss_of(predictor, features_per_type, render, stems, target_specs):
 
 def make_step(predictor, features_per_type, render):
     """``step(stems, target_specs) -> loss``: :func:`loss_of`, its
-    gradient in the predictor's weights, and SGD with momentum (``m =
-    0.9 m + g; w -= 3e-3 m``) in place; on the card one CUDA graph (the
-    first call runs eagerly, the second captures)."""
+    gradient in the predictor's weights clipped to a global norm of
+    ``MAX_GRAD_NORM``, and SGD with momentum (``m = 0.9 m + g; w -= 3e-3
+    m``) in place; on the card one CUDA graph (the first call runs
+    eagerly, the second captures)."""
     weights = list(predictor.parameters())
     momenta = [torch.zeros_like(w) for w in weights]
 
@@ -110,6 +117,7 @@ def make_step(predictor, features_per_type, render):
         loss = loss_of(predictor, features_per_type, render, stems, target_specs)
         loss.backward()
         with torch.no_grad():
+            torch.nn.utils.clip_grad_norm_(weights, MAX_GRAD_NORM)
             for w, m in zip(weights, momenta):
                 m.mul_(MOMENTUM).add_(w.grad)
                 w.sub_(LR * m)

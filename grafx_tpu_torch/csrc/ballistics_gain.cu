@@ -37,19 +37,43 @@
 // Design and what bounds it.  The walk cannot be split over time (the
 // attack/release choice depends on the state), so one thread walks one
 // row from its first sample to its last, and the time of every kernel
-// here is that serial chain: walk_step (ballistics.cuh), the step of
-// every walk, so #1/#3, #2/#5 and #7/#8 agree bit for bit (two FMAs
-// beside a compare, then a bitwise select), times the row's samples.
-// The design keeps the walking thread on that chain and nothing else:
+// here is that serial chain.  Its step is an envelope (ballistics.cuh,
+// WalkRow): with at, rt in [0, 1] the select step is the max of its two
+// affine pieces where at >= rt and their min where at < rt, walked as the
+// max over sgn u, the orientation taken once a row.  A max of affine maps
+// with non-negative slopes composes into one: kLink steps are kLink + 1
+// pieces, slopes oma^i omr^(kLink - i) (per row) and offsets that depend
+// on the input alone.  So the walker advances a link of kLink samples a
+// step (walk_links): kLink + 1 FMAs from the state, then their max, one
+// FMA and ceil(log2(kLink + 1)) maxes on the chain, where the select step
+// put an FMA, a compare, a select mask and a bitwise select on it every
+// sample.  Helper warps compute each link's offsets from the stage in
+// shared memory before the walk (stage_pieces) and, after it, the samples
+// inside each link by single steps from its entering state (fill_links);
+// the walker writes only the links' end states.  Every forward walk uses
+// the one kLink, and a walk's links start at its call's first sample, so
+// #1/#3, #2/#5 and #7/#8 agree bit for bit, and so do a row's first
+// samples and a longer row's; a row's last L mod kLink samples walk single
+// steps.  A flat link (every sample the same) takes offsets that map its
+// value to itself exactly (link_pieces), so a walk that meets a constant
+// input stays on it, as the select step does.  A stream that ends a call
+// inside a link carries the link's entering state and its samples so far
+// into the next call, which walks them again and drops their outputs
+// (ops/ballistics.py:ballistics_stream): a row split anywhere agrees with
+// the whole row bit for bit.  What bounds the walker now: the link's dependent latency (an
+// FMA ~4.5 cycles, a max ~5-7, measured on the H100) and the memory pipe
+// it shares with the helpers, which the offsets' float4 reads ahead and
+// the batched end stores keep short (PERF.md section 6).  The design keeps
+// the walking thread on that chain and nothing else:
 //   * One row a block.  A block moves its row T samples at a time
 //     (walk_samples in ops/ballistics.py: 1024, or the row's length
 //     rounded up to 32 where that is less) through a ring of S stages in
 //     dynamic shared memory, one buffer of T + 4 floats per array a stage
-//     (the walker's last float4 read of a stage lands in the 4).  The
-//     console's 68, 8 or 17 rows each get an SM of their own.  Where the
-//     rows outnumber the SMs, the ring shrinks (ring_stages) so that up to
-//     kMaxShare blocks fit an SM together: a walker's chain is latency,
-//     not issue, so walkers that share an SM run side by side.
+//     and the stage's walk scratch (link_scratch).  The console's 68, 8 or
+//     17 rows each get an SM of their own.  Where the rows outnumber the
+//     SMs, the ring shrinks (ring_stages) so that up to kMaxShare blocks
+//     fit an SM together: a walker's chain is latency, not issue, so
+//     walkers that share an SM run side by side.
 //   * Bulk copies.  A row's T samples are contiguous in (N, L): they
 //     arrive by ONE Hopper bulk copy (cp.async.bulk ... mbarrier::
 //     complete_tx) on the stage's mbarrier and leave by one bulk store per
@@ -58,43 +82,48 @@
 //     (L % 4 != 0) moves by 4-byte cp.async spread over a warp (completing
 //     on the same mbarrier) and plain stores.  The old 32 x 32 tiles took
 //     64-96 four-byte copies a lane.
-//   * Warp roles.  The walker (one thread) only walks: it reads four
-//     samples as a float4 (the next four already in flight) and writes y
-//     as one.  A copy warp issues the copies and stores and, for the
-//     residual, computes d[n] = u[n] - y[n-1] from the stage in shared
-//     memory with all 32 lanes, so d costs the walker nothing.  The walker
-//     issuing its own copies (measured beside it, PERF.md) was slower.
+//   * Warp roles.  The walker (one thread) only walks links: it reads
+//     each link's offsets kAhead links ahead as float4s and stores kAhead
+//     end states at once.  In walk_kernel a copy warp issues the copies
+//     and stores, computes the pieces and the links' inner samples and,
+//     for the residual, d[n] = u[n] - y[n-1], all from the stage in shared
+//     memory with its 32 lanes.  The walker issuing its own copies
+//     (measured beside it, PERF.md) was slower.
 //   * A stage's buffer is refilled for stage k - 1 + S right after stage
 //     k's stores are issued (waiting only for stage k - 1's stores to have
 //     read it), so up to S - 2 stages are in flight while one is walked.
-//     The mbarrier phases carry the in-place case (y == x): stage k is
-//     stored after it landed, and every later load reads samples no store
-//     has touched.
+//     The helpers compute stage k + 1's pieces while stage k is walked, so
+//     the ring holds at least 3 stages (4 for the pair, R + 2 for the
+//     chain).  The mbarrier phases carry the in-place case (y == x):
+//     stage k is stored after it landed, and every later load reads
+//     samples no store has touched.
 //   * The single gain (#2, #5) is walk_kernel and then knee_kernel, the
 //     log / exp knee as an elementwise pass over all SMs (8 B a sample).
 //   * The pair (#1, #3) is ONE kernel, pair_kernel: warp 0 walks member a
-//     over stage k + 1 while warp 1 walks member b over stage k; four knee
-//     warps compute, between them, stage k's ga and ec = ga^2 u into
-//     shared memory (the order of ballistics_tpu.py:792-796), then after
-//     b's walk gb and the gain ga * gb (:810-812), and with residuals d_a
-//     and d_b; the first knee warp also moves the row.  Member b never
-//     waits for all of member a, and ga never goes through device memory.
-//     The pair then costs about one walk, where two walks with the knees
-//     between them in separate passes cost two (PERF.md).
+//     over stage k + 1 while warp 1 walks member b over stage k; eight
+//     knee warps compute, between them, member a's pieces, stage k's
+//     envelope, ga and ec = ga^2 u into shared memory (the order of
+//     ballistics_tpu.py:792-796) and member b's pieces over ec, then after
+//     b's walk its envelope, gb and the gain ga * gb (:810-812), and with
+//     residuals d_a and d_b; the first knee warp also moves the row.
+//     Member b never waits for all of member a, and ga never goes through
+//     device memory.  The pair then costs little more than one walk, where
+//     two walks with the knees between them in separate passes cost two
+//     (PERF.md).
 //   * The chain is pair_kernel grown to a run's every walk, up to four
 //     (a gate's energy and gain, then a compressor's energy, over the
 //     gated energy, and gain): chain_kernel.  Walker warp r walks
-//     recursion r a stage behind walker r - 1; eight knee warps compute,
-//     between the walks, each stage's knee, the gain walk's input (the
-//     log gain, or its exp), a member's gain (selected to exactly 1 where
-//     it is absent), the product and the next member's energy, all in
-//     shared memory.  Its time is one walk's plus R - 1 stages of pipeline
-//     fill: at 68 x 2^17 four walks take about what one does (PERF.md).
-//     The ring must hold R + 1 stages: the knee warps refill a stage's
-//     slot only once walk R - 1 is done with the stage before it.
+//     recursion r a stage behind walker r - 1; twelve knee warps compute,
+//     between the walks, each walk's pieces and samples, each stage's
+//     knee, the gain walk's input (the log gain, or its exp), a member's
+//     gain (selected to exactly 1 where it is absent), the product and the
+//     next member's energy, all in shared memory.  Its time is one walk's
+//     plus R - 1 stages of pipeline fill, or the knee warps' where they
+//     take longer (four walks at 68 x 2^17, PERF.md).
 // Each kernel's time on the H100 beside its bound is in PERF.md section 6
-// (chip_smoke.py): at 2^17 samples every one sits on the walker's chain,
-// far above its bytes' bound, which no serial walk can reach.
+// (chip_smoke.py): at 2^17 samples every one sits on the walker's chain
+// or its helpers, far above its bytes' bound, which no serial walk can
+// reach.
 
 #include <algorithm>
 #include <cstdint>
@@ -106,15 +135,14 @@ namespace {
 using namespace grafx;
 
 constexpr int kMaxStages = 8;
-constexpr int kMinStages = 3;  // a ring of 2 would refill only the stage being walked
 constexpr int kMaxSamples = 1024;
 constexpr int kRingBytes = 200 * 1024;  // of the 227 KB a block may hold
 constexpr int kMaxShare = 4;  // blocks a ring is sized to share an SM, where rows outnumber SMs
 constexpr int kLoadArrivals = 33;  // a stage's load: the bulk copy's lane, then each lane's cp.async
 constexpr int kKneeThreads = 256;
-constexpr int kKneeWarps = 4;  // pair_kernel's knee warps (the first also moves the row)
+constexpr int kKneeWarps = 8;  // pair_kernel's knee warps (the first also moves the row)
 constexpr int kPairThreads = 32 * (2 + kKneeWarps);
-constexpr int kChainKneeWarps = 8;  // chain_kernel's (after a walker warp for each of its walks)
+constexpr int kChainKneeWarps = 12;  // chain_kernel's (after a walker warp for each of its walks)
 constexpr int kChainThreads = 32 * (kChainWalks + kChainKneeWarps);
 
 // ---------------------------------------------------------------------------
@@ -235,41 +263,10 @@ __device__ __forceinline__ void store_row(float* dst, const float* src, int n, i
   for (int j = bulk + lane; j < n; j += 32) dst[j] = src[j];
 }
 
-// y = the walk over n samples from state s into dst (which may be src);
-// returns the last state.  Four samples are read as a float4 and written
-// back as one; the next four are read before this four's results are
-// written (src may be dst, so the compiler would not move the read), so
-// the read's latency hides behind the chain.  The last read of a stage
-// lands in its buffer's 4 padding floats.
-__device__ __forceinline__ float walk_stage(const float* src, float* dst, int n, float s,
-                                            float at, float rt) {
-  const float oma = 1.0f - at, omr = 1.0f - rt;
-  auto four = [&](float4 u, int j) {
-    float4 y;
-    y.x = s = walk_step(u.x, s, at, oma, rt, omr);
-    y.y = s = walk_step(u.y, s, at, oma, rt, omr);
-    y.z = s = walk_step(u.z, s, at, oma, rt, omr);
-    y.w = s = walk_step(u.w, s, at, oma, rt, omr);
-    *reinterpret_cast<float4*>(dst + j) = y;
-  };
-  const int n4 = n & ~3;
-  float4 u0 = *reinterpret_cast<const float4*>(src);
-  int j = 0;
-  for (; j + 8 <= n4; j += 8) {  // two registers in turn: no copies between them
-    const float4 u1 = *reinterpret_cast<const float4*>(src + j + 4);
-    four(u0, j);
-    u0 = *reinterpret_cast<const float4*>(src + j + 8);
-    four(u1, j + 4);
-  }
-  if (j < n4) {
-    four(u0, j);
-    j += 4;
-  }
-  for (; j < n; ++j) dst[j] = s = walk_step(src[j], s, at, oma, rt, omr);  // the ragged tail
-  return s;
-}
-
-// The ring of a block: S stages of nbuf buffers of T + 4 floats.
+// The ring of a block: S stages of nbuf buffers of T + 4 floats, then
+// each stage's walk scratch (link_scratch floats: the pieces' offsets and
+// the end states, ballistics.cuh), which the walks of a stage share in
+// turn.
 struct Ring {
   float* base;
   int samples, stages, nbuf;
@@ -278,6 +275,12 @@ struct Ring {
   __device__ float* buf(int slot, int b) const {
     return base + (slot * nbuf + b) * (samples + 4);
   }
+  // a stage's pieces' offsets and end states
+  __device__ float* pieces(int slot) const {
+    return base + stages * nbuf * (samples + 4) + slot * link_scratch(samples);
+  }
+  __device__ float* ends(int slot) const { return pieces(slot) + (kLink + 1) * links(); }
+  __device__ int links() const { return samples / kLink; }
   // the samples of stage k (T, or fewer in the last)
   __device__ int count(int k) const {
     return (int)min((long long)samples, len - (long long)k * samples);
@@ -310,8 +313,10 @@ __device__ __forceinline__ void load_stage(const Ring& ring, uint64_t* full, con
 // y = the ballistics walk over x from zi (or init where zi is null), with
 // per-row smoothing at, rt; a block a row.  y may be x.  With RES, also
 // d[n] = x[n] - y[n-1] and, where last is not null, last = y[L-1].
-// Thread 0 walks; warp 1 moves the row and, with RES, computes d.
-// Buffers: 0 x (y in place without RES; d with RES); 1 y with RES.
+// Thread 0 walks the links; warp 1 moves the row, computes each stage's
+// pieces before the walk and its samples after it (fill_links) and, with
+// RES, d.  Buffers: 0 x (y in place without RES; d with RES); 1 y with
+// RES.
 template <bool RES>
 __global__ void __launch_bounds__(64) walk_kernel(const float* x, float* y, float* d,
                                                   float* __restrict__ last,
@@ -320,18 +325,20 @@ __global__ void __launch_bounds__(64) walk_kernel(const float* x, float* y, floa
                                                   const float* __restrict__ rt_, long long len,
                                                   int T, int S) {
   extern __shared__ __align__(16) float ring_smem[];
-  __shared__ uint64_t full[kMaxStages], walked[kMaxStages];
-  __shared__ float enter[kMaxStages];  // the state entering each stage
+  __shared__ uint64_t full[kMaxStages], pieced[kMaxStages], walked[kMaxStages];
+  __shared__ float enter[kMaxStages];  // the oriented state entering each stage
   constexpr int kY = RES ? 1 : 0;
   const Ring ring{ring_smem, T, S, RES ? 2 : 1, len};
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row = blockIdx.x;
   const long long row_off = (long long)row * len;
   const int stages = ring.count_stages();
+  const WalkRow w(at_[row], rt_[row]);
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < S; ++i) {
       mbar_init(&full[i], kLoadArrivals);
+      mbar_init(&pieced[i], 32);
       mbar_init(&walked[i], 1);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -341,30 +348,44 @@ __global__ void __launch_bounds__(64) walk_kernel(const float* x, float* y, floa
   Cursor at_k;
   if (warp == 0) {  // the walker
     if (lane != 0) return;
-    const float at = at_[row], rt = rt_[row];
-    float s = zi != nullptr ? zi[row] : init;
+    const LinkSlopes c(w);
+    float s = w.sgn * (zi != nullptr ? zi[row] : init);
     for (int k = 0; k < stages; ++k, at_k.next(S)) {
-      mbar_wait(&full[at_k.slot], at_k.phase);
-      if (RES) enter[at_k.slot] = s;
-      s = walk_stage(ring.buf(at_k.slot, 0), ring.buf(at_k.slot, kY), ring.count(k), s, at, rt);
-      fence_shared_to_bulk();
-      mbar_arrive(&walked[at_k.slot]);
+      const int slot = at_k.slot;
+      mbar_wait(&pieced[slot], at_k.phase);
+      enter[slot] = s;
+      s = walk_links(ring.buf(slot, 0), ring.pieces(slot), ring.links(), ring.ends(slot),
+                     ring.count(k), s, c, w);
+      mbar_arrive(&walked[slot]);
     }
-    if (RES && last != nullptr) last[row] = s;
+    if (RES && last != nullptr) last[row] = w.sgn * s;
     return;
   }
   // the copy warp
   for (int k = 0; k < min(S, stages); ++k) load_stage(ring, full, x + row_off, lane, k, k);
+  Cursor ahead;  // the stage whose pieces are computed next
+  auto pieces = [&](int k) {
+    mbar_wait(&full[ahead.slot], ahead.phase);
+    stage_pieces(ring.buf(ahead.slot, 0), ring.pieces(ahead.slot), ring.links(), ring.count(k), w,
+                 lane, 32);
+    mbar_arrive(&pieced[ahead.slot]);
+    ahead.next(S);
+  };
+  pieces(0);
   for (int k = 0; k < stages; ++k, at_k.next(S)) {
     const int slot = at_k.slot, m = ring.count(k);
+    if (k + 1 < stages) pieces(k + 1);  // while stage k is walked
     mbar_wait(&walked[slot], at_k.phase);
-    if (RES) {  // d[j] = u[j] - y[j-1] in place of u, rounded as the walk's u - s
-      float* ub = ring.buf(slot, 0);
-      const float* yb = ring.buf(slot, kY);
-      for (int j = lane; j < m; j += 32) ub[j] = ub[j] - (j > 0 ? yb[j - 1] : enter[slot]);
-      fence_shared_to_bulk();
-      __syncwarp();
+    float* ub = ring.buf(slot, 0);
+    const float* yb = ring.buf(slot, kY);
+    fill_links(ub, ring.buf(slot, kY), ring.ends(slot), m, enter[slot], w, lane, 32);
+    __syncwarp();
+    if (RES) {  // d[j] = u[j] - y[j-1] in place of u
+      const float y0 = w.sgn * enter[slot];
+      for (int j = lane; j < m; j += 32) ub[j] = ub[j] - (j > 0 ? yb[j - 1] : y0);
     }
+    fence_shared_to_bulk();
+    __syncwarp();
     const long long t0 = row_off + (long long)k * T;
     store_row(y + t0, ring.buf(slot, kY), m, lane);
     if (RES) store_row(d + t0, ring.buf(slot, 0), m, lane);
@@ -395,12 +416,13 @@ knee_kernel(float* __restrict__ y, const float* __restrict__ th, const float* __
 // ---------------------------------------------------------------------------
 
 // gain = ga * gb over u, a block a row; with RES also d_a, d_b and the
-// final states.  Thread 0 walks member a, thread 32 member b, warps 2..
-// compute the knees (and with RES the residuals) and the first of them
-// moves the row.  Buffers: U (0): u, then ec = ga^2 u, which b walks (in
-// place without RES; with RES into B, and U becomes d_b); V (1): a's
-// envelope v (without RES then ga, then the gain); with RES also G (2):
-// ga, then the gain; B (3): b's envelope u2; DA (4): d_a.
+// final states.  Thread 0 walks member a's links, thread 32 member b's,
+// warps 2.. compute the pieces of each walk before it and its samples
+// after it, the knees (and with RES the residuals), and the first of them
+// moves the row.  Buffers: U (0): u, then ec = ga^2 u, which b walks (its
+// envelope in place without RES; with RES into B, and U becomes d_b); V
+// (1): a's envelope v (without RES then ga, then the gain); with RES also
+// G (2): ga, then the gain; B (3): b's envelope u2; DA (4): d_a.
 template <bool RES>
 __global__ void __launch_bounds__(kPairThreads)
 pair_kernel(const float* __restrict__ u, float* __restrict__ gain, float* __restrict__ d_a,
@@ -408,42 +430,46 @@ pair_kernel(const float* __restrict__ u, float* __restrict__ gain, float* __rest
             const float* __restrict__ c, int n, long long len, int kind_a, int kind_b,
             float init_a, float init_b, int T, int S) {
   extern __shared__ __align__(16) float ring_smem[];
-  __shared__ uint64_t full[kMaxStages], awalked[kMaxStages], kneed[kMaxStages],
-      bwalked[kMaxStages];
-  __shared__ float enter[2][kMaxStages];  // a's and b's states entering each stage
+  __shared__ uint64_t full[kMaxStages], apieced[kMaxStages], awalked[kMaxStages],
+      kneed[kMaxStages], bwalked[kMaxStages];
+  __shared__ float enter[2][kMaxStages];  // a's and b's oriented states entering each stage
   constexpr int kU = 0, kV = 1, kG = RES ? 2 : 1, kB = RES ? 3 : 0, kDA = 4;
+  constexpr int kHelpers = 32 * kKneeWarps;
   const Ring ring{ring_smem, T, S, RES ? 5 : 2, len};
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row = blockIdx.x;
   const long long row_off = (long long)row * len;
   const int stages = ring.count_stages();
+  const WalkRow wa(c[row], c[n + row]), wb(c[5 * n + row], c[6 * n + row]);
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < S; ++i) {
       mbar_init(&full[i], kLoadArrivals);
+      mbar_init(&apieced[i], kHelpers);
       mbar_init(&awalked[i], 1);
-      mbar_init(&kneed[i], 32 * kKneeWarps);
+      mbar_init(&kneed[i], kHelpers);
       mbar_init(&bwalked[i], 1);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  if (warp < 2) {  // the walkers: a walks U into V; b walks ec (U) into B
+  if (warp < 2) {  // the walkers: a walks U, b walks ec (U), each into the stage's end states
     if (lane != 0) return;
     const bool b = warp == 1;
-    const float at = c[(b ? 5 : 0) * n + row], rt = c[(b ? 6 : 1) * n + row];
-    float s = b ? init_b : init_a;
+    const WalkRow w = b ? wb : wa;
+    const LinkSlopes slopes(w);
+    float s = __fmul_rn(w.sgn, b ? init_b : init_a);
     Cursor at_k;
     for (int k = 0; k < stages; ++k, at_k.next(S)) {
       const int slot = at_k.slot;
-      mbar_wait(b ? &kneed[slot] : &full[slot], at_k.phase);
-      if (RES) enter[b][slot] = s;
-      s = walk_stage(ring.buf(slot, kU), ring.buf(slot, b ? kB : kV), ring.count(k), s, at, rt);
-      fence_shared_to_bulk();
+      mbar_wait(b ? &kneed[slot] : &apieced[slot], at_k.phase);
+      enter[b][slot] = s;
+      s = walk_links(ring.buf(slot, kU), ring.pieces(slot), ring.links(), ring.ends(slot),
+                     ring.count(k), s, slopes, w);
       mbar_arrive(b ? &bwalked[slot] : &awalked[slot]);
     }
-    if (RES) (b ? u_last : v_last)[row] = s;
+    if (RES) (b ? u_last : v_last)[row] = __fmul_rn(w.sgn, s);
     return;
   }
 
@@ -452,25 +478,41 @@ pair_kernel(const float* __restrict__ u, float* __restrict__ gain, float* __rest
   const bool mover = warp == 2;
   const float th_a = c[2 * n + row], cf_a = c[3 * n + row], hk_a = c[4 * n + row];
   const float th_b = c[7 * n + row], cf_b = c[8 * n + row], hk_b = c[9 * n + row];
+  auto sync = [] { asm volatile("bar.sync 1, %0;" ::"n"(kHelpers) : "memory"); };
   if (mover) {
     for (int k = 0; k < min(S, stages); ++k) load_stage(ring, full, u + row_off, lane, k, k);
   }
+  Cursor ahead;  // the stage whose pieces of member a are computed next
+  auto pieces_a = [&](int k) {
+    mbar_wait(&full[ahead.slot], ahead.phase);
+    stage_pieces(ring.buf(ahead.slot, kU), ring.pieces(ahead.slot), ring.links(), ring.count(k),
+                 wa, t, kHelpers);
+    mbar_arrive(&apieced[ahead.slot]);
+    ahead.next(S);
+  };
+  pieces_a(0);
   Cursor ka, kb;  // member a's knee at stage k, member b's at stage k - 1
   for (int k = 0; k <= stages; ++k) {
     if (k < stages) {  // member a's knee on stage k: ga, ec for member b, and d_a
-      mbar_wait(&awalked[ka.slot], ka.phase);
-      const int m = ring.count(k);
-      float* ub = ring.buf(ka.slot, kU);
-      const float* vb = ring.buf(ka.slot, kV);
-      float* gb = ring.buf(ka.slot, kG);
-      for (int j = t; j < m; j += 32 * kKneeWarps) {
+      if (k + 1 < stages) pieces_a(k + 1);  // while stage k is walked
+      const int slot = ka.slot, m = ring.count(k);
+      mbar_wait(&awalked[slot], ka.phase);
+      float* ub = ring.buf(slot, kU);
+      const float* vb = ring.buf(slot, kV);
+      float* gb = ring.buf(slot, kG);
+      fill_links(ub, ring.buf(slot, kV), ring.ends(slot), m, enter[0][slot], wa, t, kHelpers);
+      sync();
+      const float v0 = __fmul_rn(wa.sgn, enter[0][slot]);
+      for (int j = t; j < m; j += kHelpers) {
         const float v = vb[j], x = ub[j];
-        if (RES) ring.buf(ka.slot, kDA)[j] = x - (j > 0 ? vb[j - 1] : enter[0][ka.slot]);
+        if (RES) ring.buf(slot, kDA)[j] = x - (j > 0 ? vb[j - 1] : v0);
         const float ga = knee_gain(v, th_a, cf_a, hk_a, kind_a);
         gb[j] = ga;
         ub[j] = ga * ga * x;
       }
-      mbar_arrive(&kneed[ka.slot]);
+      sync();  // every ec, for member b's pieces
+      stage_pieces(ub, ring.pieces(slot), ring.links(), m, wb, t, kHelpers);
+      mbar_arrive(&kneed[slot]);
       ka.next(S);
     }
     if (k >= 1) {  // member b's knee on stage k - 1, the gain and d_b, then the stores
@@ -480,13 +522,16 @@ pair_kernel(const float* __restrict__ u, float* __restrict__ gain, float* __rest
       float* ub = ring.buf(slot, kU);
       const float* bb = ring.buf(slot, kB);
       float* gb = ring.buf(slot, kG);
-      for (int j = t; j < m; j += 32 * kKneeWarps) {
+      fill_links(ub, ring.buf(slot, kB), ring.ends(slot), m, enter[1][slot], wb, t, kHelpers);
+      sync();
+      const float u0 = __fmul_rn(wb.sgn, enter[1][slot]);
+      for (int j = t; j < m; j += kHelpers) {
         const float g = knee_gain(bb[j], th_b, cf_b, hk_b, kind_b);
-        if (RES) ub[j] = ub[j] - (j > 0 ? bb[j - 1] : enter[1][slot]);
+        if (RES) ub[j] = ub[j] - (j > 0 ? bb[j - 1] : u0);
         gb[j] = gb[j] * g;
       }
       fence_shared_to_bulk();
-      asm volatile("bar.sync 1, %0;" ::"n"(32 * kKneeWarps) : "memory");
+      sync();
       if (mover) {
         const long long t0 = row_off + (long long)k1 * T;
         store_row(gain + t0, ring.buf(slot, kG), m, lane);
@@ -512,9 +557,10 @@ pair_kernel(const float* __restrict__ u, float* __restrict__ gain, float* __rest
 // The dynamics chain (the port's own kernel)
 // ---------------------------------------------------------------------------
 
-// The chain over u, a block a row: walker warp r (lane 0) walks recursion
-// r a stage behind walker r - 1; the knee warps compute, between the
-// walks, each stage's knee, gain walk input, member gain, product and
+// The chain over u, a block a row: walker warp r (lane 0) walks the links
+// of recursion r a stage behind walker r - 1; the knee warps compute,
+// before each walk, its pieces and, between the walks, each walk's
+// samples, each stage's knee, gain walk input, member gain, product and
 // next member's energy in shared memory; the first knee warp also moves
 // the row.  gain = the product; last (R, n) = each walk's final state
 // where not null; with RES d (R, n, len) = each walk's residual.  c: (8 M,
@@ -532,10 +578,11 @@ chain_kernel(const float* __restrict__ u, float* __restrict__ gain, float* __res
              float* __restrict__ last, const float* __restrict__ c,
              const float* __restrict__ zi, int n, long long len, int code, int T, int S) {
   extern __shared__ __align__(16) float ring_smem[];
-  __shared__ uint64_t full[kMaxStages], walked[kChainWalks][kMaxStages],
+  __shared__ uint64_t full[kMaxStages], pieced[kMaxStages], walked[kChainWalks][kMaxStages],
       kneed[kChainWalks - 1][kMaxStages];
-  __shared__ float enter[kChainWalks][kMaxStages];  // each walk's state entering each stage
+  __shared__ float enter[kChainWalks][kMaxStages];  // each walk's oriented entering states
   constexpr int kU = 0, kP = 1, kQ = RES ? 2 : 1, kG = RES ? 3 : 2;
+  constexpr int kHelpers = 32 * kChainKneeWarps;
   const ChainSpec spec(code);
   const int R = spec.walks;
   const Ring ring{ring_smem, T, S, RES ? 4 : 3, len};
@@ -543,41 +590,46 @@ chain_kernel(const float* __restrict__ u, float* __restrict__ gain, float* __res
   const int row = blockIdx.x;
   const long long row_off = (long long)row * len;
   const int stages = ring.count_stages();
+  // walk r's row
+  auto walk_row = [&](int r) {
+    const float* cm = c + (long long)(8 * spec.wm[r] + (spec.wg[r] ? 5 : 0)) * n;
+    return WalkRow(cm[row], cm[n + row]);
+  };
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < S; ++i) {
       mbar_init(&full[i], kLoadArrivals);
+      mbar_init(&pieced[i], kHelpers);
       for (int r = 0; r < kChainWalks; ++r) mbar_init(&walked[r][i], 1);
-      for (int r = 0; r + 1 < kChainWalks; ++r) mbar_init(&kneed[r][i], 32 * kChainKneeWarps);
+      for (int r = 0; r + 1 < kChainWalks; ++r) mbar_init(&kneed[r][i], kHelpers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  if (warp < kChainWalks) {  // the walkers: r walks U (r = 0) or Q into P
+  if (warp < kChainWalks) {  // the walkers: r walks U (r = 0) or Q into the end states
     const int r = warp;
     if (lane != 0 || r >= R) return;
-    const int m = spec.wm[r];
-    const float* cm = c + (long long)(8 * m + (spec.wg[r] ? 5 : 0)) * n;
-    const float at = cm[row], rt = cm[n + row];
-    float s = zi[(long long)r * n + row];
+    const WalkRow w = walk_row(r);
+    const LinkSlopes slopes(w);
+    float s = __fmul_rn(w.sgn, zi[(long long)r * n + row]);
     Cursor at_k;
     for (int k = 0; k < stages; ++k, at_k.next(S)) {
       const int slot = at_k.slot;
-      mbar_wait(r == 0 ? &full[slot] : &kneed[r - 1][slot], at_k.phase);
-      if (RES) enter[r][slot] = s;
-      s = walk_stage(ring.buf(slot, r == 0 ? kU : kQ), ring.buf(slot, kP), ring.count(k), s, at,
-                     rt);
-      fence_shared_to_bulk();
+      mbar_wait(r == 0 ? &pieced[slot] : &kneed[r - 1][slot], at_k.phase);
+      enter[r][slot] = s;
+      s = walk_links(ring.buf(slot, r == 0 ? kU : kQ), ring.pieces(slot), ring.links(),
+                     ring.ends(slot), ring.count(k), s, slopes, w);
       mbar_arrive(&walked[r][slot]);
     }
-    if (last != nullptr) last[(long long)r * n + row] = s;
+    if (last != nullptr) last[(long long)r * n + row] = __fmul_rn(w.sgn, s);
     return;
   }
 
   // the knee warps
   const int t = threadIdx.x - 32 * kChainWalks;
   const bool mover = warp == kChainWalks;
+  auto sync = [] { asm volatile("bar.sync 1, %0;" ::"n"(kHelpers) : "memory"); };
   float th[2] = {}, cf[2] = {}, hk[2] = {};
   bool present[2] = {};
   for (int i = 0; i < spec.members; ++i) {
@@ -590,8 +642,19 @@ chain_kernel(const float* __restrict__ u, float* __restrict__ gain, float* __res
   if (mover) {
     for (int k = 0; k < min(S, stages); ++k) load_stage(ring, full, u + row_off, lane, k, k);
   }
+  const WalkRow w0 = walk_row(0);
+  Cursor ahead;  // the stage whose pieces of walk 0 are computed next
+  auto pieces0 = [&](int k) {
+    mbar_wait(&full[ahead.slot], ahead.phase);
+    stage_pieces(ring.buf(ahead.slot, kU), ring.pieces(ahead.slot), ring.links(), ring.count(k),
+                 w0, t, kHelpers);
+    mbar_arrive(&pieced[ahead.slot]);
+    ahead.next(S);
+  };
+  pieces0(0);
   Cursor at_r[kChainWalks];  // step r's cursor, at stage k - r
   for (int k = 0; k < stages + R - 1; ++k) {
+    if (k + 1 < stages) pieces0(k + 1);  // while walk 0 walks stage k
     for (int r = 0; r < R; ++r) {
       const int kr = k - r;
       if (kr < 0 || kr >= stages) continue;
@@ -600,15 +663,20 @@ chain_kernel(const float* __restrict__ u, float* __restrict__ gain, float* __res
       const int mcount = ring.count(kr);
       const int i = spec.wm[r], kind = spec.kind[i], smooth = spec.smooth[i];
       const bool gain_walk = spec.wg[r], last_walk = r + 1 == R;
+      const WalkRow w = walk_row(r);
       const float* ub = ring.buf(slot, kU);
       const float* pb = ring.buf(slot, kP);
       const float* xb = ring.buf(slot, r == 0 ? kU : kQ);  // the walk's input
       float* qb = ring.buf(slot, kQ);
       float* gb = ring.buf(slot, kG);
       float* dr = RES ? d + ((long long)r * n + row) * len + (long long)kr * T : nullptr;
-      for (int j = t; j < mcount; j += 32 * kChainKneeWarps) {
+      fill_links(xb, ring.buf(slot, kP), ring.ends(slot), mcount, enter[r][slot], w, t,
+                 kHelpers);
+      sync();
+      const float y0 = __fmul_rn(w.sgn, enter[r][slot]);
+      for (int j = t; j < mcount; j += kHelpers) {
         const float y = pb[j];
-        if (RES) dr[j] = xb[j] - (j > 0 ? pb[j - 1] : enter[r][slot]);
+        if (RES) dr[j] = xb[j] - (j > 0 ? pb[j - 1] : y0);
         float g;
         if (!gain_walk) {
           const float lg = cf[i] * knee_f(logf(y + kEps) - th[i], hk[i], kind);
@@ -627,12 +695,15 @@ chain_kernel(const float* __restrict__ u, float* __restrict__ gain, float* __res
       }
       at_r[r].next(S);
       if (!last_walk) {
+        sync();  // every sample of the next walk's input, for its pieces
+        stage_pieces(qb, ring.pieces(slot), ring.links(), mcount, walk_row(r + 1), t,
+                     kHelpers);
         mbar_arrive(&kneed[r][slot]);
         continue;
       }
       // the stage is done: its stores, then the refill of the slot before it
       fence_shared_to_bulk();
-      asm volatile("bar.sync 1, %0;" ::"n"(32 * kChainKneeWarps) : "memory");
+      sync();
       if (mover) {
         const long long t0 = row_off + (long long)kr * T;
         store_row(gain + t0, gb, mcount, lane);
@@ -652,18 +723,26 @@ chain_kernel(const float* __restrict__ u, float* __restrict__ gain, float* __res
 // Launches
 // ---------------------------------------------------------------------------
 
-// The ring's stages for T samples a stage and nbuf buffers, n rows on the
-// device's SMs: at most kMaxStages, within kRingBytes shared by the blocks
-// each SM must hold at once (at most kMaxShare), at least kMinStages;
-// 0 for a refused T.
-int ring_stages(int T, int nbuf, int n, int device) {
+// A stage's bytes in the ring: nbuf buffers and the walk scratch.
+long long stage_bytes(int T, int nbuf) {
+  return ((long long)(T + 4) * nbuf + link_scratch(T)) * (long long)sizeof(float);
+}
+
+// The ring's stages for T samples a stage and nbuf buffers (and the walk
+// scratch), n rows on the device's SMs: at most kMaxStages, within
+// kRingBytes shared by the blocks each SM must hold at once (at most
+// kMaxShare), and never fewer than least; 0 for a refused T.  A kernel's helpers
+// compute a stage's first pieces before the walk of the stage before it
+// is done, so its load must have been issued a stage earlier than the
+// refill order alone asks: least is 3 for walk_kernel, 4 for pair_kernel
+// (member b a stage behind) and walks + 2 for chain_kernel.
+int ring_stages(int T, int nbuf, int n, int device, int least) {
   if (T < 32 || T > kMaxSamples || T % 32 != 0) return 0;
   int sms = 1;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) return 0;
   const int share = std::min(kMaxShare, std::max(1, (n + sms - 1) / sms));
-  const long long stage = (long long)(T + 4) * 4 * nbuf;
-  const long long S = std::min<long long>(kMaxStages, kRingBytes / share / stage);
-  return (int)std::max<long long>(kMinStages, S);
+  const long long S = std::min<long long>(kMaxStages, kRingBytes / share / stage_bytes(T, nbuf));
+  return (int)std::max<long long>(least, S);
 }
 
 template <typename Kernel>
@@ -677,9 +756,9 @@ cudaError_t walk_launch(const float* x, float* y, float* d, float* last, const f
                         float init, const float* at, const float* rt, int n, long long len,
                         int T, int device, cudaStream_t s) {
   const int nbuf = RES ? 2 : 1;
-  const int S = ring_stages(T, nbuf, n, device);
+  const int S = ring_stages(T, nbuf, n, device, 3);
   if (S == 0) return cudaErrorInvalidValue;
-  const size_t bytes = (size_t)S * nbuf * (T + 4) * sizeof(float);
+  const size_t bytes = (size_t)S * stage_bytes(T, nbuf);
   cudaError_t err = allow_smem(walk_kernel<RES>, bytes);
   if (err != cudaSuccess) return err;
   walk_kernel<RES><<<n, 64, bytes, s>>>(x, y, d, last, zi, init, at, rt, len, T, S);
@@ -733,9 +812,9 @@ int gain_pair_fwd(const float* u, float* gain, float* d_a, float* d_b, float* v_
   if (n <= 0 || len <= 0) return 0;
   const bool res = d_a != nullptr;
   const int nbuf = res ? 5 : 2;
-  const int S = ring_stages(T, nbuf, n, device);
+  const int S = ring_stages(T, nbuf, n, device, 4);
   if (S == 0) return (int)cudaErrorInvalidValue;
-  const size_t bytes = (size_t)S * nbuf * (T + 4) * sizeof(float);
+  const size_t bytes = (size_t)S * stage_bytes(T, nbuf);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (res) {
     if ((err = allow_smem(pair_kernel<true>, bytes))) return (int)err;
@@ -760,12 +839,12 @@ int chain_fwd(const float* u, float* gain, float* d, float* last, const float* c
   const ChainSpec spec(code);
   const bool res = d != nullptr;
   const int nbuf = res ? 4 : 3;
-  const int fit = ring_stages(T, nbuf, n, device);
-  if (fit == 0) return (int)cudaErrorInvalidValue;
-  // the ring must hold a stage for each walk and one more (chain_kernel's
-  // refill order), whatever the rows sharing an SM leave
-  const int S = std::max(fit, spec.walks + 1);
-  const size_t bytes = (size_t)S * nbuf * (T + 4) * sizeof(float);
+  // the ring must hold a stage for each walk and two more (chain_kernel's
+  // refill order and its first pieces), whatever the rows sharing an SM
+  // leave
+  const int S = ring_stages(T, nbuf, n, device, spec.walks + 2);
+  if (S == 0) return (int)cudaErrorInvalidValue;
+  const size_t bytes = (size_t)S * stage_bytes(T, nbuf);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (res) {
     if ((err = allow_smem(chain_kernel<true>, bytes))) return (int)err;

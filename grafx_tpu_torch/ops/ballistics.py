@@ -65,7 +65,31 @@ the adjoints split that linear walk over time chunks
 decomposition in PyTorch, for the tests).
 
 The forward walks cannot be split so: one thread walks a row from its
-first sample to its last.  On the card a block walks one row, staged
+first sample to its last.  With ``at, rt`` in [0, 1] the step is an
+envelope of its two affine pieces: ``max(oma s + at u, omr s + rt u)``
+(``oma = 1 - at``, ``omr = 1 - rt``) where ``at >= rt``, ``min`` where
+``at < rt``, which is the select form in real arithmetic (the pieces
+differ by ``(at - rt)(u - s)``).  A row's orientation is taken once:
+its walk runs on ``sgn u`` from ``sgn y0`` with ``max``, ``sgn = +1``
+or ``-1``, and ``sgn`` times that walk is the row's.  ``k`` such steps
+compose into ``k + 1`` affine pieces, slopes ``oma^i omr^(k-i)`` and
+offsets that depend on the input alone (:func:`_link_pieces`), so the
+serial chain advances a *link* of ``k`` = :data:`WALK_LINK` samples at a
+time, from the row's first sample: ``k + 1`` FMAs from the state and
+their max.  A link's inner samples are single steps from its entering
+state; a row's last ``L mod k`` samples walk single steps.  A flat link
+(its ``k`` samples equal, ``v``) takes the offsets ``v - c_i v``, which
+map ``v`` to itself exactly, so a walk that meets a constant input (a
+static gain of 1) stays on it, as the select form does.  Elsewhere the
+roundings differ from the select form's (the composed slopes and offsets
+are rounded once each; near ``u == s`` the other piece, equal to an ulp
+or two, may win), by a few ulps of the row's scale where ``rt >= 0.01``
+and by more as the release slows, as the select form's own distance from
+the recursion in exact arithmetic grows (``tests/test_torch_ballistics.py``
+bounds both).  A stream that ends a call inside a link carries the link's
+entering state and its samples so far, and the next call walks them again
+(:func:`ballistics_stream`, :func:`ballistics_chain_stream`), so that a
+row split anywhere equals one call bit for bit.  On the card a block walks one row, staged
 through shared memory T samples at a time by bulk copies, and the pair's
 two members walk in one kernel, member b a stage behind member a
 (:func:`walk_samples` picks T; ``csrc/ballistics_gain.cu`` has the
@@ -108,6 +132,9 @@ _TILE = 32
 _KINDS = {"compressor": 0, "noisegate": 1}
 _MIN_CHUNK = 64
 _STAGE = 1024  # the most samples a stage of the forward walks holds
+# the samples a link of the forward walks' serial chain covers; the kernels'
+# kLink (csrc/ballistics.cuh)
+WALK_LINK = 8
 
 
 def fused_gain_available():
@@ -153,8 +180,39 @@ def _knee_gain(y, th, cf, hk, kind):
     return torch.exp(cf[:, None] * _knee_f(x, hk[:, None], kind))
 
 
-def _walk(u, y0, at, rt):
-    """The ballistics recursion over ``(N, L)`` from ``(N,)`` states."""
+def _link_slopes(oma, omr, k):
+    """``(k + 1, N)``: slope ``i`` of a link's pieces, ``oma^i omr^(k-i)``,
+    each power by repeated products and then their product, as the
+    kernels round it."""
+    pa, pr = [torch.ones_like(oma)], [torch.ones_like(omr)]
+    for _ in range(k):
+        pa.append(pa[-1] * oma)
+        pr.append(pr[-1] * omr)
+    return torch.stack([pa[i] * pr[k - i] for i in range(k + 1)])
+
+
+def _link_pieces(au, ru, oma, omr):
+    """The offsets of a link's pieces, ``(k + 1, ...)`` from the ``(...,
+    k)`` products ``at u`` and ``rt u`` of its oriented samples: offset
+    ``i`` is the largest over the step sequences with ``i`` attack steps,
+    built one step at a time (``oma``, ``omr`` broadcast against
+    ``au[..., 0]``)."""
+    k = au.shape[-1]
+    o = [ru[..., 0], au[..., 0]]
+    for j in range(1, k):
+        a, r = au[..., j], ru[..., j]
+        inner = [
+            torch.maximum(torch.addcmul(a, oma, o[i - 1]), torch.addcmul(r, omr, o[i]))
+            for i in range(1, j + 1)
+        ]
+        o = [torch.addcmul(r, omr, o[0]), *inner, torch.addcmul(a, oma, o[j])]
+    return torch.stack(o)
+
+
+def _select_walk(u, y0, at, rt):
+    """The recursion in its select form, sample by sample: the definition
+    the links are held to, and under autograd the plain walk's derivative
+    (the attack/release decisions held constant)."""
     oma, omr = 1.0 - at, 1.0 - rt
     au, ru = at[:, None] * u, rt[:, None] * u
     y = torch.empty_like(u)
@@ -165,6 +223,74 @@ def _walk(u, y0, at, rt):
         st = torch.where(u[:, n] > st, up, dn)
         y[:, n] = st
     return y
+
+
+def _walk(u, y0, at, rt):
+    """The ballistics recursion over ``(N, L)`` from ``(N,)`` states, in
+    links of :data:`WALK_LINK` samples: the forward kernels' arithmetic.  Under
+    autograd its gradient is the select form's: the links' max would
+    split the gradient between pieces that tie (all of them where ``at ==
+    rt``), where the recursion holds each decision constant."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (u, y0, at, rt)):
+        return _PlainWalk.apply(u, y0, at, rt)
+    return _link_walk(u, y0, at, rt)
+
+
+class _PlainWalk(torch.autograd.Function):
+    """The links forward, the select form's autograd backward."""
+
+    @staticmethod
+    def forward(ctx, u, y0, at, rt):
+        ctx.save_for_backward(u, y0, at, rt)
+        return _link_walk(u, y0, at, rt)
+
+    @staticmethod
+    def backward(ctx, g):
+        leaves = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in leaves if t.requires_grad]
+        with torch.enable_grad():
+            grads = iter(torch.autograd.grad(_select_walk(*leaves), wanted, g))
+        return tuple(next(grads) if t.requires_grad else None for t in leaves)
+
+
+def _link_walk(u, y0, at, rt):
+    """:func:`_walk` without autograd (module docstring)."""
+    n, length, link = *u.shape, WALK_LINK
+    sgn = torch.where(at >= rt, 1.0, -1.0).to(u.dtype)
+    oma, omr = (1.0 - at)[:, None], (1.0 - rt)[:, None]
+    uo = sgn[:, None] * u
+    au, ru = at[:, None] * uo, rt[:, None] * uo
+    links, y = length // link, torch.empty_like(u)
+    st = sgn * y0
+    if links:
+        span = links * link
+        au_l, ru_l = au[:, :span].reshape(n, links, link), ru[:, :span].reshape(n, links, link)
+        # (links, k + 1, N): a link's offsets together for the serial loop
+        slopes = _link_slopes(oma[:, 0], omr[:, 0], link)
+        pieces = _link_pieces(au_l, ru_l, oma, omr)
+        uo_l = uo[:, :span].reshape(n, links, link)
+        v = uo_l[..., 0]
+        flat = (uo_l == v[..., None]).all(-1)  # a flat link maps its value to itself
+        pieces = torch.where(flat, torch.addcmul(v, -slopes[..., None], v), pieces)
+        pieces = pieces.permute(2, 0, 1).contiguous()
+        ends = torch.empty(links, n, dtype=u.dtype, device=u.device)
+        for i in range(links):
+            st = torch.addcmul(pieces[i], slopes, st).amax(0)
+            ends[i] = st
+        ends = ends.T
+        yl = y[:, :span].view(n, links, link)
+        prev = torch.cat([(sgn * y0)[:, None], ends[:, :-1]], dim=1)
+        for m in range(link - 1):  # a link's inner samples from its entering state
+            prev = torch.maximum(torch.addcmul(au_l[..., m], oma, prev),
+                                 torch.addcmul(ru_l[..., m], omr, prev))
+            yl[..., m] = prev
+        yl[..., link - 1] = ends
+    for j in range(links * link, length):  # the ragged tail: single steps
+        st = torch.maximum(torch.addcmul(au[:, j], oma[:, 0], st),
+                           torch.addcmul(ru[:, j], omr[:, 0], st))
+        y[:, j] = st
+    return sgn[:, None] * y
 
 
 def _residual(u, y, y0):
@@ -656,6 +782,17 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _count_walks(u, walks):
+    """Count, for ``walks`` forward walks over ``u``'s ``(N, L)`` rows, the
+    samples walked in links and in single steps (the ragged tail): the
+    tracer's ``ballistics.walk.linked`` and ``ballistics.walk.single``
+    (:func:`grafx_tpu_torch.profiling.count`; report only)."""
+    n, length = u.shape
+    single = length % WALK_LINK
+    profiling.count("ballistics.walk.linked", walks * n * (length - single))
+    profiling.count("ballistics.walk.single", walks * n * single)
+
+
 def _run(name, fn_name, u, *args):
     """Launch ``fn_name(*args, device, stream)``; raise on a CUDA error.
     The launch counts in the tracer's report as ``ballistics.<name>``
@@ -721,6 +858,7 @@ def _gain_fwd_cuda(name, u, consts, kind, res, samples=None):
     n, length = u.shape
     samples = walk_samples(length, samples)
     gain = torch.empty_like(u)
+    _count_walks(u, 1)
     if not res:
         _run(name, "grafx_gain_fwd", u, u.data_ptr(), gain.data_ptr(), c.data_ptr(), n, length,
              _KINDS[kind], samples)
@@ -844,6 +982,7 @@ def _pair_fwd_cuda(name, u, consts, kinds, inits, res, samples=None):
     tail = (n, length, _KINDS[kinds[0]], _KINDS[kinds[1]], float(inits[0]), float(inits[1]),
             walk_samples(length, samples))
     gain = torch.empty_like(u)
+    _count_walks(u, 2)
     if not res:
         _run(name, "grafx_gain_pair_fwd", u, u.data_ptr(), gain.data_ptr(), c.data_ptr(), *tail)
         return gain
@@ -914,8 +1053,7 @@ def ballistics_gain_pair_bwd(
 
 def ballistics_core(u, zi, at, rt):
     """The attack/release smoother alone, from per-row initial states.
-    Streaming carries ``y[:, -1]`` into the next call's ``zi``; split
-    calls equal one call bit for bit.
+    A stream carries its state with :func:`ballistics_stream`.
 
     Differentiable in every argument.  Without grad it launches the
     primal walk (replaces ``_kernel``); with grad it runs
@@ -932,6 +1070,70 @@ def ballistics_core(u, zi, at, rt):
         return _Ballistics.apply(u, zi, at, rt)
     _device(u, "ballistics_core")
     return torch.ops.grafx_tpu_torch.ballistics(u, (zi, at, rt))
+
+
+def walk_state(zi):
+    """A stream's initial state of linked walks from their ``(..., N)``
+    initial states ``zi``: ``(zi, tail)`` with the empty ``(N, 0)`` tail
+    of a stream that has begun no link (:func:`ballistics_stream`)."""
+    return zi, zi.new_empty(zi.shape[-1], 0)
+
+
+def _resume(u, state):
+    """``(x, last, p)``: a block's input ``u`` behind the ``(N, p)`` samples
+    of the link the last block ended in, and the walks' states entering
+    that link, from a stream state ``(last, tail)``."""
+    last, tail = state
+    p = tail.shape[-1]
+    return (torch.cat([tail, u], dim=-1) if p else u), last, p
+
+
+def _links_of(x):
+    """The samples of ``x``'s rows that whole links cover."""
+    return x.shape[-1] // WALK_LINK * WALK_LINK
+
+
+def ballistics_stream(u, state, at, rt):
+    """One block of a streamed :func:`ballistics_core`: ``(y, new_state)``.
+
+    A walk's links of :data:`WALK_LINK` samples start at its call's first
+    sample, so one float carried between calls would start the next
+    block's links where the last block ended, and a block that ends inside
+    a link would round the walk otherwise than one call.  The state
+    ``(last, tail)`` (:func:`walk_state`) is instead the state entering
+    the link the last block ended in and that link's ``(N, p)`` samples so
+    far; the block walks them again from ``last`` (their outputs are
+    dropped: the last block's ragged tail gave them, by the same single
+    steps).  Blocks of any length so equal one call over the stream bit
+    for bit; with blocks of whole links the tail stays empty and a block
+    is one :func:`ballistics_core` call on its own samples.
+    """
+    x, last, p = _resume(u, state)
+    y = ballistics_core(x, last, at, rt)
+    whole = _links_of(x)
+    boundary = y[:, whole - 1] if whole else last  # a walk's output is its state
+    return (y[:, p:] if p else y), (boundary, x[:, whole:])
+
+
+def ballistics_chain_stream(u, consts, state, spec):
+    """One block of a streamed :func:`ballistics_chain_core`: ``(gain,
+    new_state)``, with the state ``(last, tail)`` of
+    :func:`ballistics_stream` (``last`` the ``(R, N)`` states of the
+    chain's walks, which walk the same links).  A block that ends inside a
+    link runs the chain twice, on its whole links and on the rest, for the
+    walks' states at the last link's end."""
+    x, last, p = _resume(u, state)
+    whole = _links_of(x)
+    if whole == x.shape[-1]:
+        gain, last = ballistics_chain_core(x, consts, last, spec)
+    else:
+        parts = []
+        if whole:
+            head, last = ballistics_chain_core(x[:, :whole].contiguous(), consts, last, spec)
+            parts.append(head)
+        parts.append(ballistics_chain_core(x[:, whole:].contiguous(), consts, last, spec)[0])
+        gain = torch.cat(parts, dim=-1)
+    return (gain[:, p:] if p else gain), (last, x[:, whole:])
 
 
 @torch.library.custom_op("grafx_tpu_torch::ballistics", mutates_args=())
@@ -959,6 +1161,7 @@ def _walk_fwd_cuda(name, u, consts, res, samples=None):
     c = _consts(name, u, *consts)
     y = torch.empty_like(u)
     d = torch.empty_like(u) if res else None
+    _count_walks(u, 1)
     _run(name, "grafx_ballistics_fwd", u, u.data_ptr(), y.data_ptr(), _ptr(d), c.data_ptr(),
          u.shape[0], u.shape[1], walk_samples(u.shape[1], samples))
     return (y, d) if res else y
@@ -1058,7 +1261,8 @@ def ballistics_chain_core(u, consts, zi, spec):
         consts: ``(8 M, N)``: member i's rows :data:`CHAIN_ROWS` at 8 i.
         zi: ``(R, N)`` initial state of each walk, in the order of
             :func:`chain_walks` (1.0 for ballistics and a gain, 0.0 for
-            the one-pole; a stream carries the final states).
+            the one-pole; a stream carries its state with
+            :func:`ballistics_chain_stream`).
         spec: per member ``(kind, smooth)``: ``"compressor"`` or
             ``"noisegate"``, and ``None``, ``"linear"`` or ``"log"``.
 
@@ -1111,6 +1315,7 @@ def _chain_fwd_cuda(name, u, consts, zi, spec, res, samples=None):
     n, length = u.shape
     gain, last = torch.empty_like(u), u.new_empty(zi.shape)
     d = u.new_empty(zi.shape[0], n, length) if res else None
+    _count_walks(u, zi.shape[0])
     _run(name, "grafx_chain_fwd", u, u.data_ptr(), gain.data_ptr(), _ptr(d), last.data_ptr(),
          c.data_ptr(), zi.data_ptr(), n, length, code, walk_samples(length, samples))
     return (gain, d, last) if res else (gain, last)

@@ -16,7 +16,7 @@ a ``FactorizedCompressor`` smooths its frames with :class:`Ballistics`.
 import torch
 from torch import nn
 
-from grafx_tpu_torch.ops.ballistics import ballistics_core
+from grafx_tpu_torch.ops.ballistics import ballistics_core, ballistics_stream, walk_state
 from grafx_tpu_torch.ops.fftconv import fft_convolve
 from grafx_tpu_torch.ops.iir import onepole_exact
 
@@ -96,11 +96,12 @@ class Ballistics(nn.Module):
     # -- streaming -----------------------------------------------------
 
     def stream_zero_state(self, batch_size, device=None):
-        """Initial envelope (1, matching ``forward``'s ``zi``)."""
-        return torch.ones(batch_size, device=device)
+        """Initial state: the envelope 1 (``forward``'s ``zi``) and no
+        link begun (:func:`~grafx_tpu_torch.ops.ballistics.walk_state`)."""
+        return walk_state(torch.ones(batch_size, device=device))
 
     def stream(self, input_signals, state, z_alpha):
-        """One block: ``(y, y[:, -1])``."""
+        """One block: ``(y, new_state)``
+        (:func:`~grafx_tpu_torch.ops.ballistics.ballistics_stream`)."""
         ts = torch.sigmoid(z_alpha)
-        y = ballistics_core(input_signals, state, ts[..., 0], ts[..., 1])
-        return y, y[:, -1]
+        return ballistics_stream(input_signals, state, ts[..., 0], ts[..., 1])

@@ -32,7 +32,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from grafx_tpu_torch.ops.ballistics import ballistics_chain_core, ballistics_gain_core
+from grafx_tpu_torch.ops.ballistics import (
+    ballistics_chain_core,
+    ballistics_chain_stream,
+    ballistics_gain_core,
+)
 from grafx_tpu_torch.processors.core.envelope import Ballistics, TruncatedOnePoleIIRFilter
 
 
@@ -106,22 +110,34 @@ def request_states(consts, inits):
     return torch.stack([torch.full_like(consts[0], v) for v in inits])
 
 
+def _walk_keys(smooth):
+    return ("energy",) if smooth is None else ("energy", "gain")
+
+
 def chain_states(spec, states):
-    """The chain's ``(R, N)`` initial states from the members' stream
-    states (``{"energy": ..., "gain": ...}`` each), in walk order."""
-    return torch.stack([
-        state[key] for (_, smooth), state in zip(spec, states)
-        for key in (("energy",) if smooth is None else ("energy", "gain"))
-    ])
+    """The chain's stream state ``(last, tail)``
+    (:func:`~grafx_tpu_torch.ops.ballistics.ballistics_chain_stream`) from
+    the members' stream states (``{"energy": ..., "gain": ...}`` each):
+    the ``(R, N)`` states of its walks, in walk order, and the samples of
+    the link the last block ended in, which each ballistics walk's state
+    ``(last, tail)`` carries (a one-pole's is its last sample alone)."""
+    walks = [state[key] for (_, smooth), state in zip(spec, states) for key in _walk_keys(smooth)]
+    tail = next(w[1] for w in walks if isinstance(w, tuple))  # every chain walks a ballistics gain
+    return torch.stack([w[0] if isinstance(w, tuple) else w for w in walks]), tail
 
 
-def member_states(spec, last):
-    """The members' stream states from the chain's ``(R, N)`` final
-    states (the inverse of :func:`chain_states`)."""
+def member_states(spec, state, like):
+    """The members' stream states from the chain's ``(last, tail)``, each
+    walk's in the form it has in ``like`` (the inverse of
+    :func:`chain_states`)."""
+    last, tail = state
     states, r = [], 0
-    for _, smooth in spec:
-        states.append({"energy": last[r], "gain": None if smooth is None else last[r + 1]})
-        r += 1 if smooth is None else 2
+    for (_, smooth), old in zip(spec, like):
+        new = {"energy": None, "gain": None}
+        for key in _walk_keys(smooth):
+            new[key] = (last[r], tail) if isinstance(old[key], tuple) else last[r]
+            r += 1
+        states.append(new)
     return states
 
 
@@ -267,8 +283,8 @@ class Compressor(nn.Module):
         spec = self.chain_spec
         if spec is not None:
             consts, _ = dynamics_chain(spec, [(self, cache)])
-            gain, last = ballistics_chain_core(energy, consts, chain_states(spec, [state]), spec)
-            return gain, member_states(spec, last)[0]
+            gain, new = ballistics_chain_stream(energy, consts, chain_states(spec, [state]), spec)
+            return gain, member_states(spec, new, [state])[0]
         e_state, g_state = state["energy"], state["gain"]
         if self.energy_smoother_module is not None:
             energy, e_state = self.energy_smoother_module.stream(

@@ -32,7 +32,11 @@ from torch import nn
 from grafx_tpu_torch import profiling
 from grafx_tpu_torch.data.configs import UTILITY_TYPES, NodeConfigs
 from grafx_tpu_torch.data.graph import GRAFX
-from grafx_tpu_torch.ops.ballistics import ballistics_chain_core, ballistics_gain_pair_core
+from grafx_tpu_torch.ops.ballistics import (
+    ballistics_chain_core,
+    ballistics_chain_stream,
+    ballistics_gain_pair_core,
+)
 from grafx_tpu_torch.ops.fftconv import conv_stream_apply, conv_stream_init, fft_convolve
 from grafx_tpu_torch.processors.core.iir import IIRFilter
 from grafx_tpu_torch.processors.core.utils import accepts_noise_key, lti_kind_of
@@ -58,18 +62,25 @@ class _FusedChain(nn.Module):
         return {name: proc.parameter_size() for name, proc in self.members}
 
 
-def compose_fir_kernels(members, nested_params, noise_key=None):
-    """Compose ``[(name, processor), ...]`` FIR-LTI members into one
-    ``(h, shift, intermediates)`` kernel: IRs convolve, shifts add, aux
-    dicts nest by member name (shared by :class:`FusedFIRChain` and the
-    containers' FIR capability).  Member ``i`` whose ``fir_kernel`` takes
-    a ``noise_key`` gets ``fold_in(noise_key, i)``."""
-    h, shift, intermediates = None, 0, {}
+def _member_kernels(members, nested_params, noise_key=None):
+    """``[(name, h, shift, aux), ...]``: the FIR-LTI kernel of each of the
+    ``[(name, processor), ...]`` members.  Member ``i`` whose
+    ``fir_kernel`` takes a ``noise_key`` gets ``fold_in(noise_key, i)``."""
+    kernels = []
     for i, (name, proc) in enumerate(members):
         kw = dict(nested_params[name])
         if noise_key is not None and accepts_noise_key(proc.fir_kernel):
             kw["noise_key"] = fold_in(noise_key, i)
-        hi, si, aux = proc.fir_kernel(**kw)
+        kernels.append((name, *proc.fir_kernel(**kw)))
+    return kernels
+
+
+def _compose(kernels):
+    """One ``(h, shift, intermediates)`` kernel from
+    :func:`_member_kernels`' list: IRs convolve, shifts add, aux dicts
+    nest by member name."""
+    h, shift, intermediates = None, 0, {}
+    for name, hi, si, aux in kernels:
         shift += si
         if aux:
             intermediates[name] = aux
@@ -79,6 +90,15 @@ def compose_fir_kernels(members, nested_params, noise_key=None):
             h_len = h.shape[-1] + hi.shape[-1] - 1
             h = fft_convolve(h, hi, mode="full")[..., :h_len]
     return h, shift, intermediates
+
+
+def compose_fir_kernels(members, nested_params, noise_key=None):
+    """Compose ``[(name, processor), ...]`` FIR-LTI members into one
+    ``(h, shift, intermediates)`` kernel: IRs convolve, shifts add, aux
+    dicts nest by member name (shared by :class:`FusedFIRChain`'s stream
+    and the containers' FIR capability).  Member ``i`` whose
+    ``fir_kernel`` takes a ``noise_key`` gets ``fold_in(noise_key, i)``."""
+    return _compose(_member_kernels(members, nested_params, noise_key))
 
 
 def compose_biquad_kernels(members, nested_params):
@@ -105,30 +125,64 @@ class FusedFIRChain(_FusedChain):
     """A fused serial run of FIR-LTI processors: the members' IRs compose
     (short convolutions), then ONE shift-cropped convolution touches the
     audio.  Members' aux losses (a delay's ``radii_reg``) are merged and
-    re-emitted."""
+    re-emitted.
+
+    The run's leading one-tap members (gains) scale the input, as the
+    unfused nodes do, instead of being convolved into the IR, which would
+    round every tap of it; a render and a stream alike
+    (:func:`_leading_gains`).  So a gain -> delay run renders as its
+    nodes do, to the bit; composed, the last bits would differ even where
+    the output is silent, which a log-spectral loss's gradient magnifies."""
 
     def forward(self, input_signals, noise_key=None, **nested_params):
-        h, shift, intermediates = compose_fir_kernels(self.members, nested_params, noise_key)
-        out = fft_convolve(input_signals, h, mode=("shift", shift))
+        kernels = _member_kernels(self.members, nested_params, noise_key)
+        gains, (h, shift, _) = _leading_gains(kernels)
+        out = _scaled(input_signals, gains)
+        if h is not None:
+            out = fft_convolve(out, h, mode=("shift", shift))
+        intermediates = {name: aux for name, _, _, aux in kernels if aux}
         return (out, intermediates) if intermediates else out
 
     # -- streaming -----------------------------------------------------
 
     def stream_init(self, num_channels, block_len, noise_key=None, **nested_params):
-        """Compose the chain's IR once and stream its one convolution (an
-        overlap-add tail, or UPOLS for a long IR).  A chain with
-        zero-phase members (``shift > 0``) needs lookahead and raises."""
-        h, shift, _ = compose_fir_kernels(self.members, nested_params, noise_key)
+        """Compose the IR of the members after the leading gains once and
+        stream its one convolution (an overlap-add tail, or UPOLS for a
+        long IR).  A chain with zero-phase members (``shift > 0``) needs
+        lookahead and raises."""
+        gains, (h, shift, _) = _leading_gains(_member_kernels(self.members, nested_params, noise_key))
         if shift:
             raise NotImplementedError(
                 f"fused chain has {shift} samples of zero-phase lookahead;"
                 " block-wise streaming supports causal chains only."
             )
+        if h is None:
+            return None, {"gains": gains, "conv": None}
         state, conv = conv_stream_init(h, num_channels, block_len)
-        return state, {"conv": conv}
+        return state, {"gains": gains, "conv": conv}
 
     def stream_step(self, x, state, cache):
+        x = _scaled(x, cache["gains"])
+        if cache["conv"] is None:
+            return x, state
         return conv_stream_apply(x, state, cache["conv"])
+
+
+def _leading_gains(kernels):
+    """``(gains, (h, shift, intermediates))`` from :func:`_member_kernels`'
+    list: the IRs of the leading one-tap members with no shift (gains),
+    which scale the signal, and the rest composed (:func:`_compose`; ``h``
+    is None where nothing is left)."""
+    lead = 0
+    while lead < len(kernels) and kernels[lead][1].shape[-1] == 1 and kernels[lead][2] == 0:
+        lead += 1
+    return [h for _, h, _, _ in kernels[:lead]], _compose(kernels[lead:])
+
+
+def _scaled(x, gains):
+    for g in gains:
+        x = x * g
+    return x
 
 
 def _member_block_sizes(proc):
@@ -317,10 +371,9 @@ class FusedDynamicsChain(_FusedChain):
         if spec is not None:
             consts, _ = self._chain_kernel_args(cache)
             names = [name for name, _ in self.members]
-            gain, last = ballistics_chain_core(
-                energy, consts, chain_states(spec, [state[name] for name in names]), spec
-            )
-            return gain[:, None, :] * x, dict(zip(names, member_states(spec, last)))
+            like = [state[name] for name in names]
+            gain, new = ballistics_chain_stream(energy, consts, chain_states(spec, like), spec)
+            return gain[:, None, :] * x, dict(zip(names, member_states(spec, new, like)))
         new_state = {}
 
         def member_gain(name, proc, e):

@@ -55,8 +55,15 @@ class _Module(torch.nn.Module):
 
 
 def _export(fn, example_args):
+    return _save(_exported(fn, example_args))
+
+
+def _exported(fn, example_args):
     with torch.no_grad():
-        program = torch.export.export(_Module(fn), example_args, strict=False)
+        return torch.export.export(_Module(fn), example_args, strict=False)
+
+
+def _save(program):
     program.example_inputs = None  # else saved too: a request's audio
     # A constant is saved as the bytes of its storage (after a move to the
     # CPU) and rebuilt with its strides and offset: give each its own
@@ -132,6 +139,14 @@ def export_stream_step(renderer, example_block, blocks_per_step=1):
     ``torch.save``, which keeps every view's layout on any device; saved
     as the program's constants they would be packed.
 
+    A state's shapes may change from block to block: a ballistics walk's
+    carries the samples of the link its last block ended in
+    (:func:`~grafx_tpu_torch.ops.ballistics.ballistics_stream`), as many
+    as the samples streamed so far modulo the link, where a block is not
+    whole links.  The artifact holds one program per state shape the
+    stream reaches (stepped with ``example_block`` from the initial
+    state), and a call runs the one its state's shapes select.
+
     Args:
         renderer: a built ``StreamRenderer``.
         example_block: ``(num_sources, C, block_len)`` tensor fixing the
@@ -141,8 +156,9 @@ def export_stream_step(renderer, example_block, blocks_per_step=1):
             ``(blocks_per_step, *block_shape)``.
 
     Returns:
-        ``bytes`` (``torch.save`` of the saved program, the initial state
-        and the caches), loadable with :func:`load_stream_step`.
+        ``bytes`` (``torch.save`` of the saved programs, each beside its
+        state's shapes, the initial state and the caches), loadable with
+        :func:`load_stream_step`.
     """
     state0 = {str(k): v for k, v in renderer.init_state().items()}
     impl = renderer._step if blocks_per_step == 1 else renderer._step_many
@@ -160,10 +176,34 @@ def export_stream_step(renderer, example_block, blocks_per_step=1):
     example = example_block
     if blocks_per_step != 1:
         example = example_block.expand((blocks_per_step,) + tuple(example_block.shape)).contiguous()
+    programs, state = {}, state0
+    while _shapes(state) not in programs:
+        key, program = _shapes(state), _exported(step, (example, state, caches))
+        state = _returned_state(program)
+        programs[key] = _save(program)
     payload = io.BytesIO()
-    torch.save({"program": _export(step, (example, state0, caches)), "state": state0,
-                "caches": caches}, payload)
+    torch.save({"programs": list(programs.items()), "state": state0, "caches": caches}, payload)
     return payload.getvalue()
+
+
+def _returned_state(program):
+    """The state a traced stream step returns, as zeros of the shapes the
+    trace gave it (nothing runs): the next state to trace from."""
+    out = next(n for n in program.graph.nodes if n.op == "output").args[0]
+    out = out[len(out) - program.call_spec.out_spec.num_leaves:]  # the user's outputs
+
+    def zeros(node):
+        if not isinstance(node, torch.fx.Node):
+            return node
+        v = node.meta["val"]
+        return torch.zeros(v.shape, dtype=v.dtype, device=v.device)
+
+    return pytree.tree_unflatten([zeros(n) for n in out], program.call_spec.out_spec)[1]
+
+
+def _shapes(state):
+    """The shapes of a stream state's tensors, in tree order."""
+    return tuple(tuple(x.shape) for x in pytree.tree_leaves(state) if isinstance(x, torch.Tensor))
 
 
 def load_stream_step(blob):
@@ -171,14 +211,18 @@ def load_stream_step(blob):
     ``step(x_block, state) -> (y_block, new_state)``, on the card one
     CUDA-graph replay per call (the caches baked into the graph)."""
     payload = torch.load(io.BytesIO(blob), weights_only=True)
-    module = torch.export.load(io.BytesIO(payload["program"])).module()
     caches = payload["caches"]
-    program = CapturedFunction(lambda x_block, state: module(x_block, state, caches),
-                               name="load_stream_step")
+    programs = {}
+    for shapes, saved in payload["programs"]:
+        module = torch.export.load(io.BytesIO(saved)).module()
+        programs[shapes] = CapturedFunction(
+            lambda x_block, state, module=module: module(x_block, state, caches),
+            name="load_stream_step",
+        )
 
     def step(x_block, state):
         with torch.no_grad():
-            return program(x_block, state)
+            return programs[_shapes(state)](x_block, state)
 
     return step, payload["state"]
 

@@ -25,6 +25,7 @@ from grafx_tpu.ops.ballistics_tpu import (
     pad_time_major,
     reverse_scan_pallas_tm,
 )
+from grafx_tpu_torch import profiling
 from grafx_tpu_torch.ops import _cuda
 from grafx_tpu_torch.ops import ballistics as bal
 from grafx_tpu_torch.ops.ballistics import (
@@ -634,3 +635,193 @@ def test_smoother_wrappers_refuse_other_devices():
     for call in calls:
         with pytest.raises(ValueError, match="unsupported device"):
             call()
+
+
+# ---------------------------------------------------------------------------
+# The forward walks' links: the plain walk (the kernels' arithmetic) against
+# the select form, its definition, and against grafx_tpu's walk
+# ---------------------------------------------------------------------------
+
+K = bal.WALK_LINK
+# The link walk against the select form and grafx_tpu's walk: within this
+# many float32 ulps of the row's largest magnitude (input or initial state),
+# with rt >= 0.01.  The roundings differ: a link's slopes and offsets are
+# rounded once each, and its max takes the largest of pieces that are equal
+# in real arithmetic (measured at most 3.3 ulps here, links of 8).  A flat
+# link maps its value to itself, so an exact tie (a constant input from its
+# own value) does not lift the state by those roundings every link.
+WALK_ULPS = 8
+# Rows that release slowly (rt 1e-3 and 1e-4; a release of 100 ms at
+# 44.1 kHz is rt = 2.3e-4): the links and the select form differ by more
+# (measured at most 61 ulps at rt = 1e-4, 11 at 1e-3).  Both lie further
+# from the recursion in exact arithmetic (~250-400 ulps at rt = 1e-4: the
+# rounding of 1 - rt moves a slow walk's fixed point) than grafx_tpu's walk
+# does (7-24 ulps).
+SLOW_RELEASES = (1e-3, 1e-4)
+SLOW_ULPS = 96
+ROW_CASES = ("attack", "release", "equal", "at_one", "ties")
+
+
+def _link_rows(rng, N, L, case=None):
+    """(u, y0, at, rt) float32 with rows of ``case`` or, where None, rows
+    cycling through ROW_CASES: at > rt (the upper envelope), at < rt (the
+    lower), at == rt (one piece), at = 1, and a constant input (a tie at
+    every step once the state reaches it)."""
+    u = _energy(rng, N, L)
+    at = rng.uniform(0.05, 0.9, N).astype(np.float32)
+    rt = rng.uniform(0.01, 0.3, N).astype(np.float32)
+    y0 = np.abs(rng.randn(N)).astype(np.float32)
+    for i in range(N):
+        kind = case or ROW_CASES[i % len(ROW_CASES)]
+        if kind == "release":
+            at[i], rt[i] = rt[i], at[i]
+        elif kind == "equal":
+            rt[i] = at[i]
+        elif kind == "at_one":
+            at[i] = 1.0
+        elif kind == "ties":
+            u[i] = u[i, :1]
+            y0[i] = u[i, 0]
+    return u, y0, at, rt
+
+
+def _ulps(got, ref, u, y0):
+    scale = np.maximum(np.abs(u).max(1, initial=0.0), np.abs(y0))[:, None]
+    return float((np.abs(got - ref) / (np.finfo(np.float32).eps * scale)).max(initial=0.0))
+
+
+@pytest.mark.parametrize("N", [1, 37, 68])
+@pytest.mark.parametrize("L", [1, max(1, K - 1), 4109, 8205])
+def test_link_walk_matches_the_select_form(N, L):
+    """The plain walk in links (the kernels' arithmetic: the envelope, k
+    samples a link from the row's first, the ragged tail in single steps)
+    against the select form, row by row in every orientation, within
+    WALK_ULPS; and a row's first links equal to a shorter call's, bit for
+    bit (causality)."""
+    u, y0, at, rt = _link_rows(np.random.RandomState(N * L), N, L)
+    got = bal._walk(*_t([u, y0, at, rt])).numpy()
+    ref = bal._select_walk(*_t([u, y0, at, rt])).numpy()
+    assert _ulps(got, ref, u, y0) <= WALK_ULPS
+    head = L // K * K
+    if head:
+        part = bal._walk(*_t([u[:, :head].copy(), y0, at, rt])).numpy()
+        np.testing.assert_array_equal(got[:, :head], part)
+
+
+@pytest.mark.parametrize("case", ROW_CASES)
+def test_link_walk_matches_grafx_tpu(case):
+    """The plain walk against grafx_tpu's ballistics_core (its select form
+    in JAX) and the select form here, within WALK_ULPS, on rows of one
+    orientation case; where at == rt (one piece), the links' max is of
+    one affine map's roundings, and at = 1 the attack piece ignores the
+    state."""
+    N, L = 8, 4109
+    u, y0, at, rt = _link_rows(np.random.RandomState(len(case)), N, L, case)
+    got = bal._walk(*_t([u, y0, at, rt])).numpy()
+    ref_j = np.asarray(j_ballistics_core(*(jnp.asarray(a) for a in (u, y0, at, rt))))
+    ref = bal._select_walk(*_t([u, y0, at, rt])).numpy()
+    assert _ulps(got, ref, u, y0) <= WALK_ULPS
+    assert _ulps(got, ref_j, u, y0) <= WALK_ULPS
+    if case == "ties":  # a constant input from its own value: the walk stays within the bound of it
+        assert _ulps(got, u, u, y0) <= WALK_ULPS
+
+
+@pytest.mark.parametrize("rt", SLOW_RELEASES)
+@pytest.mark.parametrize("case", ["attack", "ties"])
+def test_link_walk_at_slow_releases(rt, case):
+    """Rows that release slowly.  Exact ties (a constant input from its
+    own value: a static gain of 1 below the threshold, a held level) equal
+    the select form and grafx_tpu's walk bit for bit; other rows lie
+    within SLOW_ULPS of the select form, and no further than it from the
+    recursion in float64 (from the same float32 coefficients) and from
+    grafx_tpu's walk: within 1.25 times its distance plus WALK_ULPS."""
+    N, L = 16, 8205
+    rng = np.random.RandomState(int(1 / rt))
+    u, y0, at, _ = _link_rows(rng, N, L, case)
+    rt_ = np.full(N, rt, np.float32)
+    args = _t([u, y0, at, rt_])
+    got = bal._walk(*args).numpy()
+    ref = bal._select_walk(*args).numpy()
+    ref_j = np.asarray(j_ballistics_core(*(jnp.asarray(a) for a in (u, y0, at, rt_))))
+    if case == "ties":
+        np.testing.assert_array_equal(got, ref)
+        np.testing.assert_array_equal(got, ref_j)
+        return
+    exact = bal._select_walk(*(a.double() for a in args)).numpy()
+    assert _ulps(got, ref, u, y0) <= SLOW_ULPS
+    for other in (exact, ref_j):
+        assert _ulps(got, other, u, y0) <= 1.25 * _ulps(ref, other, u, y0) + WALK_ULPS
+
+
+def test_flat_links_keep_a_static_gain_of_one():
+    """A gain walk over a static gain of 1 from its initial 1 (a
+    compressor below its threshold) stays exactly 1 at every speed, as the
+    select form does; and a flat link's pieces each map its value to
+    itself."""
+    N, L = 64, 4096
+    rng = np.random.RandomState(0)
+    at = np.exp(rng.uniform(np.log(1e-5), 0.0, N)).astype(np.float32)
+    rt = np.exp(rng.uniform(np.log(1e-5), 0.0, N)).astype(np.float32)
+    ones = np.ones((N, L), np.float32)
+    got = bal._walk(*_t([ones, ones[:, 0], at, rt])).numpy()
+    np.testing.assert_array_equal(got, ones)
+    v = torch.tensor(rng.uniform(0.1, 3.0, N).astype(np.float32))
+    oma, omr = _t([1.0 - at, 1.0 - rt])
+    slopes = bal._link_slopes(oma, omr, K)
+    flat = torch.addcmul(v, -slopes, v)
+    np.testing.assert_array_equal(torch.addcmul(flat, slopes, v).numpy(),
+                                  v.expand(K + 1, N).numpy())
+
+
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("signed", [False, True])
+def test_link_pieces_compose_every_path(k, signed):
+    """A link's k + 1 pieces against brute force over all 2^k attack /
+    release sequences in float64: piece i's slope is oma^i omr^(k-i) and
+    its offset the largest offset of the sequences with i attack steps;
+    and the link's max of pieces equals k envelope steps from any
+    state."""
+    rng = np.random.RandomState(k + 2 * signed)
+    n = 16
+    u = rng.randn(n, k) if signed else np.abs(rng.randn(n, k))
+    at, rt = rng.uniform(0.0, 1.0, n), rng.uniform(0.0, 1.0, n)
+    at[0], rt[1] = 1.0, 1.0
+    oma, omr = 1.0 - at, 1.0 - rt
+    slopes = np.zeros((k + 1, n))
+    offsets = np.full((k + 1, n), -np.inf)
+    for path in range(2**k):
+        attack = [(path >> j) & 1 for j in range(k)]
+        slope, offset = np.ones(n), np.zeros(n)
+        for j, a in enumerate(attack):
+            slope = slope * (oma if a else omr)
+            offset = (oma if a else omr) * offset + (at if a else rt) * u[:, j]
+        i = sum(attack)
+        slopes[i] = slope
+        offsets[i] = np.maximum(offsets[i], offset)
+    t = lambda a: torch.tensor(a, dtype=torch.float64)
+    au, ru = t(at[:, None] * u), t(rt[:, None] * u)
+    pieces = bal._link_pieces(au, ru, t(oma), t(omr)).numpy()
+    np.testing.assert_allclose(pieces, offsets, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(bal._link_slopes(t(oma), t(omr), k).numpy(), slopes, rtol=1e-12)
+    for s in (rng.randn(n), np.abs(rng.randn(n)) * 3.0):
+        st = s.copy()
+        for j in range(k):
+            st = np.maximum(oma * st + at * u[:, j], omr * st + rt * u[:, j])
+        np.testing.assert_allclose((slopes * s + offsets).max(0), st, rtol=1e-12, atol=1e-12)
+
+
+def test_walk_counters_split_linked_and_single_samples():
+    """The tracer's ``ballistics.walk.linked`` and ``.single``: a forward
+    walk's samples in links and in the ragged tail, per walk."""
+    profiling.reset()
+    u = torch.empty(3, 4 * K + 4109 % K + K - 1)
+    tail = u.shape[1] % K
+    with profiling.tracing():
+        bal._count_walks(u, 2)
+        bal._count_walks(u[:, : 4 * K], 1)
+    counters = profiling.report()["counters"]
+    assert counters["ballistics.walk.linked"] == 2 * 3 * (u.shape[1] - tail) + 3 * 4 * K
+    assert counters["ballistics.walk.single"] == 2 * 3 * tail
+    profiling.reset()
+    bal._count_walks(u, 1)  # tracing off: nothing counted
+    assert profiling.report()["counters"] == {}

@@ -202,6 +202,36 @@ def test_fused_chain_streams_or_refuses(case):
     assert max_rel(got, case["y_fused"]) <= FUSED_REL
 
 
+@pytest.mark.parametrize("chain", [["gain", "delay"], ["gain", "gain2", "delay"], ["gain", "gain2"]])
+def test_leading_gains_render_as_the_unfused_nodes(chain):
+    """A fused run's leading one-tap members scale the input, as the
+    unfused nodes do, so a run of gains, or of gains then a delay,
+    renders as its nodes, to the bit; and streams as they do, to the bit,
+    in blocks of 1024."""
+    makers = {"gain": tp.StereoGain, "gain2": tp.StereoGain,
+              "delay": lambda: tp.MultitapDelay(segment_len=300, num_segments=3)}
+    procs = {t: makers[t]() for t in chain}
+    G = build((GRAFX, NodeConfigs), procs, chain)
+    rng = np.random.default_rng(7)
+    params = parameters_from_numpy({t: random_params(procs[t].parameter_size(), 2, rng) for t in chain})
+    x = rng.standard_normal((2, 2, L)).astype(np.float32)
+    G2, procs2 = fuse_serial_lti(G, procs)
+    assert [t for t in procs2 if t.startswith("fused(")] == ["fused(" + "+".join(chain) + ")"]
+    params2 = fuse_parameters(params, G, G2, procs2)
+    y_fused = port_render(G2, procs2, params2, x)[0]
+    np.testing.assert_array_equal(y_fused, port_render(G, procs, params, x)[0])
+    streamed = []
+    for graph, ps, pa in ((G2, procs2, params2), (G, procs, params)):
+        plan = prepare_render(reorder_for_fast_render(convert_to_tensor(graph), method="beam"))
+        streamer = StreamRenderer(ps, plan, pa, block_len=1024)
+        state, out = streamer.init_state(), []
+        for xb in torch.tensor(x).split(1024, dim=-1):
+            yb, state = streamer(xb, state)
+            out.append(yb)
+        streamed.append(torch.cat(out, dim=-1).numpy())
+    np.testing.assert_array_equal(*streamed)
+
+
 def test_fuse_serial_fir_is_the_fir_slice():
     procs = {"gain": tp.StereoGain(), "lp": tp.LowPassFilter(backend="exact"),
              "hp": tp.HighPassFilter(backend="exact"), "dl": tp.MultitapDelay(300, 2)}

@@ -5,6 +5,8 @@ the live port; the render artifacts also against grafx_tpu's own
 ``jax.export`` round trip on the same numpy inputs and parameters; and
 the three ballistics custom ops pass ``torch.library.opcheck``."""
 
+import io
+
 import jax
 import numpy as np
 import pytest
@@ -227,6 +229,39 @@ def test_export_stream_step_multiblock(fused):
     for i, xb in enumerate(x_blocks):
         y_live, live_state = live(xb, live_state)
         np.testing.assert_allclose(y_many[i].numpy(), y_live.numpy(), rtol=2e-5, atol=2e-6)
+
+
+def test_export_stream_step_blocks_of_part_links():
+    """A stream of blocks that are not whole links (444 samples): its
+    walks' states carry the samples of the link each block ended in, whose
+    count changes from block to block, so the artifact holds one program
+    per state shape the stream reaches (two here), and the loaded step
+    equals the live StreamRenderer bit for bit over more blocks than that."""
+    block = 444
+    procs = {"chain": tp.Compressor(energy_smoother="ballistics", gain_smoother="ballistics"),
+             "comp": tp.Compressor(energy_smoother="ballistics")}
+    G = GRAFX(config=NodeConfigs(sorted(procs)))
+    ends = [G.add_serial_chain(["in", kind])[1] for kind in ("chain", "comp")]
+    mix = G.add("mix")
+    for e in ends:
+        G.connect(e, mix)
+    G.connect(mix, G.add("out"))
+    plan = prepare_render(reorder_for_fast_render(convert_to_tensor(G), method="beam"))
+    rng = np.random.default_rng(4)
+    params = parameters_from_numpy({t: {k: (0.3 * rng.standard_normal((1, n))).astype(np.float32)
+                                        for k, n in p.parameter_size().items()}
+                                    for t, p in procs.items()})
+    live = StreamRenderer(procs, plan, params, block_len=block)
+    x = torch.tensor(rng.standard_normal((2, 2, 5 * block)).astype(np.float32))
+    blob = export_stream_step(live, x[..., :block])
+    assert len(torch.load(io.BytesIO(blob), weights_only=True)["programs"]) == 2
+    step, state = load_stream_step(blob)
+    live_state = live.init_state()
+    for k in range(5):
+        xb = x[..., k * block:(k + 1) * block]
+        y_live, live_state = live(xb, live_state)
+        y_exp, state = step(xb, state)
+        assert torch.equal(y_exp, y_live), k
 
 
 def _op_args(op, rng):

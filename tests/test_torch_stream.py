@@ -150,13 +150,96 @@ def test_ballistics_plain_matches_pallas(reference, N, n):
 
 @pytest.mark.parametrize("n, split", [(4096, 2048), (301, 150)])
 def test_ballistics_state_carry_is_exact(n, split):
-    """Walking [0, s) and then [s, L) from zi = y[:, s-1] equals one walk
-    over [0, L) bit for bit."""
+    """Walking [0, s) and then [s, L), carrying the walk's stream state
+    (the state entering the link [0, s) ended in and that link's samples
+    so far), equals one walk over [0, L) bit for bit."""
     u, zi, at, rt = (torch.tensor(a) for a in _walk_inputs(5, n, 3))
     whole = bal.ballistics_core(u, zi, at, rt)
-    first = bal.ballistics_core(u[:, :split], zi, at, rt)
-    second = bal.ballistics_core(u[:, split:], first[:, -1], at, rt)
+    first, state = bal.ballistics_stream(u[:, :split], bal.walk_state(zi), at, rt)
+    second, _ = bal.ballistics_stream(u[:, split:], state, at, rt)
     np.testing.assert_array_equal(torch.cat([first, second], 1).numpy(), whole.numpy())
+
+
+def _chain_case(n):
+    """A gate -> compressor dynamics chain, both gain-smoothed, on ``n``
+    rows: ``(consts, zi, spec)`` of random parameters."""
+    from grafx_tpu_torch.processors.dynamics import dynamics_chain, dynamics_chain_spec, request_states
+
+    members = [tp.NoiseGate(energy_smoother="ballistics", gain_smoother="ballistics"),
+               tp.Compressor(energy_smoother="iir_exact", gain_smoother="ballistics",
+                             gain_smooth_in_log=True)]
+    spec = dynamics_chain_spec(members)
+    gen = torch.Generator().manual_seed(n)
+    runs = []
+    for proc in members:
+        params = {k: 0.5 * torch.randn(n, size, generator=gen) for k, size in proc.parameter_size().items()}
+        runs.append((proc, params))
+    consts, inits = dynamics_chain(spec, runs)
+    return consts, request_states(consts, inits), spec
+
+
+@pytest.mark.parametrize("block", [1, 7, 9, 441, 1000])
+def test_streams_of_any_block_equal_one_call(block):
+    """Kernel #7's walk and the dynamics chain (#11) streamed in blocks of
+    any length, whole links or not, from the walks' stream states:
+    equal to one call over the stream bit for bit; blocks of whole links
+    leave the carried tail empty."""
+    n = 3 * block + 5
+    u, zi, at, rt = (torch.tensor(a) for a in _walk_inputs(4, n, block))
+    consts, czi, spec = _chain_case(4)
+    whole = bal.ballistics_core(u, zi, at, rt)
+    chain_whole = bal.ballistics_chain_core(u, consts, czi, spec)[0]
+    state, chain_state, ys, gains = bal.walk_state(zi), bal.walk_state(czi), [], []
+    for lo in range(0, n, block):
+        y, state = bal.ballistics_stream(u[:, lo:lo + block], state, at, rt)
+        g, chain_state = bal.ballistics_chain_stream(u[:, lo:lo + block], consts, chain_state, spec)
+        ys.append(y)
+        gains.append(g)
+        assert state[1].shape[1] == chain_state[1].shape[1] == min(lo + block, n) % bal.WALK_LINK
+    np.testing.assert_array_equal(torch.cat(ys, 1).numpy(), whole.numpy())
+    np.testing.assert_array_equal(torch.cat(gains, 1).numpy(), chain_whole.numpy())
+
+
+@pytest.mark.parametrize("block", [441, 1024])
+def test_streamed_dynamics_equal_the_one_shot_render(block):
+    """A console of gain-smoothed compressors (the dynamics chain) and
+    ballistics compressors (the smoother walk, #7, and the knee) streamed
+    by StreamRenderer in blocks of 441 samples (10 ms at 44.1 kHz, not
+    whole links) or 1024: the chain's stage equal to the one-shot render's
+    bit for bit, the console within the one-shot's bound."""
+    procs = {"chain": tp.Compressor(energy_smoother="ballistics", gain_smoother="ballistics"),
+             "comp": tp.Compressor(energy_smoother="ballistics")}
+    G = GRAFX(config=NodeConfigs(sorted(procs)))
+    ends = [G.add_serial_chain(["in", kind])[1] for kind in ("chain", "chain", "comp")]
+    mix = G.add("mix")
+    for e in ends:
+        G.connect(e, mix)
+    G.connect(mix, G.add("out"))
+    plan = prepare_render(reorder_for_fast_render(convert_to_tensor(G), method="beam"))
+    params = create_empty_parameters(procs, G, std=0.3, generator=torch.Generator().manual_seed(block))
+    x = torch.tensor(np.random.default_rng(5).standard_normal((3, 2, 4 * block)).astype(np.float32))
+    streamer = StreamRenderer(procs, plan, params, block_len=block)
+    state, outs = streamer.init_state(), []
+    for xb in blocks(x, block):
+        y, state = streamer(xb, state)
+        outs.append(y)
+    got = torch.cat(outs, -1).numpy()
+    with torch.inference_mode():
+        ref = make_render_fn(procs, plan)(x, params)[0].numpy()
+    assert peak_rel(got, ref) < 5e-4
+    chain_only = {"chain": procs["chain"]}
+    Gc = GRAFX(config=NodeConfigs(["chain"]))
+    Gc.connect(Gc.add_serial_chain(["in", "chain"])[1], Gc.add("out"))
+    plan_c = prepare_render(reorder_for_fast_render(convert_to_tensor(Gc), method="beam"))
+    params_c = {"chain": {k: v[:1] for k, v in params["chain"].items()}}
+    streamer = StreamRenderer(chain_only, plan_c, params_c, block_len=block)
+    state, outs = streamer.init_state(), []
+    for xb in blocks(x[:1], block):
+        y, state = streamer(xb, state)
+        outs.append(y)
+    with torch.inference_mode():
+        ref = make_render_fn(chain_only, plan_c)(x[:1], params_c)[0]
+    np.testing.assert_array_equal(torch.cat(outs, -1).numpy(), ref.numpy())
 
 
 def test_ballistics_core_streams_without_grad_and_differentiates():
@@ -512,6 +595,8 @@ def test_step_many_equals_single_steps(mini):
 def _leaves(tree):
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
+    if isinstance(tree, tuple):  # a walk's stream state: (last, tail)
+        return [leaf for t in tree for leaf in _leaves(t)]
     return [] if tree is None else [tree]
 
 
