@@ -5,7 +5,8 @@ Everything that belongs to a configuration, a traffic mix, a per-layer
 metric or a layer's kernels is found by name under this folder:
 ``configs/<config>.json``, ``traffic/<traffic>.json``,
 ``metrics/<metric up to its first dot>.py``, ``kernels/*.json``,
-``limits/<cell>.json`` and ``reference/<processor class>.py``.
+``limits/<cell>.json`` and ``reference/<processor class>.py`` (or the
+module a processor entry names under ``"reference"``).
 """
 
 import gc
@@ -58,7 +59,7 @@ class Cell:
 
     def sizes(self):
         """``{type: {name: size}}`` of the parameters the reference draws."""
-        return {t: graph.module(s["class"]).parameter_size(s["args"])
+        return {t: graph.module(s).parameter_size(s["args"])
                 for t, s in self.config["processors"].items()}
 
     def counts(self):

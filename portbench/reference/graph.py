@@ -2,7 +2,7 @@
 
 A node's input is the sum of its predecessors' outputs; ``in`` nodes are
 the stems, ``mix`` and ``out`` nodes pass the sum on, and a processor node
-runs its type's module of this package (``reference/<Class>.py``).  Nodes
+runs its type's module of this package (:func:`module`).  Nodes
 of one type that are ready together run as one batch of rows (each with
 its own parameters), which changes nothing in the result.
 
@@ -20,9 +20,11 @@ import torch
 UTILITY = ("in", "out", "mix")
 
 
-def module(class_name):
-    """The reference module of a processor class."""
-    return importlib.import_module(f"portbench.reference.{class_name}")
+def module(spec):
+    """The reference module of a configuration's processor entry:
+    ``reference/<Module>.py`` for its ``"reference"`` key, else for its
+    ``"class"``."""
+    return importlib.import_module(f"portbench.reference.{spec.get('reference', spec['class'])}")
 
 
 def schedule(nodes, edges):
@@ -87,8 +89,7 @@ def render(config, stems, params, rows, ctx, outs=None):
             v = ctx.rnd(value.index_select(1, idx).transpose(0, 1))  # (k, R, *size)
             v = v[:, :, None].expand((k, R, B) + v.shape[2:])
             p[name] = v.reshape((k * R * B,) + v.shape[3:])
-        y = module(spec["class"]).render(x.reshape((k * R * B,) + x.shape[3:]), p,
-                                         spec["args"], ctx)
+        y = module(spec).render(x.reshape((k * R * B,) + x.shape[3:]), p, spec["args"], ctx)
         y = ctx.rnd(y).reshape((k, R, B) + y.shape[1:])
         for i, n in enumerate(batch):
             outs[n] = y[i]
@@ -110,7 +111,7 @@ def count(config, batch, length, train):
         if kind == "in":
             continue
         spec = config["processors"][kind]
-        mod = module(spec["class"])
+        mod = module(spec)
         flops += mod.flops(batch, channels, length, spec["args"])
         if hasattr(mod, "walk_bytes"):
             walk += mod.walk_bytes(batch, length, train)

@@ -73,7 +73,7 @@ def test_cell_files_found_by_name(cell):
     for m in c.per_layer:
         assert os.path.exists(os.path.join(harness.HERE, "metrics", m["name"].split(".")[0] + ".py"))
     for spec in c.config["processors"].values():
-        assert graph.module(spec["class"]).parameter_size(spec["args"])
+        assert graph.module(spec).parameter_size(spec["args"])
     checks = {"train": [{"loss_gap", "grad_gap", "change_gap"}],
               "serve": [{"out_err"}, {"out_err_hf"}]}[c.mode]
     assert set(c.limits) in checks
@@ -81,9 +81,21 @@ def test_cell_files_found_by_name(cell):
         assert 0 < v["limit"] < math.inf
 
 
+# the gain-smoothed console's compressor and gate over bench_processors("exact")
+GAIN_SMOOTHED = {
+    "compressor": {"class": "Compressor", "reference": "GainSmoothedCompressor",
+                   "args": {"energy_smoother": "ballistics", "gain_smoother": "ballistics"}},
+    "noisegate": {"class": "NoiseGate", "reference": "GainSmoothedNoiseGate",
+                  "args": {"energy_smoother": "iir_exact", "gain_smoother": "ballistics",
+                           "gain_smooth_in_log": True}},
+}
+
+
 @pytest.mark.parametrize("config", [c["name"] for c in BENCH["configs"]])
 def test_config_is_the_bench_console(config):
-    """The configuration's graph is ``bench_graph(17)``'s, node for node."""
+    """The configuration's graph is ``bench_graph(17)``'s, node for node;
+    ``console17_gs``'s processors are ``console17_exact``'s with the
+    gain-smoothed compressor and gate."""
     from grafx_tpu_torch.models.console import bench_graph, bench_processors
 
     spec = next(c for c in BENCH["configs"] if c["name"] == config)
@@ -96,4 +108,19 @@ def test_config_is_the_bench_console(config):
     procs = bench_processors(backend)
     for t, p in cfg["processors"].items():
         assert type(procs[t]).__name__ == p["class"]
+    if config == "console17_gs":
+        with open(os.path.join(harness.HERE, "configs", "console17_exact.json")) as f:
+            exact = json.load(f)["processors"]
+        assert cfg["processors"] == {**exact, **GAIN_SMOOTHED}
+    else:
+        assert not any("reference" in p for p in cfg["processors"].values())
     assert cfg["reduced"] == spec["reduced"] == []
+
+
+def test_module_is_the_class_unless_named():
+    """A processor entry's reference module is ``reference/<class>.py``,
+    or the module its ``"reference"`` key names."""
+    assert graph.module({"class": "Compressor", "args": {}}).__name__ == \
+        "portbench.reference.Compressor"
+    assert graph.module(GAIN_SMOOTHED["compressor"]).__name__ == \
+        "portbench.reference.GainSmoothedCompressor"
