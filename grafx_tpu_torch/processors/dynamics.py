@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from grafx_tpu_torch import profiling
 from grafx_tpu_torch.ops.ballistics import (
     ballistics_chain_core,
     ballistics_chain_stream,
@@ -415,17 +416,21 @@ class _FrameSmoother(nn.Module):
     def forward(self, energy, z_alpha):
         batch, length = energy.shape
         frame = self.frame_len
-        e = F.pad(energy, (0, -length % frame))
-        s = self.ballistics(e.reshape(batch, -1, frame).mean(-1), z_alpha=z_alpha)
-        s_prev = torch.cat([s[:, :1], s[:, :-1]], dim=1)
-        s_next = torch.cat([s[:, 1:], s[:, -1:]], dim=1)
-        w = (torch.arange(frame, dtype=s.dtype, device=s.device) + 0.5) / frame
-        first = w < 0.5
-        frac = torch.where(first, w + 0.5, w - 0.5)
-        a = torch.where(first, s_prev[..., None], s[..., None])
-        b = torch.where(first, s[..., None], s_next[..., None])
-        up = a * (1.0 - frac) + b * frac  # (batch, frames, frame)
-        return up.reshape(batch, -1)[:, :length]
+        # the tracer's device interval of the pool, the walk and the lerp,
+        # and the frames walked (rows x frames)
+        with profiling.span("grafx.dynamics.frame", energy.device):
+            e = F.pad(energy, (0, -length % frame))
+            s = self.ballistics(e.reshape(batch, -1, frame).mean(-1), z_alpha=z_alpha)
+            profiling.count("ballistics.frame.frames", s.numel())
+            s_prev = torch.cat([s[:, :1], s[:, :-1]], dim=1)
+            s_next = torch.cat([s[:, 1:], s[:, -1:]], dim=1)
+            w = (torch.arange(frame, dtype=s.dtype, device=s.device) + 0.5) / frame
+            first = w < 0.5
+            frac = torch.where(first, w + 0.5, w - 0.5)
+            a = torch.where(first, s_prev[..., None], s[..., None])
+            b = torch.where(first, s[..., None], s_next[..., None])
+            up = a * (1.0 - frac) + b * frac  # (batch, frames, frame)
+            return up.reshape(batch, -1)[:, :length]
 
 
 class FactorizedCompressor(Compressor):

@@ -329,6 +329,7 @@ class FusedDynamicsChain(_FusedChain):
             consts, inits = self._chain_kernel_args(nested_params)
             gain = ballistics_chain_core(energy, consts, request_states(consts, inits), self.chain_spec)[0]
             return gain[:, None, :] * input_signals
+        profiling.count("grafx.dynamics.composed")
         gain = self._gain_product(
             energy, nested_params.get("_absent"),
             lambda name, proc, e: proc.gain_from_energy(e, **nested_params[name]),

@@ -19,9 +19,10 @@ from grafx_tpu_torch.data import GRAFX, NodeConfigs, convert_to_tensor
 from grafx_tpu_torch.models import bench_console, bench_trainer
 from grafx_tpu_torch.models.console import bench_graph, bench_processors
 from grafx_tpu_torch.ops import ballistics
-from grafx_tpu_torch.processors import StereoGain, TanhDistortion
+from grafx_tpu_torch.processors import FactorizedCompressor, StereoGain, TanhDistortion
 from grafx_tpu_torch.render import (
     CapturedFunction,
+    FusedDynamicsChain,
     fuse_parameters,
     fuse_serial_lti,
     make_render_fn,
@@ -289,6 +290,57 @@ def test_counts_in_a_capture_are_the_graphs(traced_capture):
     assert profiling.report()["counters"] == {"ballistics.walk": 5}
 
 
+def factorized_processors(frame_len):
+    return {**bench_processors(), "compressor": FactorizedCompressor(frame_len=frame_len)}
+
+
+def frame_counts(c, batch, length, frame_len):
+    """``(frames, composed runs)`` a call of the factorized console ``c``
+    should count: every compressor node's rows walk ``ceil(length /
+    frame_len)`` frames (a track's in its fused gate -> compressor run, a
+    bus's alone), and each stage of a fused dynamics chain composes."""
+    nodes = sum(c.graph.nodes[n]["node_type"] == "compressor" for n in c.graph.nodes)
+    composed = sum(isinstance(c.fused_processors.get(s.node_type), FusedDynamicsChain)
+                   for s in c.plan.iter_list[1:])
+    return nodes * batch * -(-length // frame_len), composed
+
+
+@pytest.mark.parametrize("path", ["render", "step"])
+def test_frame_smoothers_and_composed_runs_are_counted(path):
+    """A traced call of the factorized console counts the frames its
+    frame smoothers walk (rows x frames) and the dynamics runs that
+    compose their members' gains, and spans each frame smoother; with
+    tracing off neither counter appears."""
+    batch, length, frame_len = 2, 1000, 256  # a ragged last frame
+    c = bench_console(3, device="cpu", processors=factorized_processors(frame_len))
+    frames, composed = frame_counts(c, batch, length, frame_len)
+    assert composed == 1 and frames == 5 * batch * 4
+    x = torch.randn(batch, 3, 2, length, generator=torch.Generator().manual_seed(5))
+    if path == "render":
+        render = make_render_fn(c.fused_processors, c.plan)
+
+        def call():
+            with torch.inference_mode():
+                render(x, c.params)
+    else:
+        trainer = bench_trainer(3, device="cpu", processors=factorized_processors(frame_len))
+        y = torch.randn(batch, 1, 2, length, generator=torch.Generator().manual_seed(6))
+
+        def call():
+            trainer.step(x, y)
+
+    call()
+    assert profiling.report()["counters"] == {}
+    with profiling.tracing():
+        call()
+        call()
+    r = profiling.report()
+    assert r["counters"]["ballistics.frame.frames"] == 2 * frames
+    assert r["counters"]["grafx.dynamics.composed"] == 2 * composed
+    # the track rows' frame smoother and the buses'
+    assert len(named(r["spans"], "grafx.dynamics.frame")) == 2 * 2
+
+
 # -- on the card ---------------------------------------------------------
 
 
@@ -364,6 +416,30 @@ def test_a_traced_step_times_its_backward(card):
     assert k["path"] == "replay" and k["backward_ms"] > 0 and k["stage_ms"] > 0
     assert k["backward_ms"] + k["stage_ms"] + k["precompute_ms"] <= k["device_ms"]
     assert r["counters"].get("ballistics.ballistics_gain_pair_bwd", 0) == 4
+
+
+@pytest.mark.card
+def test_a_traced_factorized_step_times_its_frame_smoothers(card):
+    """On the card a replayed factorized step records the frame
+    smoothers' device intervals and both counters (the capture's counts
+    again at each replay)."""
+    batch, length, frame_len = 1, 2**14, 1024
+    trainer = bench_trainer(3, device=card, processors=factorized_processors(frame_len))
+    c = bench_console(3, device="cpu", processors=factorized_processors(frame_len))
+    frames, composed = frame_counts(c, batch, length, frame_len)
+    x = torch.randn(batch, 3, 2, length, device=card)
+    y = torch.randn(batch, 1, 2, length, device=card)
+    with profiling.tracing():
+        for _ in range(4):
+            trainer.step(x, y)
+            torch.cuda.synchronize()
+    r = profiling.report()
+    k = r["calls"][-1]
+    assert k["path"] == "replay"
+    mine = [i for i in r["device"] if i["call"] == k["call"] and i["name"] == "grafx.dynamics.frame"]
+    assert len(mine) == 2 and all(i["end"] > i["start"] for i in mine)
+    assert r["counters"]["ballistics.frame.frames"] == 4 * frames
+    assert r["counters"]["grafx.dynamics.composed"] == 4 * composed
 
 
 def replay_kernels(fn):
