@@ -30,7 +30,7 @@ before the result line):
 1. device: the card's name, power limit and maximum SM clock, TF32
    switched off;
 2. build: the CUDA kernels compiled from ``grafx_tpu_torch/csrc``;
-3. kernels: each of the ten kernels against its plain PyTorch version
+3. kernels: each kernel against its plain PyTorch version
    on the card, at small shapes and at the shapes the console gives it,
    with their times beside their bounds (the plain ballistics walk #7
    also split in two, carrying its state, against one walk; #2, #5 and
@@ -57,7 +57,14 @@ before the result line):
    with their cycles a sample (``walk_sweep``; scripts/walk_link_sweep.py
    times builds with other link lengths); and #3 on twice as many rows as
    the card has SMs, whose blocks share SMs, equals its call on the first
-   half of the rows bit for bit and is timed beside that half;
+   half of the rows bit for bit and is timed beside that half.  The frame
+   gain (#12, ``csrc/frame_gain.cu``): its primal, forward and adjoint
+   against their plain versions at ``FRAME_CHECKS`` (frames of 256 and
+   1024, ragged rows, 68 x 2^17); at the factorized console's frame calls
+   (68 and 8 rows x 2^17) the processor's gain and every gradient against
+   the composite it replaces (its frame smoother, log, knee, exp), and
+   each part timed beside the composite's same part (``composite_ms``),
+   its plain version and its bound;
 4. exactness: the exact IIR cascade against scipy float64;
 5. serve: three requests of (4, 17, 2, 2^17) through the fused console,
    with every kernel's launch count (#1 and #2 once a request, nothing
@@ -78,8 +85,11 @@ before the result line):
    against single steps;
 10. factorized: the console with ``FactorizedCompressor(frame_len=1024)``
     as its compressor at (4, 17, 2, 2^17): one served request (launches:
-    #2 once, #7 twice, nothing else) and three gradient steps as in phase
-    6 (launches per step: #5 and #6 once, #8 and #9 twice, nothing else);
+    #2 once, the frame gain's primal twice, nothing else) and three
+    gradient steps as in phase 6 (launches per step: #5 and #6 once, the
+    frame gain's forward and adjoint twice, nothing else); then one
+    gradient of a factorized compressor off the frame gain op (an
+    exponential knee) at 8 x 2^17, which composes (#8 and #9 once each);
 11. factorized grad card vs CPU: that step's loss and every parameter
     gradient at batch 1, L = 2^14, on the card and on the CPU;
 12. compiled request: ``make_render_fn(jit=True)`` (a CUDA-graph replay)
@@ -491,6 +501,7 @@ from grafx_tpu_torch.utils import create_empty_parameters, tree_items, tree_leav
 
 GAIN_SRC = "grafx_tpu_torch/csrc/ballistics_gain.cu"
 GRAD_SRC = "grafx_tpu_torch/csrc/ballistics_grad.cu"
+FRAME_SRC = "grafx_tpu_torch/csrc/frame_gain.cu"
 # name -> (source, the TPU kernel it replaces), in the order of PERF.md's table
 KERNELS = {
     "ballistics_gain_pair_core": (GAIN_SRC, "grafx_tpu/ops/ballistics_tpu.py:826"),
@@ -508,12 +519,20 @@ KERNELS = {
     "ballistics_chain_core": (GAIN_SRC, "grafx_tpu/render/fuse.py:423"),
     "ballistics_chain_fwd": (GAIN_SRC, "grafx_tpu/render/fuse.py:423"),
     "ballistics_chain_bwd": (GRAD_SRC, "grafx_tpu/render/fuse.py:423"),
+    # the port's own op: no pallas_call; grafx_tpu's FactorizedCompressor
+    # composes its frame smoother and the knee
+    "frame_gain_core": (FRAME_SRC, "grafx_tpu/processors/dynamics.py:_FrameSmoother"),
+    "frame_gain_fwd": (FRAME_SRC, "grafx_tpu/processors/dynamics.py:_FrameSmoother"),
+    "frame_gain_bwd": (FRAME_SRC, "grafx_tpu/processors/dynamics.py:_FrameSmoother"),
 }
 NO_PATH = {"reverse_scan": "no caller in grafx_tpu/ or in the port"}
 CHAIN_KERNELS = ("ballistics_chain_core", "ballistics_chain_fwd", "ballistics_chain_bwd")
 OWN_KERNEL = ("the port's own kernel, no pallas_call: grafx_tpu runs the composed path"
               " (grafx_tpu/render/fuse.py:423, grafx_tpu/processors/dynamics.py:95), each walk"
               " its own ballistics_core call")
+FRAME_KERNELS = ("frame_gain_core", "frame_gain_fwd", "frame_gain_bwd")
+FRAME_OWN = ("the port's own op, no pallas_call: grafx_tpu's FactorizedCompressor pools, walks the"
+             " frames (ballistics_core), lerps and takes the knee, each its own pass")
 # the natural-layout experiment computes #7's function: the same kernel replaces it
 LAYOUT_ROW = ("ballistics_core", GAIN_SRC, "benchmarks/ballistics_layout_ab.py:36")
 SERVE_KERNELS = ("ballistics_gain_pair_core", "ballistics_gain_core")
@@ -526,9 +545,10 @@ TRAIN_STEP = {name: 1 for name in TRAIN_KERNELS}
 STREAM_BLOCK = {"ballistics_core": 2}
 FUSED_DELAY_STEP = ("ballistics_gain_core", "ballistics_gain_fwd", "ballistics_gain_bwd")
 # launches per run of the factorized console's paths, and nothing else
-FACTORIZED_REQUEST = {"ballistics_gain_core": 1, "ballistics_core": 2}
+FACTORIZED_REQUEST = {"ballistics_gain_core": 1, "frame_gain_core": 2}
 FACTORIZED_STEP = {"ballistics_gain_fwd": 1, "ballistics_gain_bwd": 1,
-                   "ballistics_fwd": 2, "ballistics_bwd": 2}
+                   "frame_gain_fwd": 2, "frame_gain_bwd": 2}
+FACTORIZED_COMPOSITE = {"ballistics_fwd": 1, "ballistics_bwd": 1}  # off the op: a gradient
 # chunk lengths forced on the reverse walk: one tile, 256, the whole row, and
 # None, the wrapper's own pick
 FORCED_CHUNKS = (32, 256, "whole", None)
@@ -582,6 +602,15 @@ KERNEL_WORK = {
     "ballistics_chain_core": (2, 24, 52),
     "ballistics_chain_fwd": (6, 24, 56),
     "ballistics_chain_bwd": (7, 40, 104),
+    # the frame gain at frames of FRAME_LEN: the energy in and the gain
+    # out, per row the constants and the frame walk's s (and d); the
+    # adjoint reads the gain's cotangent, s and d and writes the energy's
+    # and five sums.  A sample: the pool 1, the lerp 3, a knee gain 12; the
+    # adjoint the lerp 3, the gain 12, a knee adjoint 20, the lerp's split
+    # 4 (the walks are at frame rate)
+    "frame_gain_core": (2, 5 + AUDIO_LEN // FRAME_LEN, 16),
+    "frame_gain_fwd": (2, 5 + 2 * AUDIO_LEN // FRAME_LEN, 16),
+    "frame_gain_bwd": (2, 10 + 2 * AUDIO_LEN // FRAME_LEN, 39),
 }
 # the chain's work with 2 walks, 1 member (the bus compressors)
 CHAIN_WORK_ONE = {"ballistics_chain_core": (2, 12, 24), "ballistics_chain_fwd": (4, 12, 26),
@@ -1297,6 +1326,144 @@ def time_smoother(case, stats, plain, main):
             bound_ms=f"{bound_ms:.3g}", bound_by=bound_by, **more)
 
 
+# the frame gain's checks against its plain versions: (rows, samples,
+# frame): one row in frames of 256 (its last frame short), ragged rows
+# (no multiple of 4: the scalar path), and rows of whole and short frames
+FRAME_CHECKS = ((1, 1000, 256), (37, 3 * 1024 + 5, 256), (68, BLOCK_LEN + 13, FRAME_LEN),
+                (8, 2**15, FRAME_LEN), (68, AUDIO_LEN, FRAME_LEN))
+
+
+def frame_case(gen, n, length):
+    """The frame gain's operands on the card, ``(u, params, consts, gg)``:
+    energy with -40 dB passages, a FactorizedCompressor's parameters
+    (thresholds from well below to well above each row's level), the
+    op's constants as the processor forms them, and a gain cotangent."""
+    def uniform(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(*shape, generator=gen, device="cuda")
+
+    u = energy(gen, n, length) * torch.where(uniform(0.0, 1.0, n, length) < 0.3, 1e-4, 1.0)
+    params = {"z_alpha_pre": uniform(-4.0, 2.0, n, 2),
+              "log_threshold": 6.0 + torch.log(u.mean(-1, keepdim=True)) + uniform(-3.0, 3.0, n, 1),
+              "log_ratio": uniform(-1.0, 1.0, n, 1), "log_knee": uniform(0.5, 1.5, n, 1)}
+    ts = torch.sigmoid(params["z_alpha_pre"])
+    th, cf, hk = FactorizedCompressor(frame_len=FRAME_LEN).knee_constants(
+        params["log_threshold"], params["log_ratio"], params["log_knee"])
+    consts = (ts[:, 0].contiguous(), ts[:, 1].contiguous(), th, cf, hk)
+    return u, params, consts, torch.randn(n, length, generator=gen, device="cuda")
+
+
+def check_frame_case(label, case, frame_len, stats):
+    """Hold the frame gain's primal, forward (gain, s, d) and adjoint (du,
+    then dat, drt, dth, dcf, dhk) against their plain versions on one case,
+    the adjoints on the kernel's residuals (the same decisions): the
+    forward within MAX_ABS, du within DU_REL of max|ref|, the sums within
+    GRAD_REL; the primal is the forward's gain bit for bit."""
+    u, _, consts, gg = case
+    gain, s, d = bal.frame_gain_fwd(u, *consts, frame_len)
+    primal = bal.frame_gain_core(u, *consts, frame_len)
+    got = bal.frame_gain_bwd(s, d, gg, *consts, frame_len)
+    ref_fwd = bal.frame_gain_fwd_plain(u, *consts, frame_len)
+    ref = bal.frame_gain_bwd_plain(s, d, gg, *consts, frame_len)
+    torch.cuda.synchronize()
+    check(torch.equal(primal, gain), f"frame_gain_core {label}: differs from the forward's gain")
+    ferr = max(max_err(a, b) for a, b in zip((gain, s, d), ref_fwd))
+    check(ferr < MAX_ABS, f"frame_gain_fwd {label}: gain/s/d max abs err {ferr} >= {MAX_ABS}")
+    du_err, du_scale = max_err(got[0], ref[0]), ref[0].abs().max().item()
+    check(du_err <= DU_REL * du_scale, f"frame_gain_bwd {label}: du err {du_err} > {DU_REL} x {du_scale}")
+    err, rel = du_err, 0.0
+    for name, v, r in zip(("dat", "drt", "dth", "dcf", "dhk"), got[1:], ref[1:]):
+        e, scale = max_err(v, r), r.abs().max().item()
+        check(e <= GRAD_REL * scale, f"frame_gain_bwd {label} {name}: err {e} > {GRAD_REL} x {scale}")
+        err, rel = max(err, e), max(rel, e / scale if scale > 0 else 0.0)
+    for name, e in zip(FRAME_KERNELS, (max_err(primal, ref_fwd[0]), ferr, err)):
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], e)
+    say("kernels", case=f"frame_gain {label}", fwd_err=f"{ferr:.3g}", du_err=f"{du_err:.3g}",
+        du_scale=f"{du_scale:.3g}", grad_rel_err=f"{rel:.3g}")
+
+
+def composite_calls(u, params, gg):
+    """The composite the frame gain replaces, on the card: the
+    FactorizedCompressor's frame smoother (pool, #7 or #8/#9 over the
+    frames, lerp), log, the quadratic knee and exp, as thunks: the primal
+    (no grad), the forward under gradient and the backward of one such
+    forward; and ``(gain, grads)`` of one forward and backward with
+    respect to ``u`` and every parameter."""
+    smoother = FactorizedCompressor(frame_len=FRAME_LEN).energy_smoother_module
+    leaves = {k: v.clone().requires_grad_() for k, v in {"u": u, **params}.items()}
+
+    def gain():
+        env = smoother(leaves["u"], z_alpha=leaves["z_alpha_pre"])
+        log_gain = Compressor.gain_quad_knee(torch.log(env + 1e-5), leaves["log_threshold"] - 6.0,
+                                             leaves["log_ratio"], leaves["log_knee"])
+        return torch.exp(log_gain)
+
+    def primal():
+        with torch.no_grad():
+            return gain()
+
+    out = gain()
+    grads = torch.autograd.grad(out, list(leaves.values()), gg, retain_graph=True)
+    return {"primal": primal, "forward": gain,
+            "backward": lambda: torch.autograd.grad(out, list(leaves.values()), gg, retain_graph=True),
+            "result": (out.detach(), grads)}
+
+
+def time_frame_gain(gen, stats):
+    """The frame gain at the factorized console's frame calls (68 gate ->
+    compressor rows and 8 bus rows x 2^17, frames of FRAME_LEN): the
+    processor's gain and every gradient against the composite's on the
+    card; each wrapper over 20 calls after a warm-up (CUDA events, and
+    its busy device time under the profiler) beside the composite's same
+    part (primal, forward under gradient, backward), its plain version's
+    one call and the bytes' bound."""
+    proc = FactorizedCompressor(frame_len=FRAME_LEN)
+    for n, main in ((BATCH * CHAINS, True), (BATCH * 2, False)):
+        u, params, consts, gg = frame_case(gen, n, AUDIO_LEN)
+        composite = composite_calls(u, params, gg)
+        leaves = {k: v.clone().requires_grad_() for k, v in {"u": u, **params}.items()}
+        got = proc.gain_from_energy(leaves["u"], **{k: leaves[k] for k in params})
+        grads = torch.autograd.grad(got, list(leaves.values()), gg)
+        ref, ref_grads = composite["result"]
+        gain_err = max_err(got.detach(), ref)
+        check(gain_err < MAX_ABS, f"frame gain against the composite at {n} rows: gain err {gain_err}")
+        rels = {}
+        for name, g, r in zip(leaves, grads, ref_grads):
+            rels[name] = max_err(g, r) / max(r.abs().max().item(), 1e-30)
+            check(rels[name] <= GRAD_REL, f"frame gain against the composite at {n} rows: {name}"
+                  f" gradient rel err {rels[name]:.3g} > {GRAD_REL}")
+        say("kernels", frame_gain_vs_composite=(n, AUDIO_LEN), gain_err=f"{gain_err:.3g}",
+            **{f"{k}_rel_err": f"{v:.3g}" for k, v in rels.items()})
+        with torch.no_grad():
+            _, s, d = bal.frame_gain_fwd(u, *consts, FRAME_LEN)
+        calls = {
+            "frame_gain_core": (lambda: bal.frame_gain_core(u, *consts, FRAME_LEN),
+                                lambda: bal.frame_gain_plain(u, *consts, FRAME_LEN), "primal"),
+            "frame_gain_fwd": (lambda: bal.frame_gain_fwd(u, *consts, FRAME_LEN),
+                               lambda: bal.frame_gain_fwd_plain(u, *consts, FRAME_LEN), "forward"),
+            "frame_gain_bwd": (lambda: bal.frame_gain_bwd(s, d, gg, *consts, FRAME_LEN),
+                               lambda: bal.frame_gain_bwd_plain(s, d, gg, *consts, FRAME_LEN),
+                               "backward"),
+        }
+        shape = (n, AUDIO_LEN)
+        for name, (kern, plain, part) in calls.items():
+            comp = composite[part]
+            kern()  # warm-up
+            comp()
+            ms, comp_ms = device_ms(kern, reps=20)[0], device_ms(comp, reps=20)[0]
+            busy, comp_busy = device_busy_ms(kern, reps=5), device_busy_ms(comp, reps=5)
+            plain_ms = device_ms(plain, reps=1)[0]
+            bound_ms, bound_by = bound(name, *shape)
+            fields = dict(ms=ms, device_busy_ms=busy, plain_ms=plain_ms, composite_ms=comp_ms,
+                          composite_busy_ms=comp_busy)
+            if main:
+                stats[name].update(shape=shape, **fields)
+            else:
+                stats[name]["more"].append({"shape": list(shape), "bound_ms": bound_ms, **fields})
+            say("kernels", kernel=name, shape=shape, kernel_ms=f"{ms:.4f}", device_busy_ms=f"{busy:.4f}",
+                composite_ms=f"{comp_ms:.4f}", composite_busy_ms=f"{comp_busy:.4f}",
+                plain_ms=f"{plain_ms:.2f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
+
+
 def db(err, ref):
     return 20.0 * torch.log10(torch.linalg.norm(err) / torch.linalg.norm(ref)).item()
 
@@ -1664,6 +1831,19 @@ def factorized_phase(args, smi, stats):
     say("factorized", run="train", **fields, launches=launches, card=repr(smi))
     if args.profile:
         profile_run(lambda: trainer.step(x, target), args.profile, "step_factorized", smi)
+    del trainer, x, target
+
+    # a configuration off the frame gain op keeps the composite: the frame
+    # walk with residuals and its adjoint (#8/#9) once each a gradient
+    proc = FactorizedCompressor(frame_len=FRAME_LEN, knee="exponential")
+    u, params, _, gg = frame_case(torch.Generator(device="cuda").manual_seed(8), BATCH * 2, AUDIO_LEN)
+    leaves = [u.requires_grad_(), *(v.requires_grad_() for v in params.values())]
+    bal.reset_launch_counts()
+    torch.autograd.grad(proc.gain_from_energy(u, **params), leaves, gg)
+    torch.cuda.synchronize()
+    launches = read_launches("factorized_composite", 1, stats, FACTORIZED_COMPOSITE,
+                             FACTORIZED_COMPOSITE)
+    say("factorized", run="composite", knee="exponential", launches=launches, card=repr(smi))
 
 
 def rel_err(got, ref):
@@ -4451,9 +4631,12 @@ def kernel_row(name, source, replaces, stats):
            "launches": s.get("launches", 0), "max_abs_err": s["max_abs_err"], "ms": s["ms"],
            "plain_ms": s["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
            "library_ms": None, "shape": list(s["shape"]), "launches_per_run": s["per_run"]}
-    for key in ("device_busy_ms", "host_ms", "chunk", "chunks", "samples", "plain_shape"):
+    for key in ("device_busy_ms", "host_ms", "chunk", "chunks", "samples", "plain_shape",
+                "composite_ms", "composite_busy_ms"):
         if key in s:
             row[key] = s[key]
+    if name in FRAME_KERNELS:
+        row["counterpart"] = FRAME_OWN
     if name in CHAIN_KERNELS:
         row["counterpart"] = OWN_KERNEL
         if name != "ballistics_chain_bwd":
@@ -4553,7 +4736,14 @@ def main():
         check_smoother_bwd_at(f"N={BATCH * CHAINS} L={AUDIO_LEN}", big, stats)
         time_smoother(big, stats, plain=False, main=False)
         del big
+        # the frame gain at small, ragged and full shapes
+        for n, length, frame_len in FRAME_CHECKS:
+            check_frame_case(f"N={n} L={length} frame={frame_len}", frame_case(gen, n, length),
+                             frame_len, stats)
     del case  # the last console case, so that it counts in no later phase's peak memory
+    # timed at the factorized console's frame calls beside the composite it
+    # replaces (whose forward and backward need autograd)
+    time_frame_gain(gen, stats)
 
     # 4. exactness of the exact IIR cascade on the card
     exact_db = exactness_check_db(device="cuda")

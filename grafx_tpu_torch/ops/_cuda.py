@@ -66,6 +66,12 @@ _SOURCES = {
         # blocks (out), device
         "grafx_walk_blocks_per_sm": [ctypes.POINTER(_i), _i],
     },
+    "frame_gain.cu": {
+        # e, gain, m, s, d (null: the primal), consts, n, len, frame, device, stream
+        "grafx_frame_gain_fwd": [_p] * 6 + [_i, _ll, _i, _i, _p],
+        # s, d, gg, consts, de, part, dm, grads, n, len, frame, device, stream
+        "grafx_frame_gain_bwd": [_p] * 8 + [_i, _ll, _i, _i, _p],
+    },
 }
 
 

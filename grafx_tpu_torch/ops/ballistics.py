@@ -4,9 +4,10 @@ The port of :func:`grafx_tpu.ops.ballistics.ballistics_core`,
 :func:`~grafx_tpu.ops.ballistics.ballistics_gain_core` and
 :func:`~grafx_tpu.ops.ballistics.ballistics_gain_pair_core` with their
 ``custom_vjp``s, and of the reverse scan ``reverse_scan_pallas``: ten
-kernels; and the dynamics chain, the port's own kernel for a
-gain-smoothed dynamics run (below).  Each has two implementations of one
-contract:
+kernels; the dynamics chain, the port's own kernel for a gain-smoothed
+dynamics run; and the frame gain, the port's own op for a
+``FactorizedCompressor`` (both below).  Each has two implementations of
+one contract:
 
 * a plain PyTorch version (``*_plain``): loops over time, vectorized
   over rows.  The wrapper uses it for CPU tensors; it is also the
@@ -38,6 +39,9 @@ wrapper                                replaces (grafx_tpu/ops/ballistics_tpu.py
 :func:`ballistics_chain_core`          none: grafx_tpu composes the walks (no grad)
 :func:`ballistics_chain_fwd`           none (the chain with residuals)
 :func:`ballistics_chain_bwd`           none (its adjoint)
+:func:`frame_gain_core`                none: grafx_tpu composes ``_FrameSmoother`` and the knee (no grad)
+:func:`frame_gain_fwd`                 none (the frame gain with residuals)
+:func:`frame_gain_bwd`                 none (its adjoint)
 =====================================  ==================================
 
 The cores dispatch as the JAX ones do: with grad enabled and any
@@ -106,10 +110,20 @@ walks them all in one kernel, each walk a stage behind the one before
 them back in time chunks with the knee adjoints between
 (``csrc/ballistics_grad.cu``, ``grafx_chain_bwd``).
 
-The primal kernels #1, #2 and #7 and the chain's, which a served render
-and a stream block launch, are ``torch.library`` custom ops
+The frame gain (:func:`frame_gain_core`) is a ``FactorizedCompressor``'s
+whole gain from its energy: the mean over frames of ``frame_len``
+samples, the ballistics walk over the frame means from 1, the lerp back
+to the sample rate and the quadratic knee.  ``grafx_tpu`` runs each of
+those as its own pass over the samples (and again under the gradient);
+the port runs them as three launches forward and three for the adjoint,
+which read and write each ``(N, L)`` array once and keep only the frame
+walk's ``(N, F)`` residuals (``csrc/frame_gain.cu`` has the design).
+
+The primal kernels #1, #2 and #7 and the chain's and the frame gain's,
+which a served render and a stream block launch, are ``torch.library``
+custom ops
 (``torch.ops.grafx_tpu_torch.ballistics_gain_pair``, ``.ballistics_gain``,
-``.ballistics`` and ``.ballistics_chain``): the CPU implementation is the
+``.ballistics``, ``.ballistics_chain`` and ``.frame_gain``): the CPU implementation is the
 plain version, the CUDA one the kernel's launch, and a fake
 implementation gives the output's shape.  ``torch.export`` so records one op where it would
 otherwise unroll the plain version's loop over time, and could not see a
@@ -724,6 +738,84 @@ def ballistics_chain_bwd_plain(u, d, last, gg, consts, spec):
         dx, dconsts[i, 0], dconsts[i, 1], dzi[r] = _reverse_walk(de, d[r], at, rt)
     du = dx if du is None else du + dx
     return du, dconsts.reshape(consts.shape), dzi
+
+
+# The frame gain: a FactorizedCompressor's pool, frame walk, lerp and knee.
+
+
+def frame_means(u, frame_len):
+    """``(N, F)`` means of ``(N, L)`` rows over frames of ``frame_len``
+    samples, the last one zero-padded and divided by ``frame_len`` all the
+    same."""
+    n, length = u.shape
+    return F.pad(u, (0, -length % frame_len)).reshape(n, -1, frame_len).mean(-1)
+
+
+def _frame_weights(frame_len, like):
+    """``(first, frac)`` of each offset of a frame: whether it lies before
+    the frame's centre, and the lerp's weight of its second operand."""
+    w = (torch.arange(frame_len, dtype=like.dtype, device=like.device) + 0.5) / frame_len
+    first = w < 0.5
+    return first, torch.where(first, w + 0.5, w - 0.5)
+
+
+def frame_lerp(s, frame_len, length):
+    """``(N, F)`` frame values back to ``(N, length)`` samples: sample ``j``
+    of a frame lies between two frame centres, so it is a lerp between the
+    previous / current / next frame values with a fixed weight pattern per
+    offset, flat at the edges, and no gather."""
+    first, frac = _frame_weights(frame_len, s)
+    s_prev = torch.cat([s[:, :1], s[:, :-1]], dim=1)
+    s_next = torch.cat([s[:, 1:], s[:, -1:]], dim=1)
+    a = torch.where(first, s_prev[..., None], s[..., None])
+    b = torch.where(first, s[..., None], s_next[..., None])
+    up = a * (1.0 - frac) + b * frac  # (N, F, frame_len)
+    return up.reshape(s.shape[0], -1)[:, :length]
+
+
+def _frame_lerp_adjoint(g, frame_len, frames):
+    """The cotangent ``(N, F)`` of :func:`frame_lerp`'s frame values from
+    that of its ``(N, L)`` output: each frame's sums of what reaches the
+    previous, its own and the next frame value, the clamped ends adding a
+    frame's own."""
+    n, length = g.shape
+    first, frac = _frame_weights(frame_len, g)
+    gp = F.pad(g, (0, frames * frame_len - length)).reshape(n, frames, frame_len)
+    ga, gb = gp * (1.0 - frac), gp * frac  # the cotangents of a and b
+    to_prev = torch.where(first, ga, 0.0).sum(-1)
+    gs = torch.where(first, gb, ga).sum(-1)
+    to_next = torch.where(first, 0.0, gb).sum(-1)
+    gs[:, :-1] += to_prev[:, 1:]
+    gs[:, 1:] += to_next[:, :-1]
+    gs[:, 0] += to_prev[:, 0]
+    gs[:, -1] += to_next[:, -1]
+    return gs
+
+
+def frame_gain_plain(u, at, rt, th, cf, hk, frame_len):
+    """Plain version of :func:`frame_gain_core` (any device)."""
+    return frame_gain_fwd_plain(u, at, rt, th, cf, hk, frame_len)[0]
+
+
+def frame_gain_fwd_plain(u, at, rt, th, cf, hk, frame_len):
+    """Plain version of :func:`frame_gain_fwd` (any device)."""
+    m = frame_means(u, frame_len)
+    zi = torch.ones_like(at)
+    s = _walk(m, zi, at, rt)
+    gain = _knee_gain(frame_lerp(s, frame_len, u.shape[1]), th, cf, hk, "compressor")
+    return gain, s, _residual(m, s, zi)
+
+
+def frame_gain_bwd_plain(s, d, gg, at, rt, th, cf, hk, frame_len):
+    """Plain version of :func:`frame_gain_bwd` (any device)."""
+    n, length = gg.shape
+    v = frame_lerp(s, frame_len, length)
+    x, f, fp = _knee_terms(v, th, hk, "compressor")
+    base = gg * torch.exp(cf[:, None] * f)
+    g, dth, dcf, dhk = _knee_adjoint(base, v, x, f, fp, cf, hk, "compressor")
+    dm, dat, drt, _ = _reverse_walk(_frame_lerp_adjoint(g, frame_len, s.shape[1]), d, at, rt)
+    de = (dm / frame_len)[..., None].expand(-1, -1, frame_len).reshape(n, -1)[:, :length]
+    return de, dat, drt, dth, dcf, dhk
 
 
 # ---------------------------------------------------------------------------
@@ -1371,6 +1463,129 @@ def ballistics_chain_bwd(u, d, last, gg, consts, spec, chunk=None):
     return du, grads[: c.shape[0]], grads[c.shape[0]:]
 
 
+def frame_gain_core(u, at, rt, th, cf, hk, frame_len):
+    """A ``FactorizedCompressor``'s gain from its energy in one op: the
+    port's own kernels, for ``grafx_tpu``'s ``_FrameSmoother`` and knee
+    (pool, frame walk, lerp and knee, each its own pass there).
+
+    ``u`` is mean-pooled into frames of ``frame_len`` samples (the last
+    zero-padded and divided by ``frame_len`` all the same), the frame means
+    walked by the ballistics recursion from 1, the walk lerped back to the
+    sample rate between frame centres (flat at the edges), and the gain is
+    the compressor's quadratic knee on it, ``exp(cf f(log(v + 1e-5) -
+    th))``.
+
+    Differentiable in every tensor argument.  Without grad it launches the
+    primal; with grad it runs :func:`frame_gain_fwd` and, backward,
+    :func:`frame_gain_bwd`, which save only the frame walk's ``(N, F)``
+    residuals.
+
+    Args:
+        u: ``(N, L)`` energy envelopes.
+        at, rt: ``(N,)`` attack and release factors.
+        th, cf, hk: ``(N,)`` knee constants as for
+            :func:`ballistics_gain_core`.
+        frame_len: samples a frame, a positive int.
+
+    Returns:
+        ``(N, L)`` gains.
+    """
+    args = (u, at, rt, th, cf, hk)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        return _FrameGain.apply(*args, frame_len)
+    _device(u, "frame_gain_core")
+    return torch.ops.grafx_tpu_torch.frame_gain(u, args[1:], _frame_len(frame_len))
+
+
+@torch.library.custom_op("grafx_tpu_torch::frame_gain", mutates_args=())
+def _frame_op(u: torch.Tensor, consts: Sequence[torch.Tensor], frame_len: int) -> torch.Tensor:
+    """The frame gain's primal as a custom op; ``consts`` = (at, rt, th, cf, hk)."""
+    return frame_gain_plain(u, *consts, frame_len)
+
+
+@_frame_op.register_kernel("cuda")
+def _frame_op_cuda(u, consts, frame_len):
+    gain = _frame_fwd_cuda("frame_gain_core", u, consts, frame_len, res=False)
+    frame_gain_core.launches += 1
+    return gain
+
+
+@_frame_op.register_fake
+def _frame_op_fake(u, consts, frame_len):
+    return torch.empty_like(u)
+
+
+def _frame_len(frame_len):
+    if isinstance(frame_len, bool) or not isinstance(frame_len, int) or frame_len <= 0:
+        raise ValueError(f"frame_len must be a positive int, got {frame_len!r}")
+    return frame_len
+
+
+def _frame_fwd_cuda(name, u, consts, frame_len, res):
+    """The frame gain's primal (``res`` False: the gain) or its forward with
+    the residuals (``(gain, s, d)``) on the card."""
+    (u,) = _rows(name, u)
+    c = _consts(name, u, *consts)
+    n, length = u.shape
+    frames = -(-length // _frame_len(frame_len))
+    gain = torch.empty_like(u)
+    m, s = u.new_empty(2, n, frames).unbind(0)
+    d = u.new_empty(n, frames) if res else None
+    _count_walks(s, 1)
+    _run(name, "grafx_frame_gain_fwd", u, u.data_ptr(), gain.data_ptr(), m.data_ptr(),
+         s.data_ptr(), _ptr(d), c.data_ptr(), n, length, frame_len)
+    return (gain, s, d) if res else gain
+
+
+def frame_gain_fwd(u, at, rt, th, cf, hk, frame_len):
+    """The frame gain plus the adjoint's residuals.
+
+    Returns:
+        ``(gain, s, d)``: ``(N, L)`` gains, the ``(N, F)`` walked frame
+        envelope ``s`` and ``d = m - s[i-1]`` (``m`` the frame means,
+        ``s[-1] = 1``), which holds the attack/release decisions.
+    """
+    name = "frame_gain_fwd"
+    if _device(u, name) == "cpu":
+        return frame_gain_fwd_plain(u, at, rt, th, cf, hk, _frame_len(frame_len))
+    out = _frame_fwd_cuda(name, u, (at, rt, th, cf, hk), frame_len, res=True)
+    frame_gain_fwd.launches += 1
+    return out
+
+
+def frame_gain_bwd(s, d, gg, at, rt, th, cf, hk, frame_len):
+    """Adjoint of :func:`frame_gain_fwd` for the gain cotangent ``gg``:
+    the knee's adjoint, the lerp's reduced into frame cotangents, the frame
+    walk's reverse walk (the decisions held) and the pool's, broadcast back
+    to the samples.
+
+    Returns:
+        ``(du, dat, drt, dth, dcf, dhk)``: ``du`` ``(N, L)``, the rest
+        ``(N,)``.
+    """
+    name = "frame_gain_bwd"
+    frame_len = _frame_len(frame_len)
+    if _device(gg, name) == "cpu":
+        return frame_gain_bwd_plain(s, d, gg, at, rt, th, cf, hk, frame_len)
+    (gg,) = _rows(name, gg)
+    n, length = gg.shape
+    frames = -(-length // frame_len)
+    if s.shape != (n, frames):
+        raise ValueError(f"{name}: s must be ({n}, {frames}) for {length} samples in frames of"
+                         f" {frame_len}, got {tuple(s.shape)}")
+    s, d = _rows(name, s, d)
+    consts = _consts(name, gg, at, rt, th, cf, hk)
+    du = torch.empty_like(gg)
+    part = gg.new_empty(6, n, frames)
+    dm = gg.new_empty(n, frames)
+    grads = gg.new_empty(5, n)
+    _run(name, "grafx_frame_gain_bwd", gg, s.data_ptr(), d.data_ptr(), gg.data_ptr(),
+         consts.data_ptr(), du.data_ptr(), part.data_ptr(), dm.data_ptr(), grads.data_ptr(), n,
+         length, frame_len)
+    frame_gain_bwd.launches += 1
+    return (du, *grads.unbind(0))
+
+
 KERNEL_WRAPPERS = (
     ballistics_gain_pair_core,
     ballistics_gain_core,
@@ -1385,6 +1600,9 @@ KERNEL_WRAPPERS = (
     ballistics_chain_core,
     ballistics_chain_fwd,
     ballistics_chain_bwd,
+    frame_gain_core,
+    frame_gain_fwd,
+    frame_gain_bwd,
 )
 for _w in KERNEL_WRAPPERS:
     _w.launches = 0
@@ -1468,6 +1686,24 @@ class _Chain(torch.autograd.Function):
         u, d, last, consts = ctx.saved_tensors
         du, dconsts, dzi = ballistics_chain_bwd(u, d, last, gg, consts, ctx.spec)
         return du, dconsts, dzi, None
+
+
+class _FrameGain(torch.autograd.Function):
+    """:func:`frame_gain_core` under gradient: the forward saves the frame
+    walk's ``(N, F)`` residuals and the constants, nothing ``(N, L)``."""
+
+    @staticmethod
+    def forward(ctx, u, at, rt, th, cf, hk, frame_len):
+        gain, s, d = frame_gain_fwd(u, at, rt, th, cf, hk, frame_len)
+        ctx.save_for_backward(s, d, at, rt, th, cf, hk)
+        ctx.frame_len = frame_len
+        return gain
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gg):
+        s, d, *consts = ctx.saved_tensors
+        return (*frame_gain_bwd(s, d, gg, *consts, ctx.frame_len), None)
 
 
 class _Ballistics(torch.autograd.Function):

@@ -9,10 +9,13 @@ kernel on the card, its plain version on the CPU.  A one-pole smoother
 is the ``at == rt == 1 - alpha`` case of that recursion with initial
 state 0, and its trailing relu is a no-op on nonnegative energy.  Other
 configurations compose the smoother (:mod:`~grafx_tpu_torch.processors.
-core.envelope`) with the knee math, forward and under gradient; so does
-:class:`FactorizedCompressor`, whose frame smoother runs the plain
-ballistics walk (:func:`~grafx_tpu_torch.ops.ballistics.ballistics_core`)
-over frame means.
+core.envelope`) with the knee math, forward and under gradient.  A
+:class:`FactorizedCompressor` with a quadratic knee and no gain smoother
+runs its pool, frame walk, lerp and knee as one op
+(:func:`~grafx_tpu_torch.ops.ballistics.frame_gain_core`); other ones
+compose its frame smoother, which walks the frame means with the plain
+ballistics walk (:func:`~grafx_tpu_torch.ops.ballistics.ballistics_core`),
+with the knee.
 
 A compressor or gate that smooths its gain with ballistics (and has a
 quadratic knee and a ballistics or exact one-pole energy smoother) runs
@@ -37,6 +40,9 @@ from grafx_tpu_torch.ops.ballistics import (
     ballistics_chain_core,
     ballistics_chain_stream,
     ballistics_gain_core,
+    frame_gain_core,
+    frame_lerp,
+    frame_means,
 )
 from grafx_tpu_torch.processors.core.envelope import Ballistics, TruncatedOnePoleIIRFilter
 
@@ -400,13 +406,12 @@ class NoiseGate(Compressor):
 
 
 class _FrameSmoother(nn.Module):
-    """The envelope smoother of :class:`FactorizedCompressor`: the energy
-    is mean-pooled into frames of ``frame_len`` (the last one zero-padded
-    on the right), smoothed by :class:`Ballistics` from ``zi = 1``, and
-    interpolated back to the sample rate.  Sample ``j`` of a frame sits
-    between two frame centres, so the upsampling is a lerp between the
-    previous / current / next frame values with a fixed weight pattern
-    per offset, flat at the edges, and no gather."""
+    """The envelope smoother of a :class:`FactorizedCompressor` off the
+    frame gain op: the energy is mean-pooled into frames of ``frame_len``
+    (the last one zero-padded on the right), smoothed by :class:`Ballistics`
+    from ``zi = 1``, and interpolated back to the sample rate by a lerp
+    between frame centres (:func:`~grafx_tpu_torch.ops.ballistics.
+    frame_gain_core` computes the same, with the knee)."""
 
     def __init__(self, frame_len):
         super().__init__()
@@ -414,23 +419,12 @@ class _FrameSmoother(nn.Module):
         self.ballistics = Ballistics()
 
     def forward(self, energy, z_alpha):
-        batch, length = energy.shape
-        frame = self.frame_len
         # the tracer's device interval of the pool, the walk and the lerp,
         # and the frames walked (rows x frames)
         with profiling.span("grafx.dynamics.frame", energy.device):
-            e = F.pad(energy, (0, -length % frame))
-            s = self.ballistics(e.reshape(batch, -1, frame).mean(-1), z_alpha=z_alpha)
+            s = self.ballistics(frame_means(energy, self.frame_len), z_alpha=z_alpha)
             profiling.count("ballistics.frame.frames", s.numel())
-            s_prev = torch.cat([s[:, :1], s[:, :-1]], dim=1)
-            s_next = torch.cat([s[:, 1:], s[:, -1:]], dim=1)
-            w = (torch.arange(frame, dtype=s.dtype, device=s.device) + 0.5) / frame
-            first = w < 0.5
-            frac = torch.where(first, w + 0.5, w - 0.5)
-            a = torch.where(first, s_prev[..., None], s[..., None])
-            b = torch.where(first, s[..., None], s_next[..., None])
-            up = a * (1.0 - frac) + b * frac  # (batch, frames, frame)
-            return up.reshape(batch, -1)[:, :length]
+            return frame_lerp(s, self.frame_len, energy.shape[-1])
 
 
 class FactorizedCompressor(Compressor):
@@ -445,6 +439,12 @@ class FactorizedCompressor(Compressor):
     per-sample walk, so the gain never takes the fused smoother + knee op
     (``fused_recursion`` is ``None``); it has no compact stream state.
     Its parameters are the ballistics :class:`Compressor`'s.
+
+    With a quadratic knee and no gain smoother (:attr:`frame_fused`,
+    decided from the configuration) the gain is one op,
+    :func:`~grafx_tpu_torch.ops.ballistics.frame_gain_core`: pool, frame
+    walk, lerp and knee in one forward and one adjoint.  Other
+    configurations compose the frame smoother with the knee.
     """
 
     def __init__(self, frame_len=1024, gain_smoother=None, gain_smooth_in_log=False,
@@ -459,6 +459,31 @@ class FactorizedCompressor(Compressor):
         self.frame_len = frame_len
         self.energy_smoother_module = _FrameSmoother(frame_len)
         self.chain_spec = dynamics_chain_spec([self])  # None: not a per-sample walk
+        #: the gain runs as the frame gain op
+        self.frame_fused = knee == "quadratic" and gain_smoother is None
+
+    def gain_from_energy(
+        self,
+        energy,
+        log_threshold,
+        log_ratio,
+        log_knee=None,
+        z_alpha_pre=None,
+        z_alpha_post=None,
+    ):
+        if not self.frame_fused:
+            return super().gain_from_energy(energy, log_threshold, log_ratio, log_knee=log_knee,
+                                            z_alpha_pre=z_alpha_pre, z_alpha_post=z_alpha_post)
+        # the tracer's device interval of the pool, the walk, the lerp and
+        # the knee, and the frames walked (rows x frames), all by the op
+        with profiling.span("grafx.dynamics.frame", energy.device):
+            ts = torch.sigmoid(z_alpha_pre)
+            th, cf, hk = self.knee_constants(log_threshold, log_ratio, log_knee)
+            gain = frame_gain_core(energy, ts[..., 0], ts[..., 1], th, cf, hk, self.frame_len)
+            frames = energy.shape[0] * -(-energy.shape[-1] // self.frame_len)
+            profiling.count("ballistics.frame.frames", frames)
+            profiling.count("ballistics.frame.fused", frames)
+            return gain
 
     def stream_init(self, num_channels, block_len, **params):
         raise NotImplementedError(

@@ -77,14 +77,18 @@ Where the port records what (the names a report holds):
                                update (span and device interval)
 ``grafx.dynamics.frame``       a ``FactorizedCompressor``'s frame
                                smoother: the pooling, the frame walk and
-                               the lerp back to the sample rate (span and
-                               device interval; a step's forward)
+                               the lerp back to the sample rate, and where
+                               the frame gain op runs them, the knee too
+                               (span and device interval; a step's
+                               forward)
 counters                       ``grafx.call.eager``, ``.captures``,
                                ``.replays``, ``.bytes_in``;
                                ``ballistics.<wrapper>``: kernel launches,
                                a replay's counted from its capture;
                                ``ballistics.frame.frames``: frames the
                                frame smoothers walk (rows x frames);
+                               ``ballistics.frame.fused``: those the
+                               frame gain op walks;
                                ``grafx.dynamics.composed``: runs of a
                                fused dynamics chain that compose their
                                members' gains (neither the pair walk nor

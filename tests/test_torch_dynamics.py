@@ -125,7 +125,8 @@ def test_composed_compressors_match(kwargs):
 def test_factorized_compressor_never_takes_the_fused_gain(monkeypatch):
     """Its smoother is not a per-sample walk: no fused recursion, and
     neither the forward nor the gradient reaches ballistics_gain_core;
-    the frames go through ballistics_core (forward and adjoint)."""
+    the frames go through the frame gain op (its primal, forward and
+    adjoint: the plain versions on the CPU)."""
 
     def refuse(*args, **kwargs):
         raise AssertionError("FactorizedCompressor reached ballistics_gain_core")
@@ -135,17 +136,17 @@ def test_factorized_compressor_never_takes_the_fused_gain(monkeypatch):
     assert comp.fused_recursion(torch.zeros(N, 2)) is None
     assert comp.parameter_size() == tp.Compressor(energy_smoother="ballistics").parameter_size()
     calls = count_calls(
-        monkeypatch, bal, ("ballistics_plain", "ballistics_fwd_plain", "ballistics_bwd_plain")
+        monkeypatch, bal, ("frame_gain_plain", "frame_gain_fwd_plain", "frame_gain_bwd_plain")
     )
     rng = np.random.default_rng(1)
     x = torch.tensor(noise(rng, (N, 2, L), 0.01))
     p = to_torch(random_params(comp.parameter_size(), N, rng))
     with torch.no_grad():
         comp(x, **p)
-    assert calls == {"ballistics_plain": 1}
+    assert calls == {"frame_gain_plain": 1, "frame_gain_fwd_plain": 1}
     p["z_alpha_pre"].requires_grad_()
     comp(x, **p).sum().backward()
-    assert calls == {"ballistics_plain": 1, "ballistics_fwd_plain": 1, "ballistics_bwd_plain": 1}
+    assert calls == {"frame_gain_plain": 1, "frame_gain_fwd_plain": 2, "frame_gain_bwd_plain": 1}
     assert bool((p["z_alpha_pre"].grad != 0).all())
     with pytest.raises(NotImplementedError, match="no compact per-sample state"):
         comp.stream_init(2, 1024, **p)

@@ -3,8 +3,9 @@ FactorizedCompressor(frame_len) as its compressor, its gradient step
 (MSE on the console fused with "pad-auto", parameters drawn on the
 unfused graph and migrated) by grafx_tpu_torch against
 jax.value_and_grad of grafx_tpu's fused render, at 6 chains, batch 2,
-L = 2^12 and frame_len = 256; and the plain versions each step and each
-request calls."""
+L = 2^12 and frame_len = 256; the plain versions each step and each
+request calls; and the frame gain op (ops/ballistics.py:frame_gain_core)
+against the composite it replaces."""
 
 import jax
 import numpy as np
@@ -12,9 +13,11 @@ import pytest
 import torch
 
 from grafx_tpu import processors as jp
+from grafx_tpu_torch import profiling
 from grafx_tpu_torch import processors as tp
 from grafx_tpu_torch.models.console import bench_processors
 from grafx_tpu_torch.ops import ballistics as bal
+from grafx_tpu_torch.processors import dynamics as tdyn
 from grafx_tpu_torch.render import make_render_fn
 from grafx_tpu_torch.utils import tree_items
 from test_torch_graph import jax_processors
@@ -108,16 +111,89 @@ def test_factorized_absent_gates_get_no_gradient(slice_run):
 def test_factorized_step_and_request_run_their_plain_versions(slice_run):
     """On the CPU each wrapper runs its plain version and launches
     nothing.  A step: the gate member's fused gain forward and adjoint
-    (#5/#6) once, the frame walk with residuals and its adjoint (#8/#9)
-    twice (the chains' and the bus compressors'), nothing else.  A
-    request: the gate's primal gain (#2) once and the primal frame walk
-    (#7) twice (the plain primal gain is the plain forward with
-    residuals, cut to the gain)."""
+    (#5/#6) once, the frame gain's forward and adjoint twice (the chains'
+    and the bus compressors'), nothing else.  A request: the gate's
+    primal gain (#2) once and the frame gain's primal twice (a plain
+    primal is the plain forward with residuals, cut to the gain)."""
     assert slice_run["launches"] == {name: 0 for name in slice_run["launches"]}
     assert slice_run["calls"] == {
         "ballistics_gain_fwd_plain": 1, "ballistics_gain_bwd_plain": 1,
-        "ballistics_fwd_plain": 2, "ballistics_bwd_plain": 2,
+        "frame_gain_fwd_plain": 2, "frame_gain_bwd_plain": 2,
     }
     assert slice_run["request_calls"] == {
-        "ballistics_gain_plain": 1, "ballistics_gain_fwd_plain": 1, "ballistics_plain": 2,
+        "ballistics_gain_plain": 1, "ballistics_gain_fwd_plain": 1,
+        "frame_gain_plain": 2, "frame_gain_fwd_plain": 2,
     }
+
+
+FRAME_PLAIN = ("frame_gain_plain", "frame_gain_fwd_plain", "frame_gain_bwd_plain")
+FRAME_CASES = [
+    *(pytest.param("quadratic", None, length, frame_len, id=f"L{length}-frame{frame_len}")
+      for length in (1, 1000, 1024, 3 * 1024 + 5, 2**15) for frame_len in (1024, 256)),
+    # configurations off the op: they keep the composite
+    pytest.param("exponential", None, 3000, 256, id="exponential_knee"),
+    pytest.param("quadratic", "ballistics", 3000, 256, id="gain_smoother"),
+]
+
+
+def composite_gain(proc, energy, p):
+    """The gain as the composite computes it: for the op's configurations
+    its frame smoother, log, the quadratic knee and exp, written out;
+    for the others Compressor.gain_from_energy, which composes them."""
+    if not proc.frame_fused:
+        return tp.Compressor.gain_from_energy(proc, energy, **p)
+    env = tdyn._FrameSmoother(proc.frame_len)(energy, z_alpha=p["z_alpha_pre"])
+    log_gain = tp.Compressor.gain_quad_knee(torch.log(env + 1e-5), p["log_threshold"] - 6.0,
+                                            p["log_ratio"], p["log_knee"])
+    return torch.exp(log_gain)
+
+
+@pytest.mark.parametrize("knee, gain_smoother, length, frame_len", FRAME_CASES)
+def test_frame_gain_core_against_the_composite(monkeypatch, knee, gain_smoother, length, frame_len):
+    """A FactorizedCompressor with a quadratic knee and no gain smoother
+    takes frame_gain_core (on the CPU its plain forward and adjoint): its
+    gain and the gradients of the energy, z_alpha_pre, log_threshold,
+    log_ratio and log_knee equal the composite's it replaces, in float64
+    to 1e-10 of the largest, and a traced call counts its frames under
+    ballistics.frame.fused as under ballistics.frame.frames.  Another knee
+    or a gain smoother keeps the composite bit for bit, and counts no
+    fused frame."""
+    rng = np.random.default_rng(length + frame_len)
+    n = 4
+    proc = tp.FactorizedCompressor(frame_len=frame_len, knee=knee, gain_smoother=gain_smoother)
+    assert proc.frame_fused == (knee == "quadratic" and gain_smoother is None)
+    # energy with -40 dB passages; a row's threshold (less 6 dB) well below
+    # its mean energy, two near it (inside the knee) and one well above;
+    # slow and fast attacks and releases (at < rt on some rows)
+    loud = np.where(rng.random((n, length)) < 0.3, 1e-4, 1.0)
+    e = rng.standard_normal((n, length)) ** 2 * loud
+    ranges = {"log_ratio": (-1.0, 1.0), "log_knee": (0.5, 1.5)}
+    p = {k: torch.tensor(rng.uniform(*ranges.get(k, (-4.0, 2.0)), (n, size)))
+         for k, size in proc.parameter_size().items()}
+    p["log_threshold"] = torch.tensor(6.0 + np.log(e.mean(-1, keepdims=True))
+                                      + np.array([[-3.0], [-0.2], [0.3], [3.0]]))
+    energy = torch.tensor(e)
+    leaves = [energy.requires_grad_(), *(v.requires_grad_() for v in p.values())]
+    gg = torch.tensor(rng.standard_normal((n, length)))
+    calls = count_calls(monkeypatch, bal, FRAME_PLAIN)
+    profiling.reset()
+    with profiling.tracing():
+        got = proc.gain_from_energy(energy, **p)
+    counters = profiling.report()["counters"]
+    profiling.reset()
+    grads = torch.autograd.grad(got, leaves, gg)
+    ref = composite_gain(proc, energy, p)
+    refs = torch.autograd.grad(ref, leaves, gg)
+    frames = n * -(-length // frame_len)
+    assert counters["ballistics.frame.frames"] == frames
+    if not proc.frame_fused:
+        assert torch.equal(got, ref) and all(torch.equal(a, b) for a, b in zip(grads, refs))
+        assert counters.get("ballistics.frame.fused", 0) == 0 and calls == {}
+        return
+    assert counters["ballistics.frame.fused"] == frames
+    assert calls == {"frame_gain_fwd_plain": 1, "frame_gain_bwd_plain": 1}
+    assert (got - ref).abs().max() <= 1e-10 * ref.abs().max()
+    for name, g, r in zip(["energy", *p], grads, refs):
+        assert (g - r).abs().max() <= 1e-10 * r.abs().max(), name
+        if length >= 1000:  # every leaf reaches the gain
+            assert bool((r != 0).any()), name

@@ -3,7 +3,8 @@ mirroring tests/test_serving.py: renders of a plain and a fused plan and
 the stream step round-trip through saved artifacts and replay equal to
 the live port; the render artifacts also against grafx_tpu's own
 ``jax.export`` round trip on the same numpy inputs and parameters; and
-the three ballistics custom ops pass ``torch.library.opcheck``."""
+the three ballistics custom ops and the frame gain's pass
+``torch.library.opcheck``."""
 
 import io
 
@@ -275,19 +276,23 @@ def _op_args(op, rng):
         return (u, consts(10), "noisegate", "compressor", 0.0, 1.0)
     if op == "ballistics_gain":
         return (u, consts(6), "compressor")
+    if op == "frame_gain":
+        return (u, consts(5), 64)
     return (u, consts(3))
 
 
-@pytest.mark.parametrize("op", ["ballistics_gain_pair", "ballistics_gain", "ballistics"])
+@pytest.mark.parametrize("op", ["ballistics_gain_pair", "ballistics_gain", "ballistics", "frame_gain"])
 def test_custom_ops_pass_opcheck(op):
-    """Kernels #1, #2 and #7 as custom ops: schema, fake implementation
-    and dispatch pass ``torch.library.opcheck``, and the op is the plain
-    version on the CPU."""
+    """Kernels #1, #2 and #7 and the frame gain's primal as custom ops:
+    schema, fake implementation and dispatch pass
+    ``torch.library.opcheck``, and the op is the plain version on the
+    CPU."""
     args = _op_args(op, np.random.default_rng(3))
     overload = getattr(torch.ops.grafx_tpu_torch, op).default
     torch.library.opcheck(overload, args)
     plain = {"ballistics_gain_pair": lambda u, c, ka, kb, ia, ib: bal.ballistics_gain_pair_plain(
                  u, *c, kinds=(ka, kb), inits=(ia, ib)),
              "ballistics_gain": lambda u, c, kind: bal.ballistics_gain_plain(u, *c, kind),
-             "ballistics": lambda u, c: bal.ballistics_plain(u, *c)}[op]
+             "ballistics": lambda u, c: bal.ballistics_plain(u, *c),
+             "frame_gain": lambda u, c, frame_len: bal.frame_gain_plain(u, *c, frame_len)}[op]
     assert torch.equal(overload(*args), plain(*args))

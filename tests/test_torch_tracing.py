@@ -253,7 +253,7 @@ def test_marks_pair_into_intervals_and_calls_summarise():
 
 def test_launch_counts_are_what_they_were():
     names = {w.__name__ for w in ballistics.KERNEL_WRAPPERS}
-    assert len(names) == 13 and set(ballistics.launch_counts()) == names
+    assert len(names) == 16 and set(ballistics.launch_counts()) == names
     ballistics.reset_launch_counts()
     assert set(ballistics.launch_counts().values()) == {0}
     u = torch.rand(2, 64)
@@ -308,9 +308,9 @@ def frame_counts(c, batch, length, frame_len):
 @pytest.mark.parametrize("path", ["render", "step"])
 def test_frame_smoothers_and_composed_runs_are_counted(path):
     """A traced call of the factorized console counts the frames its
-    frame smoothers walk (rows x frames) and the dynamics runs that
-    compose their members' gains, and spans each frame smoother; with
-    tracing off neither counter appears."""
+    frame smoothers walk (rows x frames), all of them by the frame gain
+    op, and the dynamics runs that compose their members' gains, and
+    spans each frame smoother; with tracing off no counter appears."""
     batch, length, frame_len = 2, 1000, 256  # a ragged last frame
     c = bench_console(3, device="cpu", processors=factorized_processors(frame_len))
     frames, composed = frame_counts(c, batch, length, frame_len)
@@ -336,6 +336,7 @@ def test_frame_smoothers_and_composed_runs_are_counted(path):
         call()
     r = profiling.report()
     assert r["counters"]["ballistics.frame.frames"] == 2 * frames
+    assert r["counters"]["ballistics.frame.fused"] == 2 * frames
     assert r["counters"]["grafx.dynamics.composed"] == 2 * composed
     # the track rows' frame smoother and the buses'
     assert len(named(r["spans"], "grafx.dynamics.frame")) == 2 * 2
@@ -421,8 +422,9 @@ def test_a_traced_step_times_its_backward(card):
 @pytest.mark.card
 def test_a_traced_factorized_step_times_its_frame_smoothers(card):
     """On the card a replayed factorized step records the frame
-    smoothers' device intervals and both counters (the capture's counts
-    again at each replay)."""
+    smoothers' device intervals and the counters (the capture's counts
+    again at each replay): every frame walked by the frame gain op, whose
+    forward and adjoint launch twice a step."""
     batch, length, frame_len = 1, 2**14, 1024
     trainer = bench_trainer(3, device=card, processors=factorized_processors(frame_len))
     c = bench_console(3, device="cpu", processors=factorized_processors(frame_len))
@@ -439,6 +441,9 @@ def test_a_traced_factorized_step_times_its_frame_smoothers(card):
     mine = [i for i in r["device"] if i["call"] == k["call"] and i["name"] == "grafx.dynamics.frame"]
     assert len(mine) == 2 and all(i["end"] > i["start"] for i in mine)
     assert r["counters"]["ballistics.frame.frames"] == 4 * frames
+    assert r["counters"]["ballistics.frame.fused"] == r["counters"]["ballistics.frame.frames"]
+    assert r["counters"]["ballistics.frame_gain_fwd"] == 4 * 2
+    assert r["counters"]["ballistics.frame_gain_bwd"] == 4 * 2
     assert r["counters"]["grafx.dynamics.composed"] == 4 * composed
 
 

@@ -33,7 +33,7 @@ PLAIN_VERSIONS = tuple(
     f"{core}_plain" for core in (
         "ballistics_gain", "ballistics_gain_pair", "ballistics_gain_fwd", "ballistics_gain_bwd",
         "ballistics_gain_pair_fwd", "ballistics_gain_pair_bwd", "ballistics", "ballistics_fwd",
-        "ballistics_bwd", "reverse_scan",
+        "ballistics_bwd", "reverse_scan", "frame_gain", "frame_gain_fwd", "frame_gain_bwd",
     )
 )
 
