@@ -4374,16 +4374,17 @@ def time_chain(u, consts, zi, spec, stats, where, main, plain_ms):
 def composed_dynamics(proc):
     """While entered, ``proc``'s dynamics processors compose (each walk
     its own ``ballistics_core``, the knees in PyTorch), as before the
-    chain op: its yardstick on the card.  Their ``chain_spec``, the walk
-    op decided at construction, is unset meanwhile."""
-    saved = [(m, m.chain_spec) for m in proc.modules() if getattr(m, "chain_spec", None) is not None]
+    chain op: its yardstick on the card.  Their ``gain_op``, the op
+    decided at construction, is unset meanwhile where it is the chain."""
+    saved = [(m, m.gain_op) for m in proc.modules()
+             if getattr(getattr(m, "gain_op", None), "name", None) == "chain"]
     for m, _ in saved:
-        m.chain_spec = None
+        m.gain_op = None
     try:
         yield
     finally:
-        for m, spec in saved:
-            m.chain_spec = spec
+        for m, op in saved:
+            m.gain_op = op
 
 
 def chain_vs_composed(label, proc, x, params, w):

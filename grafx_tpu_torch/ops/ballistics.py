@@ -17,10 +17,17 @@ one contract:
   wrapper launches for CUDA tensors.  There is no fallback: a CUDA
   tensor reaches the kernel or the wrapper raises.
 
-Each wrapper counts its kernel launches in its ``launches`` attribute
-(:func:`launch_counts`), the eager and capturing calls of a compiled
-path, not its replays; with tracing on
-(:func:`grafx_tpu_torch.profiling.tracing`) the report counts replays
+Five op families, one definition each: the pair (#1, #3, #4), the gain
+(#2, #5, #6), the walk (#7-#9, and the reverse scan #10 beside it), the
+chain and the frame gain.  A family is its plain versions, its CUDA
+launchers (``_*_fwd_cuda`` and the body of its adjoint) and its operands;
+the rest is written once: the CPU / CUDA split of every wrapper
+(:func:`_kernel`), one operand check (:func:`_operand`), the primal's
+custom op and its grad / no-grad dispatch (:func:`_core`), its autograd
+Function (:class:`_Adjoint`) and the launch count (:func:`_run`), which
+counts every kernel launch for :func:`launch_counts` (the eager and
+capturing calls of a compiled path, not its replays) and, with tracing
+on (:func:`grafx_tpu_torch.profiling.tracing`), in the report, replays
 too.
 
 =====================================  ==================================
@@ -119,20 +126,21 @@ the port runs them as three launches forward and three for the adjoint,
 which read and write each ``(N, L)`` array once and keep only the frame
 walk's ``(N, F)`` residuals (``csrc/frame_gain.cu`` has the design).
 
-The primal kernels #1, #2 and #7 and the chain's and the frame gain's,
-which a served render and a stream block launch, are ``torch.library``
-custom ops
-(``torch.ops.grafx_tpu_torch.ballistics_gain_pair``, ``.ballistics_gain``,
-``.ballistics``, ``.ballistics_chain`` and ``.frame_gain``): the CPU implementation is the
-plain version, the CUDA one the kernel's launch, and a fake
-implementation gives the output's shape.  ``torch.export`` so records one op where it would
-otherwise unroll the plain version's loop over time, and could not see a
-ctypes call.
+Each family's primal (#1, #2, #7, the chain's and the frame gain's),
+which a served render and a stream block launch, is a ``torch.library``
+custom op (``torch.ops.grafx_tpu_torch.ballistics_gain_pair``,
+``.ballistics_gain``, ``.ballistics``, ``.ballistics_chain`` and
+``.frame_gain``): the CPU implementation is the plain version, the CUDA
+one the kernel's launch, and a fake implementation gives the output's
+shape.  ``torch.export`` so records one op where it would otherwise
+unroll the plain version's loop over time, and could not see a ctypes
+call.
 """
 
 import ctypes
 import functools
-from collections.abc import Sequence
+from collections.abc import Callable
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -149,12 +157,6 @@ _STAGE = 1024  # the most samples a stage of the forward walks holds
 # the samples a link of the forward walks' serial chain covers; the kernels'
 # kLink (csrc/ballistics.cuh)
 WALK_LINK = 8
-
-
-def fused_gain_available():
-    """The fused gain path runs on every device: a kernel on CUDA, the
-    plain version on the CPU."""
-    return True
 
 
 # ---------------------------------------------------------------------------
@@ -799,6 +801,7 @@ def frame_gain_plain(u, at, rt, th, cf, hk, frame_len):
 
 def frame_gain_fwd_plain(u, at, rt, th, cf, hk, frame_len):
     """Plain version of :func:`frame_gain_fwd` (any device)."""
+    frame_len = _frame_len(frame_len)
     m = frame_means(u, frame_len)
     zi = torch.ones_like(at)
     s = _walk(m, zi, at, rt)
@@ -808,6 +811,7 @@ def frame_gain_fwd_plain(u, at, rt, th, cf, hk, frame_len):
 
 def frame_gain_bwd_plain(s, d, gg, at, rt, th, cf, hk, frame_len):
     """Plain version of :func:`frame_gain_bwd` (any device)."""
+    frame_len = _frame_len(frame_len)
     n, length = gg.shape
     v = frame_lerp(s, frame_len, length)
     x, f, fp = _knee_terms(v, th, hk, "compressor")
@@ -830,25 +834,27 @@ def _device(u, name):
     return u.device.type
 
 
+def _operand(name, label, a, shape, device):
+    """``a``, where it is a float32 ``shape`` tensor on ``device``; else
+    raise."""
+    if a.dtype != torch.float32 or tuple(a.shape) != tuple(shape) or a.device != device:
+        raise ValueError(f"{name}: {label} must be a float32 {tuple(shape)} tensor on {device},"
+                         f" got {a.dtype} {tuple(a.shape)} on {a.device}")
+    return a
+
+
 def _rows(name, *arrays):
-    """Validate ``(N, L)`` float32 operands on one device; contiguous."""
-    shape, device = arrays[0].shape, arrays[0].device
-    for a in arrays:
-        if a.dtype != torch.float32 or a.dim() != 2 or a.shape != shape or a.device != device:
-            raise ValueError(
-                f"{name}: every signal must be a float32 {tuple(shape)} tensor on"
-                f" {device}, got {a.dtype} {tuple(a.shape)} on {a.device}"
-            )
-    return [a.contiguous() for a in arrays]
+    """Validate ``(N, L)`` float32 operands of one shape on one device;
+    contiguous."""
+    u = arrays[0]
+    shape = tuple(u.shape) if u.dim() == 2 else ("N", "L")
+    return [_operand(name, "every signal", a, shape, u.device).contiguous() for a in arrays]
 
 
 def _consts(name, u, *consts):
     """Validate ``(N,)`` float32 constants; returns them stacked ``(k, N)``."""
-    n = u.shape[0]
-    for c in consts:
-        if c.shape != (n,) or c.device != u.device or c.dtype != torch.float32:
-            raise ValueError(f"{name}: every constant must be a float32 ({n},) tensor on {u.device}")
-    return torch.stack(consts).contiguous()
+    return torch.stack([_operand(name, "every constant", c, u.shape[:1], u.device)
+                        for c in consts]).contiguous()
 
 
 def _tiles(u):
@@ -887,7 +893,8 @@ def _count_walks(u, walks):
 
 def _run(name, fn_name, u, *args):
     """Launch ``fn_name(*args, device, stream)``; raise on a CUDA error.
-    The launch counts in the tracer's report as ``ballistics.<name>``
+    The launch counts as wrapper ``name``'s (:func:`launch_counts`) and in
+    the tracer's report as ``ballistics.<name>``
     (:func:`grafx_tpu_torch.profiling.count`)."""
     rc = getattr(_cuda.library(), fn_name)(
         *args, u.device.index, torch.cuda.current_stream(u.device).cuda_stream
@@ -895,6 +902,112 @@ def _run(name, fn_name, u, *args):
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {rc}")
     profiling.count(f"ballistics.{name}")
+    if name in _LAUNCHES:
+        _LAUNCHES[name] += 1
+
+
+def _kernel(chunked=False):
+    """A kernel wrapper from its CUDA body, the decorated function: CUDA
+    tensors run the body, CPU tensors its plain version (``<name>_plain``,
+    looked up at the call) with the same arguments, and another device
+    raises.  An adjoint (``chunked``) takes the CUDA reverse walk's
+    ``chunk`` (:func:`walk_chunk`; None picks it from the shape and the
+    card), resolved first, so that a bad one raises on every device."""
+
+    def wrap(body):
+        plain = f"{body.__name__}_plain"
+
+        @functools.wraps(body)
+        def wrapper(u, *args, **kwargs):
+            if chunked:
+                kwargs["chunk"] = _walk_chunk(u, kwargs.get("chunk"))
+            if _device(u, body.__name__) == "cuda":
+                return body(u, *args, **kwargs)
+            kwargs.pop("chunk", None)
+            return globals()[plain](u, *args, **kwargs)
+
+        return wrapper
+
+    return wrap
+
+
+class _Family(NamedTuple):
+    """What an op family's primal (``*_core``) differs in: its name, its
+    custom op (:func:`_custom_op`) and the op's arguments from the
+    primal's ``(tensors, static)``; its forward with residuals
+    (``fwd(*tensors, *static)``), what of the tensors and the forward's
+    outputs the adjoint reads (``keep``), and the adjoint
+    (``adjoint(kept, cotangent, static)``: each tensor's gradient)."""
+
+    name: str
+    op: Callable
+    op_args: Callable
+    fwd: Callable
+    keep: Callable
+    adjoint: Callable
+    states: bool = False  # the primal returns the walks' final states too
+
+
+def _custom_op(name, schema, plain, cuda, fake=lambda u, *_: torch.empty_like(u)):
+    """``torch.ops.grafx_tpu_torch.<name>``: ``plain`` (the plain version)
+    on the CPU, ``cuda`` (the kernel's launch) on the card, and ``fake``,
+    which gives the output's shapes."""
+    op = torch.library.custom_op(f"grafx_tpu_torch::{name}", plain, mutates_args=(),
+                                 schema=schema)
+    op.register_kernel("cuda")(cuda)
+    op.register_fake(fake)
+    return op
+
+
+def _core(family, tensors, static):
+    """A family's primal: with grad enabled and any tensor requiring grad
+    its forward with residuals and its adjoint (:class:`_Adjoint`), else
+    its custom op."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _Adjoint.apply(family, static, *tensors)
+    _device(tensors[0], family.name)
+    return family.op(*family.op_args(tensors, static))
+
+
+class _Adjoint(torch.autograd.Function):
+    """A family's primal under gradient, the ``custom_vjp`` of its
+    ``grafx_tpu`` counterpart: the forward runs the family's forward with
+    residuals and saves what its adjoint reads, the backward is the
+    adjoint; the static arguments get no gradient."""
+
+    @staticmethod
+    def forward(ctx, family, static, *tensors):
+        out = family.fwd(*tensors, *static)
+        ctx.save_for_backward(*family.keep(tensors, out))
+        ctx.family, ctx.static = family, static
+        if family.states:
+            ctx.mark_non_differentiable(out[-1])
+            return out[0], out[-1]
+        return out[0]
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gg, *_):
+        return None, None, *ctx.family.adjoint(ctx.saved_tensors, gg, ctx.static)
+
+
+def _gain_fwd_cuda(name, u, consts, kind, res, samples=None):
+    """#2 (``res`` False: the gain) or #5 (``(gain, d, y_last)``) on the
+    card, the walk's stage of ``samples`` (:func:`walk_samples`)."""
+    (u,) = _rows(name, u)
+    c = _consts(name, u, *consts)
+    n, length = u.shape
+    samples = walk_samples(length, samples)
+    gain = torch.empty_like(u)
+    _count_walks(u, 1)
+    if not res:
+        _run(name, "grafx_gain_fwd", u, u.data_ptr(), gain.data_ptr(), c.data_ptr(), n, length,
+             _KINDS[kind], samples)
+        return gain
+    d, y_last = torch.empty_like(u), u.new_empty(n)
+    _run(name, "grafx_gain_fwd_res", u, u.data_ptr(), gain.data_ptr(), d.data_ptr(),
+         y_last.data_ptr(), c.data_ptr(), n, length, _KINDS[kind], samples)
+    return gain, d, y_last
 
 
 def ballistics_gain_core(u, zi, at, rt, th, cf, hk, kind="compressor"):
@@ -917,50 +1030,10 @@ def ballistics_gain_core(u, zi, at, rt, th, cf, hk, kind="compressor"):
     Returns:
         ``(N, L)`` gains.
     """
-    args = (u, zi, at, rt, th, cf, hk)
-    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
-        return _Gain.apply(*args, kind)
-    _device(u, "ballistics_gain_core")
-    return torch.ops.grafx_tpu_torch.ballistics_gain(u, args[1:], kind)
+    return _core(_GAIN, (u, zi, at, rt, th, cf, hk), (kind,))
 
 
-@torch.library.custom_op("grafx_tpu_torch::ballistics_gain", mutates_args=())
-def _gain_op(u: torch.Tensor, consts: Sequence[torch.Tensor], kind: str) -> torch.Tensor:
-    """#2 as a custom op; ``consts`` = (zi, at, rt, th, cf, hk)."""
-    return ballistics_gain_plain(u, *consts, kind)
-
-
-@_gain_op.register_kernel("cuda")
-def _gain_op_cuda(u, consts, kind):
-    gain = _gain_fwd_cuda("ballistics_gain_core", u, consts, kind, res=False)
-    ballistics_gain_core.launches += 1
-    return gain
-
-
-@_gain_op.register_fake
-def _gain_op_fake(u, consts, kind):
-    return torch.empty_like(u)
-
-
-def _gain_fwd_cuda(name, u, consts, kind, res, samples=None):
-    """#2 (``res`` False: the gain) or #5 (``(gain, d, y_last)``) on the
-    card, the walk's stage of ``samples`` (:func:`walk_samples`)."""
-    (u,) = _rows(name, u)
-    c = _consts(name, u, *consts)
-    n, length = u.shape
-    samples = walk_samples(length, samples)
-    gain = torch.empty_like(u)
-    _count_walks(u, 1)
-    if not res:
-        _run(name, "grafx_gain_fwd", u, u.data_ptr(), gain.data_ptr(), c.data_ptr(), n, length,
-             _KINDS[kind], samples)
-        return gain
-    d, y_last = torch.empty_like(u), u.new_empty(n)
-    _run(name, "grafx_gain_fwd_res", u, u.data_ptr(), gain.data_ptr(), d.data_ptr(),
-         y_last.data_ptr(), c.data_ptr(), n, length, _KINDS[kind], samples)
-    return gain, d, y_last
-
-
+@_kernel()
 def ballistics_gain_fwd(u, zi, at, rt, th, cf, hk, kind="compressor"):
     """Gain plus the adjoint's residuals (replaces ``_fwd_gain_kernel``).
 
@@ -968,14 +1041,10 @@ def ballistics_gain_fwd(u, zi, at, rt, th, cf, hk, kind="compressor"):
         ``(gain, d, y_last)``: ``(N, L)`` gains, ``d = u - y[n-1]`` and
         the ``(N,)`` final envelope state.
     """
-    name = "ballistics_gain_fwd"
-    if _device(u, name) == "cpu":
-        return ballistics_gain_fwd_plain(u, zi, at, rt, th, cf, hk, kind)
-    out = _gain_fwd_cuda(name, u, (zi, at, rt, th, cf, hk), kind, res=True)
-    ballistics_gain_fwd.launches += 1
-    return out
+    return _gain_fwd_cuda("ballistics_gain_fwd", u, (zi, at, rt, th, cf, hk), kind, res=True)
 
 
+@_kernel(chunked=True)
 def ballistics_gain_bwd(u, d, y_last, gg, at, rt, th, cf, hk, kind="compressor", chunk=None):
     """Adjoint of :func:`ballistics_gain_fwd` for the gain cotangent
     ``gg`` (replaces ``_bwd_gain_kernel``).  ``chunk``: the CUDA reverse
@@ -987,9 +1056,6 @@ def ballistics_gain_bwd(u, d, y_last, gg, at, rt, th, cf, hk, kind="compressor",
         rest ``(N,)``.
     """
     name = "ballistics_gain_bwd"
-    chunk = _walk_chunk(u, chunk)
-    if _device(u, name) == "cpu":
-        return ballistics_gain_bwd_plain(u, d, y_last, gg, at, rt, th, cf, hk, kind)
     u, d, gg = _rows(name, u, d, gg)
     consts = _consts(name, u, at, rt, th, cf, hk)
     y_last = _consts(name, u, y_last)
@@ -1001,8 +1067,28 @@ def ballistics_gain_bwd(u, d, y_last, gg, at, rt, th, cf, hk, kind="compressor",
     _run(name, "grafx_gain_bwd", u, u.data_ptr(), d.data_ptr(), y_last.data_ptr(),
          gg.data_ptr(), consts.data_ptr(), du.data_ptr(), grads.data_ptr(),
          partials.data_ptr(), _ptr(carry), n, u.shape[1], chunk, _KINDS[kind])
-    ballistics_gain_bwd.launches += 1
     return (du, *grads.unbind(0))
+
+
+def _pair_fwd_cuda(name, u, consts, kinds, inits, res, samples=None):
+    """#1 (``res`` False: the gain) or #3 (``(gain, d_a, d_b, v_last,
+    u_last)``) on the card, the walks' stage of ``samples``
+    (:func:`walk_samples`)."""
+    (u,) = _rows(name, u)
+    c = _consts(name, u, *consts)
+    n, length = u.shape
+    tail = (n, length, _KINDS[kinds[0]], _KINDS[kinds[1]], float(inits[0]), float(inits[1]),
+            walk_samples(length, samples))
+    gain = torch.empty_like(u)
+    _count_walks(u, 2)
+    if not res:
+        _run(name, "grafx_gain_pair_fwd", u, u.data_ptr(), gain.data_ptr(), c.data_ptr(), *tail)
+        return gain
+    d_a, d_b = torch.empty_like(u), torch.empty_like(u)
+    lasts = u.new_empty(2, n)
+    _run(name, "grafx_gain_pair_fwd_res", u, u.data_ptr(), gain.data_ptr(), d_a.data_ptr(),
+         d_b.data_ptr(), lasts[0].data_ptr(), lasts[1].data_ptr(), c.data_ptr(), *tail)
+    return gain, d_a, d_b, lasts[0], lasts[1]
 
 
 def ballistics_gain_pair_core(
@@ -1034,57 +1120,10 @@ def ballistics_gain_pair_core(
         ``(N, L)`` combined gains.
     """
     consts = (at_a, rt_a, th_a, cf_a, hk_a, at_b, rt_b, th_b, cf_b, hk_b)
-    if torch.is_grad_enabled() and any(a.requires_grad for a in (u, *consts)):
-        return _GainPair.apply(u, *consts, tuple(kinds), tuple(inits))
-    _device(u, "ballistics_gain_pair_core")
-    return torch.ops.grafx_tpu_torch.ballistics_gain_pair(
-        u, consts, kinds[0], kinds[1], float(inits[0]), float(inits[1])
-    )
+    return _core(_PAIR, (u, *consts), (tuple(kinds), tuple(inits)))
 
 
-@torch.library.custom_op("grafx_tpu_torch::ballistics_gain_pair", mutates_args=())
-def _pair_op(
-    u: torch.Tensor, consts: Sequence[torch.Tensor], kind_a: str, kind_b: str,
-    init_a: float, init_b: float,
-) -> torch.Tensor:
-    """#1 as a custom op; ``consts`` = the ten member constants."""
-    return ballistics_gain_pair_plain(u, *consts, kinds=(kind_a, kind_b), inits=(init_a, init_b))
-
-
-@_pair_op.register_kernel("cuda")
-def _pair_op_cuda(u, consts, kind_a, kind_b, init_a, init_b):
-    gain = _pair_fwd_cuda("ballistics_gain_pair_core", u, consts, (kind_a, kind_b),
-                          (init_a, init_b), res=False)
-    ballistics_gain_pair_core.launches += 1
-    return gain
-
-
-@_pair_op.register_fake
-def _pair_op_fake(u, consts, kind_a, kind_b, init_a, init_b):
-    return torch.empty_like(u)
-
-
-def _pair_fwd_cuda(name, u, consts, kinds, inits, res, samples=None):
-    """#1 (``res`` False: the gain) or #3 (``(gain, d_a, d_b, v_last,
-    u_last)``) on the card, the walks' stage of ``samples``
-    (:func:`walk_samples`)."""
-    (u,) = _rows(name, u)
-    c = _consts(name, u, *consts)
-    n, length = u.shape
-    tail = (n, length, _KINDS[kinds[0]], _KINDS[kinds[1]], float(inits[0]), float(inits[1]),
-            walk_samples(length, samples))
-    gain = torch.empty_like(u)
-    _count_walks(u, 2)
-    if not res:
-        _run(name, "grafx_gain_pair_fwd", u, u.data_ptr(), gain.data_ptr(), c.data_ptr(), *tail)
-        return gain
-    d_a, d_b = torch.empty_like(u), torch.empty_like(u)
-    lasts = u.new_empty(2, n)
-    _run(name, "grafx_gain_pair_fwd_res", u, u.data_ptr(), gain.data_ptr(), d_a.data_ptr(),
-         d_b.data_ptr(), lasts[0].data_ptr(), lasts[1].data_ptr(), c.data_ptr(), *tail)
-    return gain, d_a, d_b, lasts[0], lasts[1]
-
-
+@_kernel()
 def ballistics_gain_pair_fwd(
     u, at_a, rt_a, th_a, cf_a, hk_a, at_b, rt_b, th_b, cf_b, hk_b,
     kinds=("noisegate", "compressor"), inits=(1.0, 1.0),
@@ -1097,15 +1136,11 @@ def ballistics_gain_pair_fwd(
         ``d_b = ec - u2[n-1]`` for the members' envelopes ``v``, ``u2``
         and the gated energy ``ec = g_a^2 u``, and their final states.
     """
-    name = "ballistics_gain_pair_fwd"
     consts = (at_a, rt_a, th_a, cf_a, hk_a, at_b, rt_b, th_b, cf_b, hk_b)
-    if _device(u, name) == "cpu":
-        return ballistics_gain_pair_fwd_plain(u, *consts, kinds=kinds, inits=inits)
-    out = _pair_fwd_cuda(name, u, consts, kinds, inits, res=True)
-    ballistics_gain_pair_fwd.launches += 1
-    return out
+    return _pair_fwd_cuda("ballistics_gain_pair_fwd", u, consts, kinds, inits, res=True)
 
 
+@_kernel(chunked=True)
 def ballistics_gain_pair_bwd(
     u, d_a, d_b, v_last, u_last, gg,
     at_a, rt_a, th_a, cf_a, hk_a, at_b, rt_b, th_b, cf_b, hk_b,
@@ -1120,14 +1155,8 @@ def ballistics_gain_pair_bwd(
         dcf_b, dhk_b)``: ``du`` ``(N, L)``, the rest ``(N,)``.
     """
     name = "ballistics_gain_pair_bwd"
-    consts = (at_a, rt_a, th_a, cf_a, hk_a, at_b, rt_b, th_b, cf_b, hk_b)
-    chunk = _walk_chunk(u, chunk)
-    if _device(u, name) == "cpu":
-        return ballistics_gain_pair_bwd_plain(
-            u, d_a, d_b, v_last, u_last, gg, *consts, kinds=kinds
-        )
     u, d_a, d_b, gg = _rows(name, u, d_a, d_b, gg)
-    c = _consts(name, u, *consts)
+    c = _consts(name, u, at_a, rt_a, th_a, cf_a, hk_a, at_b, rt_b, th_b, cf_b, hk_b)
     lasts = _consts(name, u, v_last, u_last)
     n = u.shape[0]
     du = torch.empty_like(u)
@@ -1139,8 +1168,20 @@ def ballistics_gain_pair_bwd(
          lasts.data_ptr(), gg.data_ptr(), c.data_ptr(), du.data_ptr(), scratch.data_ptr(),
          grads.data_ptr(), partials.data_ptr(), _ptr(carry), n, u.shape[1], chunk,
          _KINDS[kinds[0]], _KINDS[kinds[1]])
-    ballistics_gain_pair_bwd.launches += 1
     return (du, *grads.unbind(0))
+
+
+def _walk_fwd_cuda(name, u, consts, res, samples=None):
+    """#7 (``res`` False: ``y``) or #8 (``(y, d)``) on the card, the
+    walk's stage of ``samples`` (:func:`walk_samples`)."""
+    (u,) = _rows(name, u)
+    c = _consts(name, u, *consts)
+    y = torch.empty_like(u)
+    d = torch.empty_like(u) if res else None
+    _count_walks(u, 1)
+    _run(name, "grafx_ballistics_fwd", u, u.data_ptr(), y.data_ptr(), _ptr(d), c.data_ptr(),
+         u.shape[0], u.shape[1], walk_samples(u.shape[1], samples))
+    return (y, d) if res else y
 
 
 def ballistics_core(u, zi, at, rt):
@@ -1149,7 +1190,8 @@ def ballistics_core(u, zi, at, rt):
 
     Differentiable in every argument.  Without grad it launches the
     primal walk (replaces ``_kernel``); with grad it runs
-    :func:`ballistics_fwd` and, backward, :func:`ballistics_bwd`.
+    :func:`ballistics_fwd` and, backward, :func:`ballistics_bwd`, which
+    save only ``d`` (with ``at`` and ``rt``), neither ``u`` nor ``y``.
 
     Args:
         u: ``(N, L)`` input envelopes.
@@ -1158,10 +1200,67 @@ def ballistics_core(u, zi, at, rt):
     Returns:
         ``(N, L)`` smoothed envelopes.
     """
-    if torch.is_grad_enabled() and any(a.requires_grad for a in (u, zi, at, rt)):
-        return _Ballistics.apply(u, zi, at, rt)
-    _device(u, "ballistics_core")
-    return torch.ops.grafx_tpu_torch.ballistics(u, (zi, at, rt))
+    return _core(_WALK, (u, zi, at, rt), ())
+
+
+@_kernel()
+def ballistics_fwd(u, zi, at, rt):
+    """The walk plus the adjoint's residual (replaces ``_fwd_d_kernel``).
+
+    Returns:
+        ``(y, d)``: ``(N, L)`` smoothed envelopes and ``d = u - y[n-1]``
+        (``y[-1] = zi``), which holds the attack/release decisions
+        (``d > 0``) and the factor of the coefficients' gradients.
+    """
+    return _walk_fwd_cuda("ballistics_fwd", u, (zi, at, rt), res=True)
+
+
+@_kernel(chunked=True)
+def ballistics_bwd(d, g, at, rt, chunk=None):
+    """Adjoint of :func:`ballistics_fwd` for the output cotangent ``g``
+    (replaces ``_bwd_fused_kernel``): with ``c = at`` where ``d > 0``
+    else ``rt`` and ``gh[n] = g[n] + (1 - c[n+1]) gh[n+1]``,
+    ``du = c gh``, ``dat`` / ``drt`` the sums of ``d gh`` over attack /
+    release samples and ``dzi = (1 - c[0]) gh[0]``.  ``chunk`` as for
+    :func:`ballistics_gain_bwd`.
+
+    Returns:
+        ``(du, dzi, dat, drt)``: ``du`` ``(N, L)``, the rest ``(N,)``.
+    """
+    name = "ballistics_bwd"
+    d, g = _rows(name, d, g)
+    consts = _consts(name, d, at, rt)
+    n = d.shape[0]
+    du = torch.empty_like(d)
+    grads = d.new_empty(3, n)
+    partials = d.new_empty(2, n, _tiles(d))
+    carry = _carry(d, chunk)
+    _run(name, "grafx_ballistics_bwd", d, d.data_ptr(), g.data_ptr(), consts.data_ptr(),
+         du.data_ptr(), grads.data_ptr(), partials.data_ptr(), _ptr(carry), n, d.shape[1],
+         chunk)
+    return (du, *grads.unbind(0))
+
+
+@_kernel(chunked=True)
+def reverse_scan(a, g, chunk=None):
+    """The first-order reverse recurrence ``gh[n] = g[n] + a[n] gh[n+1]``
+    with ``gh[L] = 0`` over ``(N, L)`` rows (replaces ``_bwd_kernel``, the
+    kernel of ``grafx_tpu.ops.ballistics_tpu.reverse_scan_pallas``).  On
+    the card it is the adjoints' chunked reverse walk with the coefficient
+    read (:func:`_reverse_scan_chunked` mirrors it); ``chunk`` as for
+    :func:`ballistics_gain_bwd`.
+
+    Returns:
+        ``(N, L)`` ``gh``.
+    """
+    name = "reverse_scan"
+    a, g = _rows(name, a, g)
+    gh = torch.empty_like(g)
+    carry = _carry(a, chunk)
+    _run(name, "grafx_reverse_scan", a, a.data_ptr(), g.data_ptr(), gh.data_ptr(),
+         _ptr(carry), a.shape[0], a.shape[1], chunk)
+    return gh
+
 
 
 def walk_state(zi):
@@ -1228,106 +1327,6 @@ def ballistics_chain_stream(u, consts, state, spec):
     return (gain[:, p:] if p else gain), (last, x[:, whole:])
 
 
-@torch.library.custom_op("grafx_tpu_torch::ballistics", mutates_args=())
-def _walk_op(u: torch.Tensor, consts: Sequence[torch.Tensor]) -> torch.Tensor:
-    """#7 as a custom op; ``consts`` = (zi, at, rt)."""
-    return ballistics_plain(u, *consts)
-
-
-@_walk_op.register_kernel("cuda")
-def _walk_op_cuda(u, consts):
-    y = _walk_fwd_cuda("ballistics_core", u, consts, res=False)
-    ballistics_core.launches += 1
-    return y
-
-
-@_walk_op.register_fake
-def _walk_op_fake(u, consts):
-    return torch.empty_like(u)
-
-
-def _walk_fwd_cuda(name, u, consts, res, samples=None):
-    """#7 (``res`` False: ``y``) or #8 (``(y, d)``) on the card, the
-    walk's stage of ``samples`` (:func:`walk_samples`)."""
-    (u,) = _rows(name, u)
-    c = _consts(name, u, *consts)
-    y = torch.empty_like(u)
-    d = torch.empty_like(u) if res else None
-    _count_walks(u, 1)
-    _run(name, "grafx_ballistics_fwd", u, u.data_ptr(), y.data_ptr(), _ptr(d), c.data_ptr(),
-         u.shape[0], u.shape[1], walk_samples(u.shape[1], samples))
-    return (y, d) if res else y
-
-
-def ballistics_fwd(u, zi, at, rt):
-    """The walk plus the adjoint's residual (replaces ``_fwd_d_kernel``).
-
-    Returns:
-        ``(y, d)``: ``(N, L)`` smoothed envelopes and ``d = u - y[n-1]``
-        (``y[-1] = zi``), which holds the attack/release decisions
-        (``d > 0``) and the factor of the coefficients' gradients.
-    """
-    name = "ballistics_fwd"
-    if _device(u, name) == "cpu":
-        return ballistics_fwd_plain(u, zi, at, rt)
-    out = _walk_fwd_cuda(name, u, (zi, at, rt), res=True)
-    ballistics_fwd.launches += 1
-    return out
-
-
-def ballistics_bwd(d, g, at, rt, chunk=None):
-    """Adjoint of :func:`ballistics_fwd` for the output cotangent ``g``
-    (replaces ``_bwd_fused_kernel``): with ``c = at`` where ``d > 0``
-    else ``rt`` and ``gh[n] = g[n] + (1 - c[n+1]) gh[n+1]``,
-    ``du = c gh``, ``dat`` / ``drt`` the sums of ``d gh`` over attack /
-    release samples and ``dzi = (1 - c[0]) gh[0]``.  ``chunk`` as for
-    :func:`ballistics_gain_bwd`.
-
-    Returns:
-        ``(du, dzi, dat, drt)``: ``du`` ``(N, L)``, the rest ``(N,)``.
-    """
-    name = "ballistics_bwd"
-    chunk = _walk_chunk(d, chunk)
-    if _device(d, name) == "cpu":
-        return ballistics_bwd_plain(d, g, at, rt)
-    d, g = _rows(name, d, g)
-    consts = _consts(name, d, at, rt)
-    n = d.shape[0]
-    du = torch.empty_like(d)
-    grads = d.new_empty(3, n)
-    partials = d.new_empty(2, n, _tiles(d))
-    carry = _carry(d, chunk)
-    _run(name, "grafx_ballistics_bwd", d, d.data_ptr(), g.data_ptr(), consts.data_ptr(),
-         du.data_ptr(), grads.data_ptr(), partials.data_ptr(), _ptr(carry), n, d.shape[1],
-         chunk)
-    ballistics_bwd.launches += 1
-    return (du, *grads.unbind(0))
-
-
-def reverse_scan(a, g, chunk=None):
-    """The first-order reverse recurrence ``gh[n] = g[n] + a[n] gh[n+1]``
-    with ``gh[L] = 0`` over ``(N, L)`` rows (replaces ``_bwd_kernel``, the
-    kernel of ``grafx_tpu.ops.ballistics_tpu.reverse_scan_pallas``).  On
-    the card it is the adjoints' chunked reverse walk with the coefficient
-    read (:func:`_reverse_scan_chunked` mirrors it); ``chunk`` as for
-    :func:`ballistics_gain_bwd`.
-
-    Returns:
-        ``(N, L)`` ``gh``.
-    """
-    name = "reverse_scan"
-    chunk = _walk_chunk(a, chunk)
-    if _device(a, name) == "cpu":
-        return reverse_scan_plain(a, g)
-    a, g = _rows(name, a, g)
-    gh = torch.empty_like(g)
-    carry = _carry(a, chunk)
-    _run(name, "grafx_reverse_scan", a, a.data_ptr(), g.data_ptr(), gh.data_ptr(),
-         _ptr(carry), a.shape[0], a.shape[1], chunk)
-    reverse_scan.launches += 1
-    return gh
-
-
 def ballistics_chain_core(u, consts, zi, spec):
     """A gain-smoothed dynamics run, one or two members (a gate then a
     compressor, or either alone), in one call: the port's own kernel, for
@@ -1347,6 +1346,7 @@ def ballistics_chain_core(u, consts, zi, spec):
     Differentiable in ``u``, ``consts`` and ``zi``.  Without grad it
     launches the primal kernel; with grad it runs
     :func:`ballistics_chain_fwd` and, backward, :func:`ballistics_chain_bwd`.
+    The final states are no differentiable output.
 
     Args:
         u: ``(N, L)`` energy envelopes.
@@ -1361,41 +1361,16 @@ def ballistics_chain_core(u, consts, zi, spec):
     Returns:
         ``(gain, last)``: ``(N, L)`` gains and ``(R, N)`` final states.
     """
-    spec = tuple((kind, smooth) for kind, smooth in spec)
-    if torch.is_grad_enabled() and any(a.requires_grad for a in (u, consts, zi)):
-        return _Chain.apply(u, consts, zi, spec)
-    _device(u, "ballistics_chain_core")
-    return torch.ops.grafx_tpu_torch.ballistics_chain(u, consts, zi, chain_code(spec))
-
-
-@torch.library.custom_op("grafx_tpu_torch::ballistics_chain", mutates_args=())
-def _chain_op(u: torch.Tensor, consts: torch.Tensor, zi: torch.Tensor,
-              code: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The chain's primal as a custom op; ``code``: :func:`chain_code`."""
-    return ballistics_chain_plain(u, consts, zi, chain_spec(code))
-
-
-@_chain_op.register_kernel("cuda")
-def _chain_op_cuda(u, consts, zi, code):
-    out = _chain_fwd_cuda("ballistics_chain_core", u, consts, zi, chain_spec(code), res=False)
-    ballistics_chain_core.launches += 1
-    return out
-
-
-@_chain_op.register_fake
-def _chain_op_fake(u, consts, zi, code):
-    return torch.empty_like(u), torch.empty_like(zi)
+    return _core(_CHAIN, (u, consts, zi), (tuple((kind, smooth) for kind, smooth in spec),))
 
 
 def _chain_args(name, u, consts, zi, spec):
     """Validate the chain's operands for the card; returns them
     contiguous with the spec's code."""
     (u,) = _rows(name, u)
-    n, walks = u.shape[0], len(chain_walks(spec))
-    for label, a, rows in (("consts", consts, len(CHAIN_ROWS) * len(spec)), ("zi", zi, walks)):
-        if a.dtype != torch.float32 or a.shape != (rows, n) or a.device != u.device:
-            raise ValueError(f"{name}: {label} must be a float32 ({rows}, {n}) tensor on {u.device},"
-                             f" got {a.dtype} {tuple(a.shape)} on {a.device}")
+    n, rows = u.shape[0], len(CHAIN_ROWS) * len(spec)
+    consts = _operand(name, "consts", consts, (rows, n), u.device)
+    zi = _operand(name, "zi", zi, (len(chain_walks(spec)), n), u.device)
     return u, consts.contiguous(), zi.contiguous(), chain_code(spec)
 
 
@@ -1413,6 +1388,7 @@ def _chain_fwd_cuda(name, u, consts, zi, spec, res, samples=None):
     return (gain, d, last) if res else (gain, last)
 
 
+@_kernel()
 def ballistics_chain_fwd(u, consts, zi, spec):
     """The chain plus the adjoint's residuals.
 
@@ -1421,14 +1397,10 @@ def ballistics_chain_fwd(u, consts, zi, spec):
         ``d = x - y[n-1]`` of each walk (input ``x``, output ``y``) and
         the ``(R, N)`` final states.
     """
-    name = "ballistics_chain_fwd"
-    if _device(u, name) == "cpu":
-        return ballistics_chain_fwd_plain(u, consts, zi, spec)
-    out = _chain_fwd_cuda(name, u, consts, zi, spec, res=True)
-    ballistics_chain_fwd.launches += 1
-    return out
+    return _chain_fwd_cuda("ballistics_chain_fwd", u, consts, zi, spec, res=True)
 
 
+@_kernel(chunked=True)
 def ballistics_chain_bwd(u, d, last, gg, consts, spec, chunk=None):
     """Adjoint of :func:`ballistics_chain_fwd` for the gain cotangent
     ``gg``: the members' reverse walks (decisions held, each linear and
@@ -1442,14 +1414,9 @@ def ballistics_chain_bwd(u, d, last, gg, consts, spec, chunk=None):
         N)``.
     """
     name = "ballistics_chain_bwd"
-    chunk = _walk_chunk(u, chunk)
-    if _device(u, name) == "cpu":
-        return ballistics_chain_bwd_plain(u, d, last, gg, consts, spec)
     u, gg = _rows(name, u, gg)
     u, c, last, code = _chain_args(name, u, consts, last, spec)
-    if d.dtype != torch.float32 or d.shape != (last.shape[0], *u.shape) or d.device != u.device:
-        raise ValueError(f"{name}: d must be a float32 {(last.shape[0], *u.shape)} tensor on {u.device}")
-    d = d.contiguous()
+    d = _operand(name, "d", d, (last.shape[0], *u.shape), u.device).contiguous()
     n, length = u.shape
     du = torch.empty_like(u)
     grads = u.new_empty(c.shape[0] + last.shape[0], n)
@@ -1459,7 +1426,6 @@ def ballistics_chain_bwd(u, d, last, gg, consts, spec, chunk=None):
     _run(name, "grafx_chain_bwd", u, u.data_ptr(), d.data_ptr(), last.data_ptr(), gg.data_ptr(),
          c.data_ptr(), du.data_ptr(), grads.data_ptr(), scratch.data_ptr(), partials.data_ptr(),
          _ptr(carry), n, length, chunk, code)
-    ballistics_chain_bwd.launches += 1
     return du, grads[: c.shape[0]], grads[c.shape[0]:]
 
 
@@ -1490,29 +1456,7 @@ def frame_gain_core(u, at, rt, th, cf, hk, frame_len):
     Returns:
         ``(N, L)`` gains.
     """
-    args = (u, at, rt, th, cf, hk)
-    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
-        return _FrameGain.apply(*args, frame_len)
-    _device(u, "frame_gain_core")
-    return torch.ops.grafx_tpu_torch.frame_gain(u, args[1:], _frame_len(frame_len))
-
-
-@torch.library.custom_op("grafx_tpu_torch::frame_gain", mutates_args=())
-def _frame_op(u: torch.Tensor, consts: Sequence[torch.Tensor], frame_len: int) -> torch.Tensor:
-    """The frame gain's primal as a custom op; ``consts`` = (at, rt, th, cf, hk)."""
-    return frame_gain_plain(u, *consts, frame_len)
-
-
-@_frame_op.register_kernel("cuda")
-def _frame_op_cuda(u, consts, frame_len):
-    gain = _frame_fwd_cuda("frame_gain_core", u, consts, frame_len, res=False)
-    frame_gain_core.launches += 1
-    return gain
-
-
-@_frame_op.register_fake
-def _frame_op_fake(u, consts, frame_len):
-    return torch.empty_like(u)
+    return _core(_FRAME, (u, at, rt, th, cf, hk), (_frame_len(frame_len),))
 
 
 def _frame_len(frame_len):
@@ -1537,6 +1481,7 @@ def _frame_fwd_cuda(name, u, consts, frame_len, res):
     return (gain, s, d) if res else gain
 
 
+@_kernel()
 def frame_gain_fwd(u, at, rt, th, cf, hk, frame_len):
     """The frame gain plus the adjoint's residuals.
 
@@ -1545,14 +1490,10 @@ def frame_gain_fwd(u, at, rt, th, cf, hk, frame_len):
         envelope ``s`` and ``d = m - s[i-1]`` (``m`` the frame means,
         ``s[-1] = 1``), which holds the attack/release decisions.
     """
-    name = "frame_gain_fwd"
-    if _device(u, name) == "cpu":
-        return frame_gain_fwd_plain(u, at, rt, th, cf, hk, _frame_len(frame_len))
-    out = _frame_fwd_cuda(name, u, (at, rt, th, cf, hk), frame_len, res=True)
-    frame_gain_fwd.launches += 1
-    return out
+    return _frame_fwd_cuda("frame_gain_fwd", u, (at, rt, th, cf, hk), frame_len, res=True)
 
 
+@_kernel()
 def frame_gain_bwd(s, d, gg, at, rt, th, cf, hk, frame_len):
     """Adjoint of :func:`frame_gain_fwd` for the gain cotangent ``gg``:
     the knee's adjoint, the lerp's reduced into frame cotangents, the frame
@@ -1565,15 +1506,10 @@ def frame_gain_bwd(s, d, gg, at, rt, th, cf, hk, frame_len):
     """
     name = "frame_gain_bwd"
     frame_len = _frame_len(frame_len)
-    if _device(gg, name) == "cpu":
-        return frame_gain_bwd_plain(s, d, gg, at, rt, th, cf, hk, frame_len)
     (gg,) = _rows(name, gg)
     n, length = gg.shape
     frames = -(-length // frame_len)
-    if s.shape != (n, frames):
-        raise ValueError(f"{name}: s must be ({n}, {frames}) for {length} samples in frames of"
-                         f" {frame_len}, got {tuple(s.shape)}")
-    s, d = _rows(name, s, d)
+    s, d = _rows(name, _operand(name, "s", s, (n, frames), gg.device), d)
     consts = _consts(name, gg, at, rt, th, cf, hk)
     du = torch.empty_like(gg)
     part = gg.new_empty(6, n, frames)
@@ -1582,7 +1518,6 @@ def frame_gain_bwd(s, d, gg, at, rt, th, cf, hk, frame_len):
     _run(name, "grafx_frame_gain_bwd", gg, s.data_ptr(), d.data_ptr(), gg.data_ptr(),
          consts.data_ptr(), du.data_ptr(), part.data_ptr(), dm.data_ptr(), grads.data_ptr(), n,
          length, frame_len)
-    frame_gain_bwd.launches += 1
     return (du, *grads.unbind(0))
 
 
@@ -1604,121 +1539,80 @@ KERNEL_WRAPPERS = (
     frame_gain_fwd,
     frame_gain_bwd,
 )
-for _w in KERNEL_WRAPPERS:
-    _w.launches = 0
-del _w
+# each wrapper's kernel launches, counted by _run
+_LAUNCHES = dict.fromkeys((w.__name__ for w in KERNEL_WRAPPERS), 0)
 
 
 def reset_launch_counts():
     """Set every kernel wrapper's launch count to 0."""
-    for w in KERNEL_WRAPPERS:
-        w.launches = 0
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
 
 
 def launch_counts():
     """``{wrapper name: launches}`` for every kernel wrapper."""
-    return {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    return dict(_LAUNCHES)
 
 
-# ---------------------------------------------------------------------------
-# Autograd
-# ---------------------------------------------------------------------------
+# The op families' primals (#2 / #5 / #6, #1 / #3 / #4, #7 / #8 / #9, the
+# chain's and the frame gain's): their custom ops, and under gradient.
 
-
-class _Gain(torch.autograd.Function):
-    """:func:`ballistics_gain_core` with the ``custom_vjp`` of
-    ``grafx_tpu.ops.ballistics.ballistics_gain_core``."""
-
-    @staticmethod
-    def forward(ctx, u, zi, at, rt, th, cf, hk, kind):
-        gain, d, y_last = ballistics_gain_fwd(u, zi, at, rt, th, cf, hk, kind)
-        ctx.save_for_backward(u, d, y_last, at, rt, th, cf, hk)
-        ctx.kind = kind
-        return gain
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, gg):
-        u, d, y_last, *consts = ctx.saved_tensors
-        return (*ballistics_gain_bwd(u, d, y_last, gg, *consts, kind=ctx.kind), None)
-
-
-class _GainPair(torch.autograd.Function):
-    """:func:`ballistics_gain_pair_core` with the ``custom_vjp`` of
-    ``grafx_tpu.ops.ballistics.ballistics_gain_pair_core``."""
-
-    @staticmethod
-    def forward(ctx, u, *args):
-        *consts, kinds, inits = args
-        gain, d_a, d_b, v_last, u_last = ballistics_gain_pair_fwd(
-            u, *consts, kinds=kinds, inits=inits
-        )
-        ctx.save_for_backward(u, d_a, d_b, v_last, u_last, *consts)
-        ctx.kinds = kinds
-        return gain
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, gg):
-        u, d_a, d_b, v_last, u_last, *consts = ctx.saved_tensors
-        grads = ballistics_gain_pair_bwd(
-            u, d_a, d_b, v_last, u_last, gg, *consts, kinds=ctx.kinds
-        )
-        return (*grads, None, None)
-
-
-class _Chain(torch.autograd.Function):
-    """:func:`ballistics_chain_core` under gradient: the forward saves the
-    residuals of every walk, the backward is the chain's adjoint.  The
-    final states are no differentiable output."""
-
-    @staticmethod
-    def forward(ctx, u, consts, zi, spec):
-        gain, d, last = ballistics_chain_fwd(u, consts, zi, spec)
-        ctx.save_for_backward(u, d, last, consts)
-        ctx.spec = spec
-        ctx.mark_non_differentiable(last)
-        return gain, last
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, gg, _):
-        u, d, last, consts = ctx.saved_tensors
-        du, dconsts, dzi = ballistics_chain_bwd(u, d, last, gg, consts, ctx.spec)
-        return du, dconsts, dzi, None
-
-
-class _FrameGain(torch.autograd.Function):
-    """:func:`frame_gain_core` under gradient: the forward saves the frame
-    walk's ``(N, F)`` residuals and the constants, nothing ``(N, L)``."""
-
-    @staticmethod
-    def forward(ctx, u, at, rt, th, cf, hk, frame_len):
-        gain, s, d = frame_gain_fwd(u, at, rt, th, cf, hk, frame_len)
-        ctx.save_for_backward(s, d, at, rt, th, cf, hk)
-        ctx.frame_len = frame_len
-        return gain
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, gg):
-        s, d, *consts = ctx.saved_tensors
-        return (*frame_gain_bwd(s, d, gg, *consts, ctx.frame_len), None)
-
-
-class _Ballistics(torch.autograd.Function):
-    """:func:`ballistics_core` with the ``custom_vjp`` of
-    ``grafx_tpu.ops.ballistics.ballistics_core``: the forward saves only
-    ``d`` (with ``at`` and ``rt``), neither ``u`` nor ``y``."""
-
-    @staticmethod
-    def forward(ctx, u, zi, at, rt):
-        y, d = ballistics_fwd(u, zi, at, rt)
-        ctx.save_for_backward(d, at, rt)
-        return y
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, g):
-        d, at, rt = ctx.saved_tensors
-        return ballistics_bwd(d, g, at, rt)
+_GAIN = _Family(
+    name="ballistics_gain_core",
+    op=_custom_op("ballistics_gain", "(Tensor u, Tensor[] consts, str kind) -> Tensor",
+                  lambda u, consts, kind: ballistics_gain_plain(u, *consts, kind),
+                  lambda u, consts, kind: _gain_fwd_cuda(
+                      "ballistics_gain_core", u, consts, kind, False)),
+    op_args=lambda t, static: (t[0], t[1:], *static),
+    fwd=ballistics_gain_fwd,
+    keep=lambda t, out: (t[0], *out[1:], *t[2:]),
+    adjoint=lambda kept, gg, static: ballistics_gain_bwd(*kept[:3], gg, *kept[3:], *static),
+)
+_PAIR = _Family(
+    name="ballistics_gain_pair_core",
+    op=_custom_op("ballistics_gain_pair", "(Tensor u, Tensor[] consts, str kind_a, str kind_b,"
+                  " float init_a, float init_b) -> Tensor",
+                  lambda u, consts, ka, kb, ia, ib: ballistics_gain_pair_plain(
+                      u, *consts, kinds=(ka, kb), inits=(ia, ib)),
+                  lambda u, consts, ka, kb, ia, ib: _pair_fwd_cuda(
+                      "ballistics_gain_pair_core", u, consts, (ka, kb), (ia, ib), False)),
+    op_args=lambda t, static: (t[0], t[1:], *static[0], *map(float, static[1])),
+    fwd=ballistics_gain_pair_fwd,
+    keep=lambda t, out: (t[0], *out[1:], *t[1:]),
+    adjoint=lambda kept, gg, static: ballistics_gain_pair_bwd(*kept[:5], gg, *kept[5:], static[0]),
+)
+_WALK = _Family(
+    name="ballistics_core",
+    op=_custom_op("ballistics", "(Tensor u, Tensor[] consts) -> Tensor",
+                  lambda u, consts: ballistics_plain(u, *consts),
+                  lambda u, consts: _walk_fwd_cuda("ballistics_core", u, consts, False)),
+    op_args=lambda t, static: (t[0], t[1:]),
+    fwd=ballistics_fwd,
+    keep=lambda t, out: (out[1], *t[2:]),  # d, at, rt: neither u nor y
+    adjoint=lambda kept, gg, static: ballistics_bwd(kept[0], gg, *kept[1:]),
+)
+_CHAIN = _Family(
+    name="ballistics_chain_core",
+    op=_custom_op("ballistics_chain",
+                  "(Tensor u, Tensor consts, Tensor zi, SymInt code) -> (Tensor, Tensor)",
+                  lambda u, consts, zi, code: ballistics_chain_plain(u, consts, zi, chain_spec(code)),
+                  lambda u, consts, zi, code: _chain_fwd_cuda(
+                      "ballistics_chain_core", u, consts, zi, chain_spec(code), False),
+                  lambda u, consts, zi, code: (torch.empty_like(u), torch.empty_like(zi))),
+    op_args=lambda t, static: (*t, chain_code(*static)),
+    fwd=ballistics_chain_fwd,
+    keep=lambda t, out: (t[0], *out[1:], t[1]),
+    adjoint=lambda kept, gg, static: ballistics_chain_bwd(*kept[:3], gg, kept[3], *static),
+    states=True,
+)
+_FRAME = _Family(
+    name="frame_gain_core",
+    op=_custom_op("frame_gain", "(Tensor u, Tensor[] consts, SymInt frame_len) -> Tensor",
+                  lambda u, consts, frame_len: frame_gain_plain(u, *consts, frame_len),
+                  lambda u, consts, frame_len: _frame_fwd_cuda(
+                      "frame_gain_core", u, consts, frame_len, False)),
+    op_args=lambda t, static: (t[0], t[1:], *static),
+    fwd=frame_gain_fwd,
+    keep=lambda t, out: (*out[1:], *t[1:]),  # s, d and the constants: nothing (N, L)
+    adjoint=lambda kept, gg, static: frame_gain_bwd(*kept[:2], gg, *kept[2:], *static),
+)

@@ -9,7 +9,7 @@ residuals and its adjoint kernel), the one-pole through the exact
 blocked :func:`~grafx_tpu_torch.ops.iir.onepole_exact` or the truncated
 impulse response.  Where a compressor or gate can, its gain runs as the
 fused smoother + knee kernels instead (see
-``Compressor.gain_from_energy`` and ``render.fuse.FusedDynamicsChain``);
+:func:`grafx_tpu_torch.processors.dynamics.gain_op`);
 a ``FactorizedCompressor`` smooths its frames with :class:`Ballistics`.
 """
 

@@ -2,34 +2,42 @@
 (the port of :mod:`grafx_tpu.processors.dynamics`; reference:
 src/grafx/processors/dynamics.py:8-784).
 
-With a quadratic knee, no gain smoother and a ballistics or exact
-one-pole energy smoother, the gain runs as one fused smoother + knee op
-(:func:`grafx_tpu_torch.ops.ballistics.ballistics_gain_core`): a CUDA
-kernel on the card, its plain version on the CPU.  A one-pole smoother
-is the ``at == rt == 1 - alpha`` case of that recursion with initial
-state 0, and its trailing relu is a no-op on nonnegative energy.  Other
-configurations compose the smoother (:mod:`~grafx_tpu_torch.processors.
-core.envelope`) with the knee math, forward and under gradient.  A
-:class:`FactorizedCompressor` with a quadratic knee and no gain smoother
-runs its pool, frame walk, lerp and knee as one op
-(:func:`~grafx_tpu_torch.ops.ballistics.frame_gain_core`); other ones
-compose its frame smoother, which walks the frame means with the plain
-ballistics walk (:func:`~grafx_tpu_torch.ops.ballistics.ballistics_core`),
-with the knee.
+A dynamics run is a lone compressor or gate, or the members of a fused
+serial run of them (``render.fuse.FusedDynamicsChain``).  Which op
+computes a run's gain is decided here and nowhere else: :func:`gain_op`
+decides it from the members' configurations alone, once when the
+processor or the run is built, which holds it as ``gain_op``.  The ops:
 
-A compressor or gate that smooths its gain with ballistics (and has a
-quadratic knee and a ballistics or exact one-pole energy smoother) runs
-its energy walk, knee and gain walk as one dynamics chain op
-(:func:`grafx_tpu_torch.ops.ballistics.ballistics_chain_core`, the port's
-own kernel), forward, under gradient and streamed: the chain returns
-every walk's final state.  :func:`dynamics_chain_spec` decides from the
-configuration alone, once per processor, whether a run takes it;
-:func:`dynamics_chain` builds its operands only then.
+* ``"frame"``: a lone :class:`FactorizedCompressor` with a quadratic knee
+  and no gain smoother; its pool, frame walk, lerp and knee in one op
+  (:func:`~grafx_tpu_torch.ops.ballistics.frame_gain_core`);
+* ``"gain"``: one member with a quadratic knee, no gain smoother and a
+  ballistics or exact one-pole energy smoother; the smoother and the knee
+  in one op (:func:`~grafx_tpu_torch.ops.ballistics.ballistics_gain_core`).
+  A one-pole smoother is the ``at == rt == 1 - alpha`` case of that
+  recursion with initial state 0, and its trailing relu is a no-op on
+  nonnegative energy;
+* ``"pair"``: two such members, in one walk over time
+  (:func:`~grafx_tpu_torch.ops.ballistics.ballistics_gain_pair_core`);
+* ``"chain"``: one or two members that qualify as walks
+  (:func:`_walk_member`), some of which smooth their gain with
+  ballistics; every energy and gain walk of the run in one op
+  (:func:`~grafx_tpu_torch.ops.ballistics.ballistics_chain_core`, the
+  port's own kernel), forward, under gradient and streamed;
+* ``None``: composed.  A lone processor runs its smoother
+  (:mod:`~grafx_tpu_torch.processors.core.envelope`; a factorized one its
+  frame smoother) and the knee math; a run's members each run their own
+  op and the gains multiply.
 
-Other streams (``stream_init`` / ``stream_step``) compose, as
-``grafx_tpu`` does: the fused gain kernels do not return the final
-envelope a stream carries into its next block.
+:func:`dynamics_gain` computes a run's gain from its op, its members'
+parameters and its ``_absent`` mask; :func:`dynamics_gain_stream` a
+stream block's: the chain where it serves the run (the chain returns
+every walk's final state), else composed, as ``grafx_tpu`` does: the
+fused gain ops do not return the final envelope a stream carries into
+its next block.
 """
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +48,7 @@ from grafx_tpu_torch.ops.ballistics import (
     ballistics_chain_core,
     ballistics_chain_stream,
     ballistics_gain_core,
+    ballistics_gain_pair_core,
     frame_gain_core,
     frame_lerp,
     frame_means,
@@ -61,11 +70,56 @@ def _make_smoother(kind, iir_len, **backend_kwargs):
             raise ValueError(f"Unknown smoother: {kind}")
 
 
+class GainOp(NamedTuple):
+    """The op that serves a dynamics run (:func:`gain_op`): ``name``,
+    ``"frame"``, ``"gain"``, ``"pair"`` or ``"chain"``, and ``spec``, each
+    member's ``(kind, smooth)`` (:func:`_walk_member`)."""
+
+    name: str
+    spec: tuple
+
+
+def _walk_member(proc):
+    """``(kind, smooth)`` of ``proc`` in a walk op, from its configuration
+    alone: ``smooth`` is ``None`` without a gain smoother, else ``"log"``
+    or ``"linear"``; ``None`` unless the knee is quadratic, the energy
+    smoother a ballistics or exact one-pole recursion
+    (:func:`smoother_recursion`) and the gain smoother, if any, ballistics
+    (a one-pole gain smoother ends in a relu, which the walk lacks, and a
+    log gain is negative)."""
+    energy, gain = proc.energy_smoother_module, proc.gain_smoother_module
+    exact = isinstance(energy, TruncatedOnePoleIIRFilter) and energy.exact
+    if proc.knee != "quadratic" or not (exact or isinstance(energy, Ballistics)):
+        return None
+    if gain is None:
+        return proc._fused_kind, None
+    if not isinstance(gain, Ballistics):
+        return None
+    return proc._fused_kind, "log" if proc.gain_smooth_in_log else "linear"
+
+
+def gain_op(procs):
+    """The :class:`GainOp` that serves a run of ``procs`` (one or two
+    compressors or gates, in order), or ``None`` where the run composes;
+    from their configurations alone (the module docstring has the
+    rules)."""
+    if len(procs) == 1 and isinstance(procs[0], FactorizedCompressor):
+        proc = procs[0]
+        if proc.knee == "quadratic" and proc.gain_smoother is None:
+            return GainOp("frame", ((proc._fused_kind, None),))
+        return None
+    spec = tuple(_walk_member(proc) for proc in procs)
+    if not 1 <= len(spec) <= 2 or None in spec:
+        return None
+    if any(smooth is not None for _, smooth in spec):
+        return GainOp("chain", spec)
+    return GainOp("gain" if len(spec) == 1 else "pair", spec)
+
+
 def smoother_recursion(smoother, z_alpha):
     """``(at, rt, init)`` of the ballistics recursion equal to
     ``smoother`` with pre-sigmoid coefficients ``z_alpha``, or ``None``
-    when the smoother is not one (shared with
-    ``render.fuse.FusedDynamicsChain``)."""
+    when the smoother is not one."""
     if isinstance(smoother, Ballistics):
         ts = torch.sigmoid(z_alpha)
         return ts[..., 0], ts[..., 1], 1.0
@@ -75,23 +129,9 @@ def smoother_recursion(smoother, z_alpha):
     return None
 
 
-def dynamics_chain_spec(procs):
-    """The dynamics chain op's spec for a run of ``procs`` (one or two,
-    in order), decided from their configurations alone: each member's
-    :attr:`Compressor.chain_member`, or ``None`` where a member does not
-    qualify or none smooths its gain (the fused gain ops serve those
-    runs).  Shared with ``render.fuse.FusedDynamicsChain``."""
-    if not 1 <= len(procs) <= 2:
-        return None
-    spec = tuple(getattr(proc, "chain_member", None) for proc in procs)
-    if None in spec or all(smooth is None for _, smooth in spec):
-        return None
-    return spec
-
-
 def dynamics_chain(spec, members, present=None):
     """The operands of the dynamics chain op for a run of ``members``,
-    ``[(processor, params)]`` of spec ``spec`` (:func:`dynamics_chain_spec`;
+    ``[(processor, params)]`` of spec ``spec`` (:attr:`GainOp.spec`;
     ``present``: ``(N, M)`` bool, False where a member is absent):
     ``(consts, inits)``, its ``(8 M, N)`` constants and a request's initial
     state of each walk (1 for ballistics and a gain, 0 for the one-pole;
@@ -148,6 +188,92 @@ def member_states(spec, state, like):
     return states
 
 
+def _unless_absent(gain, absent, i):
+    """``gain``, exactly 1 on the rows where member ``i`` is absent."""
+    return gain if absent is None else torch.where(absent[..., i : i + 1] > 0.5, 1.0, gain)
+
+
+def _composed(members, energy, absent, member_gain):
+    """The composed path: member ``i`` gets the energy times the squared
+    product of the gains before it, ``member_gain(i, e_i)`` returns its
+    gain, and an absent member's gain is 1."""
+    gain = None
+    for i in range(len(members)):
+        e = energy if gain is None else torch.square(gain) * energy
+        g = _unless_absent(member_gain(i, e), absent, i)
+        gain = g if gain is None else gain * g
+    return gain
+
+
+def dynamics_gain(op, members, energy, absent=None):
+    """The ``(N, L)`` gain of a run of ``members``, ``[(processor,
+    params)]``, from its ``(N, L)`` energy, by ``op`` (:func:`gain_op`).
+    ``absent``: the run's ``(N, M)`` ``_absent`` mask (> 0.5 = absent),
+    where a member's gain is exactly 1 (``cf = 0`` on the pair walk,
+    ``present`` on the chain, selected elsewhere)."""
+    name = None if op is None else op.name
+    if name is None and len(members) > 1:
+        profiling.count("grafx.dynamics.composed")
+        return _composed(members, energy, absent,
+                         lambda i, e: dynamics_gain(members[i][0].gain_op, [members[i]], e))
+    if name == "chain":
+        consts, inits = dynamics_chain(op.spec, members, None if absent is None else absent <= 0.5)
+        return ballistics_chain_core(energy, consts, request_states(consts, inits), op.spec)[0]
+    if name == "pair":
+        consts, inits = [], []
+        for i, (proc, p) in enumerate(members):
+            at, rt, init = smoother_recursion(proc.energy_smoother_module, p["z_alpha_pre"])
+            th, cf, hk = proc.knee_constants(p["log_threshold"], p["log_ratio"], p["log_knee"])
+            if absent is not None:  # cf = 0 -> gain = exp(0 * f) = 1 exactly
+                cf = cf * (absent[..., i] <= 0.5).to(cf.dtype)
+            consts += [at, rt, th, cf, hk]
+            inits.append(init)
+        kinds = tuple(kind for kind, _ in op.spec)
+        return ballistics_gain_pair_core(energy, *consts, kinds, tuple(inits))
+    ((proc, p),) = members
+    if name == "gain":
+        at, rt, init = smoother_recursion(proc.energy_smoother_module, p["z_alpha_pre"])
+        th, cf, hk = proc.knee_constants(p["log_threshold"], p["log_ratio"], p["log_knee"])
+        zi = torch.full_like(at, init)
+        gain = ballistics_gain_core(energy, zi, at, rt, th, cf, hk, proc._fused_kind)
+    elif name == "frame":
+        # the tracer's device interval of the pool, the walk, the lerp and
+        # the knee, and the frames walked (rows x frames), all by the op
+        with profiling.span("grafx.dynamics.frame", energy.device):
+            ts = torch.sigmoid(p["z_alpha_pre"])
+            th, cf, hk = proc.knee_constants(p["log_threshold"], p["log_ratio"], p["log_knee"])
+            gain = frame_gain_core(energy, ts[..., 0], ts[..., 1], th, cf, hk, proc.frame_len)
+            frames = energy.shape[0] * -(-energy.shape[-1] // proc.frame_len)
+            profiling.count("ballistics.frame.frames", frames)
+            profiling.count("ballistics.frame.fused", frames)
+    else:
+        gain = proc._composed_gain(energy, **p)
+    return _unless_absent(gain, absent, 0)
+
+
+def dynamics_gain_stream(op, members, energy, states, absent=None):
+    """One block of a streamed :func:`dynamics_gain`: ``(gain, states)``,
+    with ``members`` ``[(processor, stream cache)]`` and ``states`` each
+    member's stream state (``{"energy": ..., "gain": ...}``).  The chain
+    where it serves the run, from the members' states; else composed."""
+    if op is not None and op.name == "chain":
+        consts, _ = dynamics_chain(op.spec, members, None if absent is None else absent <= 0.5)
+        gain, new = ballistics_chain_stream(energy, consts, chain_states(op.spec, states), op.spec)
+        return gain, member_states(op.spec, new, states)
+    if len(members) == 1:
+        ((proc, cache),), (state,) = members, states
+        gain, state = proc._composed_stream(energy, state, cache)
+        return _unless_absent(gain, absent, 0), [state]
+    new = []
+
+    def member_gain(i, e):
+        gain, (state,) = dynamics_gain_stream(members[i][0].gain_op, [members[i]], e, [states[i]])
+        new.append(state)
+        return gain
+
+    return _composed(members, energy, absent, member_gain), new
+
+
 class Compressor(nn.Module):
     """Feed-forward compressor with selectable energy/gain smoothing and
     knee shape (reference: dynamics.py:213-489)."""
@@ -175,8 +301,14 @@ class Compressor(nn.Module):
             raise ValueError(f"Unknown knee: {knee}")
         self.knee = knee
         self.gain_smooth_in_log = gain_smooth_in_log
-        #: the dynamics chain op's spec of this processor alone, or None
-        self.chain_spec = dynamics_chain_spec([self])
+        #: the op that serves this processor alone (:func:`gain_op`)
+        self.gain_op = gain_op([self])
+
+    @property
+    def chain_spec(self):
+        """:attr:`gain_op`'s spec where the dynamics chain serves this
+        processor, else None."""
+        return self.gain_op.spec if self.gain_op is not None and self.gain_op.name == "chain" else None
 
     def forward(
         self,
@@ -199,35 +331,8 @@ class Compressor(nn.Module):
         )
         return gain[:, None, :] * input_signals
 
-    @property
-    def chain_member(self):
-        """``(kind, smooth)`` of this processor in a walk op, from its
-        configuration alone: ``smooth`` is ``None`` without a gain
-        smoother (the fused gain ops' members), else ``"log"`` or
-        ``"linear"`` (the dynamics chain's); ``None`` unless the knee is
-        quadratic, the energy smoother a ballistics or exact one-pole
-        recursion (:func:`smoother_recursion`) and the gain smoother, if
-        any, ballistics (a one-pole gain smoother ends in a relu, which
-        the walk lacks, and a log gain is negative)."""
-        energy, gain = self.energy_smoother_module, self.gain_smoother_module
-        exact = isinstance(energy, TruncatedOnePoleIIRFilter) and energy.exact
-        if self.knee != "quadratic" or not (exact or isinstance(energy, Ballistics)):
-            return None
-        if gain is None:
-            return self._fused_kind, None
-        if not isinstance(gain, Ballistics):
-            return None
-        return self._fused_kind, "log" if self.gain_smooth_in_log else "linear"
-
-    def fused_recursion(self, z_alpha_pre):
-        """``(at, rt, init)`` when the gain can run as the fused smoother
-        + knee op, else ``None``."""
-        if self.chain_member is None or self.chain_member[1] is not None:
-            return None
-        return smoother_recursion(self.energy_smoother_module, z_alpha_pre)
-
     def knee_constants(self, log_threshold, log_ratio, log_knee):
-        """``(th, cf, hk)`` of the fused op: shifted threshold, knee
+        """``(th, cf, hk)`` of the fused ops: shifted threshold, knee
         coefficient and half-knee, each ``(N,)``."""
         ratio = 1.0 + torch.exp(log_ratio[..., 0])
         cf = 1.0 / ratio - 1.0 if self._fused_kind == "compressor" else ratio - 1.0
@@ -242,18 +347,15 @@ class Compressor(nn.Module):
         z_alpha_pre=None,
         z_alpha_post=None,
     ):
-        """Linear gain time series from the ``(N, L)`` input energy."""
-        if self.chain_spec is not None:
-            params = dict(log_threshold=log_threshold, log_ratio=log_ratio, log_knee=log_knee,
-                          z_alpha_pre=z_alpha_pre, z_alpha_post=z_alpha_post)
-            consts, inits = dynamics_chain(self.chain_spec, [(self, params)])
-            return ballistics_chain_core(energy, consts, request_states(consts, inits), self.chain_spec)[0]
-        rec = self.fused_recursion(z_alpha_pre)
-        if rec is not None:
-            at, rt, init = rec
-            th, cf, hk = self.knee_constants(log_threshold, log_ratio, log_knee)
-            zi = torch.full_like(at, init)
-            return ballistics_gain_core(energy, zi, at, rt, th, cf, hk, self._fused_kind)
+        """Linear gain time series from the ``(N, L)`` input energy, by
+        :attr:`gain_op` (:func:`dynamics_gain`)."""
+        params = dict(log_threshold=log_threshold, log_ratio=log_ratio, log_knee=log_knee,
+                      z_alpha_pre=z_alpha_pre, z_alpha_post=z_alpha_post)
+        return dynamics_gain(self.gain_op, [(self, params)], energy)
+
+    def _composed_gain(self, energy, log_threshold, log_ratio, log_knee=None, z_alpha_pre=None,
+                       z_alpha_post=None):
+        """:meth:`gain_from_energy` composed: the smoothers and the knee."""
         if self.energy_smoother_module is not None:
             energy = self.energy_smoother_module(energy, z_alpha=z_alpha_pre)
         log_energy = torch.log(energy + 1e-5)
@@ -281,17 +383,12 @@ class Compressor(nn.Module):
 
     def stream_step(self, x, state, cache):
         energy = torch.mean(torch.square(x), dim=-2)
-        gain, state = self.gain_stream_from_energy(energy, state, cache)
+        gain, (state,) = dynamics_gain_stream(self.gain_op, [(self, cache)], energy, [state])
         return gain[:, None, :] * x, state
 
-    def gain_stream_from_energy(self, energy, state, cache):
-        """Streaming counterpart of :meth:`gain_from_energy`: one block of
-        ``(N, block)`` input energy -> ``(gain, new state)``."""
-        spec = self.chain_spec
-        if spec is not None:
-            consts, _ = dynamics_chain(spec, [(self, cache)])
-            gain, new = ballistics_chain_stream(energy, consts, chain_states(spec, [state]), spec)
-            return gain, member_states(spec, new, [state])[0]
+    def _composed_stream(self, energy, state, cache):
+        """One block of :meth:`_composed_gain`: ``(N, block)`` input energy
+        -> ``(gain, new state)``."""
         e_state, g_state = state["energy"], state["gain"]
         if self.energy_smoother_module is not None:
             energy, e_state = self.energy_smoother_module.stream(
@@ -313,6 +410,7 @@ class Compressor(nn.Module):
                 torch.exp(log_gain), g_state, z_alpha=cache.get("z_alpha_post")
             )
         return gain, {"energy": e_state, "gain": g_state}
+
 
     def compute_gain(self, log_energy, log_threshold, log_ratio, log_knee):
         match self.knee:
@@ -427,6 +525,7 @@ class _FrameSmoother(nn.Module):
             return frame_lerp(s, self.frame_len, energy.shape[-1])
 
 
+
 class FactorizedCompressor(Compressor):
     """Compressor with frame-factorized ballistics smoothing
     (:class:`grafx_tpu.processors.dynamics.FactorizedCompressor`; the
@@ -436,15 +535,13 @@ class FactorizedCompressor(Compressor):
     frame means instead of the ``L`` samples, and the smoothed envelope is
     interpolated back to the sample rate: a small envelope lag for a
     ``frame_len``-times shorter serial walk.  Its smoother is not a
-    per-sample walk, so the gain never takes the fused smoother + knee op
-    (``fused_recursion`` is ``None``); it has no compact stream state.
-    Its parameters are the ballistics :class:`Compressor`'s.
+    per-sample walk, so it is no member of the walk ops; it has no compact
+    stream state.  Its parameters are the ballistics :class:`Compressor`'s.
 
-    With a quadratic knee and no gain smoother (:attr:`frame_fused`,
-    decided from the configuration) the gain is one op,
-    :func:`~grafx_tpu_torch.ops.ballistics.frame_gain_core`: pool, frame
-    walk, lerp and knee in one forward and one adjoint.  Other
-    configurations compose the frame smoother with the knee.
+    With a quadratic knee and no gain smoother its gain is the frame gain
+    op (:func:`gain_op`): pool, frame walk, lerp and knee in one forward
+    and one adjoint.  Other configurations compose the frame smoother with
+    the knee.
     """
 
     def __init__(self, frame_len=1024, gain_smoother=None, gain_smooth_in_log=False,
@@ -458,32 +555,6 @@ class FactorizedCompressor(Compressor):
         )
         self.frame_len = frame_len
         self.energy_smoother_module = _FrameSmoother(frame_len)
-        self.chain_spec = dynamics_chain_spec([self])  # None: not a per-sample walk
-        #: the gain runs as the frame gain op
-        self.frame_fused = knee == "quadratic" and gain_smoother is None
-
-    def gain_from_energy(
-        self,
-        energy,
-        log_threshold,
-        log_ratio,
-        log_knee=None,
-        z_alpha_pre=None,
-        z_alpha_post=None,
-    ):
-        if not self.frame_fused:
-            return super().gain_from_energy(energy, log_threshold, log_ratio, log_knee=log_knee,
-                                            z_alpha_pre=z_alpha_pre, z_alpha_post=z_alpha_post)
-        # the tracer's device interval of the pool, the walk, the lerp and
-        # the knee, and the frames walked (rows x frames), all by the op
-        with profiling.span("grafx.dynamics.frame", energy.device):
-            ts = torch.sigmoid(z_alpha_pre)
-            th, cf, hk = self.knee_constants(log_threshold, log_ratio, log_knee)
-            gain = frame_gain_core(energy, ts[..., 0], ts[..., 1], th, cf, hk, self.frame_len)
-            frames = energy.shape[0] * -(-energy.shape[-1] // self.frame_len)
-            profiling.count("ballistics.frame.frames", frames)
-            profiling.count("ballistics.frame.fused", frames)
-            return gain
 
     def stream_init(self, num_channels, block_len, **params):
         raise NotImplementedError(

@@ -90,9 +90,10 @@ counters                       ``grafx.call.eager``, ``.captures``,
                                ``ballistics.frame.fused``: those the
                                frame gain op walks;
                                ``grafx.dynamics.composed``: runs of a
-                               fused dynamics chain that compose their
-                               members' gains (neither the pair walk nor
-                               the dynamics chain)
+                               fused dynamics chain of two or more
+                               members that compose their members' gains
+                               (neither the pair walk nor the dynamics
+                               chain)
 =============================  ==========================================
 """
 

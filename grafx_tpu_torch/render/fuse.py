@@ -5,9 +5,9 @@ the rationale and measurements live there).
 * **IIR** — exact-backend biquad cascades compose by concatenating their
   section stacks (:class:`FusedBiquadChain`).
 * **Dynamics** — compressors / gates share one channel energy and thread
-  gain products (:class:`FusedDynamicsChain`); a gate -> compressor pair
-  runs both recursions in one walk over time (streamed, the members'
-  gains compose, each carrying its smoother state).
+  gain products (:class:`FusedDynamicsChain`); which op serves a run is
+  :mod:`grafx_tpu_torch.processors.dynamics`' choice (a gate ->
+  compressor pair runs both recursions in one walk over time).
 * **FIR** — FIR-LTI processors (gains, delays, reverbs, zero-phase EQs,
   fsm-backend biquad cascades, containers of such) compose their impulse
   responses by short convolutions, and the chain applies ONE
@@ -32,17 +32,10 @@ from torch import nn
 from grafx_tpu_torch import profiling
 from grafx_tpu_torch.data.configs import UTILITY_TYPES, NodeConfigs
 from grafx_tpu_torch.data.graph import GRAFX
-from grafx_tpu_torch.ops.ballistics import (
-    ballistics_chain_core,
-    ballistics_chain_stream,
-    ballistics_gain_pair_core,
-)
 from grafx_tpu_torch.ops.fftconv import conv_stream_apply, conv_stream_init, fft_convolve
 from grafx_tpu_torch.processors.core.iir import IIRFilter
 from grafx_tpu_torch.processors.core.utils import accepts_noise_key, lti_kind_of
-from grafx_tpu_torch.processors.dynamics import (
-    chain_states, dynamics_chain, dynamics_chain_spec, member_states, request_states,
-)
+from grafx_tpu_torch.processors.dynamics import dynamics_gain, dynamics_gain_stream, gain_op
 from grafx_tpu_torch.random import fold_in
 from grafx_tpu_torch.render.order.graph import compute_render_order
 from grafx_tpu_torch.render.order.tensor import node_id_from_render_order
@@ -253,110 +246,35 @@ class FusedDynamicsChain(_FusedChain):
     ``mean((g x)^2, ch) == g^2 mean(x^2, ch)``, so a run needs the channel
     energy once and touches the signal once with the product of gains.
 
-    A 2-member run whose members smooth with ballistics or the exact
-    one-pole, with quadratic knees and no gain smoothing, runs as ONE
-    walk over time (:func:`~grafx_tpu_torch.ops.ballistics.
-    ballistics_gain_pair_core`).  A run of one or two such members of
-    which some smooth their gains with ballistics runs as ONE dynamics
-    chain op (:func:`~grafx_tpu_torch.ops.ballistics.
-    ballistics_chain_core`, the port's own kernel: every energy and gain
-    walk of the run in one pass), forward, under gradient and streamed.
-    Other runs compose the members' gains (each member's
-    ``gain_from_energy``: a ``FactorizedCompressor`` member has no
-    per-sample walk, so a gate before it runs its own fused gain op and
-    the compressor its frame smoother).
+    Which op computes the run's gain (the pair walk, the dynamics chain,
+    or the members' own ops composed) is decided once, from the members'
+    configurations, by :func:`~grafx_tpu_torch.processors.dynamics.gain_op`
+    and held as :attr:`gain_op`; :func:`~grafx_tpu_torch.processors.
+    dynamics.dynamics_gain` and its stream counterpart compute it.
 
     Padding (``fuse_serial_lti(dynamics_pad=...)``): the per-node
     ``_absent`` parameter ``(N, k)`` (> 0.5 = absent) marks a missing
-    member, whose gain is then exactly 1 (``cf = 0`` on the pair walk,
-    selected on the chain).
+    member, whose gain is then exactly 1.
     """
 
     def __init__(self, named_processors):
         super().__init__(named_processors)
-        procs = [proc for _, proc in self.members]
-        # which walk op serves the run, decided once from the configuration
-        self.chain_spec = dynamics_chain_spec(procs)
-        self.pair = len(procs) == 2 and all(
-            getattr(proc, "chain_member", None) is not None and proc.chain_member[1] is None
-            for proc in procs
-        )
-
-    def _pair_kernel_args(self, nested_params):
-        """Per-member recursion and knee constants if the single-walk
-        pair path applies, else ``None``."""
-        if not self.pair:
-            return None
-        absent = nested_params.get("_absent")
-        consts = []
-        for idx, (name, proc) in enumerate(self.members):
-            p = nested_params[name]
-            at, rt, init = proc.fused_recursion(p.get("z_alpha_pre"))
-            th, cf, hk = proc.knee_constants(
-                p["log_threshold"], p["log_ratio"], p["log_knee"]
-            )
-            if absent is not None:
-                # absent member -> cf = 0 -> gain = exp(0 * f) = 1 exactly
-                cf = cf * (absent[..., idx] <= 0.5).to(cf.dtype)
-            consts.append(
-                dict(at=at, rt=rt, th=th, cf=cf, hk=hk,
-                     kind=proc._fused_kind, init=init)
-            )
-        return consts
-
-    def _chain_kernel_args(self, params):
-        """:func:`~grafx_tpu_torch.processors.dynamics.dynamics_chain` of
-        the run (``params``: each member's by name, ``_absent``); call
-        only where :attr:`chain_spec` is set."""
-        absent = params.get("_absent")
-        return dynamics_chain(self.chain_spec, [(proc, params[name]) for name, proc in self.members],
-                              None if absent is None else absent <= 0.5)
+        #: the op that serves the run, decided once from the configuration
+        self.gain_op = gain_op([proc for _, proc in self.members])
 
     def forward(self, input_signals, **nested_params):
         energy = torch.mean(torch.square(input_signals), dim=-2)
-        pair = self._pair_kernel_args(nested_params)
-        if pair is not None:
-            a, b = pair
-            gain = ballistics_gain_pair_core(
-                energy,
-                a["at"], a["rt"], a["th"], a["cf"], a["hk"],
-                b["at"], b["rt"], b["th"], b["cf"], b["hk"],
-                (a["kind"], b["kind"]),
-                (a["init"], b["init"]),
-            )
-            return gain[:, None, :] * input_signals
-        if self.chain_spec is not None:
-            consts, inits = self._chain_kernel_args(nested_params)
-            gain = ballistics_chain_core(energy, consts, request_states(consts, inits), self.chain_spec)[0]
-            return gain[:, None, :] * input_signals
-        profiling.count("grafx.dynamics.composed")
-        gain = self._gain_product(
-            energy, nested_params.get("_absent"),
-            lambda name, proc, e: proc.gain_from_energy(e, **nested_params[name]),
-        )
+        members = [(proc, nested_params[name]) for name, proc in self.members]
+        gain = dynamics_gain(self.gain_op, members, energy, nested_params.get("_absent"))
         return gain[:, None, :] * input_signals
-
-    def _gain_product(self, energy, absent, member_gain):
-        """The composed path: member ``i`` gets the energy times the squared
-        product of the gains before it, ``member_gain(name, proc, e_i)``
-        returns its gain, and an absent member's gain is 1."""
-        gain = None
-        for idx, (name, proc) in enumerate(self.members):
-            e_i = energy if gain is None else torch.square(gain) * energy
-            g_i = member_gain(name, proc, e_i)
-            if absent is not None:
-                g_i = torch.where(absent[..., idx : idx + 1] > 0.5, 1.0, g_i)
-            gain = g_i if gain is None else gain * g_i
-        return gain
 
     # -- streaming -----------------------------------------------------
 
     def stream_init(self, num_channels, block_len, **nested_params):
         """Streaming contract: carry every member's smoother state; a
         block runs the dynamics chain op where ``forward`` does (it takes
-        and returns each walk's state), else threads the gain products as
-        ``forward``'s composed path does (the pair walk does not return
-        its final envelopes)."""
+        and returns each walk's state), else composes the members' gains
+        (the pair walk does not return its final envelopes)."""
         states, caches = {}, {}
         for name, proc in self.members:
             states[name], caches[name] = proc.stream_init(
@@ -368,21 +286,12 @@ class FusedDynamicsChain(_FusedChain):
 
     def stream_step(self, x, state, cache):
         energy = torch.mean(torch.square(x), dim=-2)
-        spec = self.chain_spec
-        if spec is not None:
-            consts, _ = self._chain_kernel_args(cache)
-            names = [name for name, _ in self.members]
-            like = [state[name] for name in names]
-            gain, new = ballistics_chain_stream(energy, consts, chain_states(spec, like), spec)
-            return gain[:, None, :] * x, dict(zip(names, member_states(spec, new, like)))
-        new_state = {}
-
-        def member_gain(name, proc, e):
-            g, new_state[name] = proc.gain_stream_from_energy(e, state[name], cache[name])
-            return g
-
-        gain = self._gain_product(energy, cache.get("_absent"), member_gain)
-        return gain[:, None, :] * x, new_state
+        names = [name for name, _ in self.members]
+        gain, states = dynamics_gain_stream(
+            self.gain_op, [(proc, cache[name]) for name, proc in self.members], energy,
+            [state[name] for name in names], cache.get("_absent"),
+        )
+        return gain[:, None, :] * x, dict(zip(names, states))
 
     def parameter_size(self):
         sizes = super().parameter_size()

@@ -93,9 +93,9 @@ def test_gain_plain_matches_pallas(kind, N, L, onepole, absent):
         chunk=CHUNK, kind=kind, interpret=True,
     )
     ref = np.asarray(ref[:L, :N].T)
-    before = ballistics_gain_core.launches
+    before = bal.launch_counts()["ballistics_gain_core"]
     got = ballistics_gain_core(torch.tensor(u), *_t(consts), kind=kind).numpy()
-    assert ballistics_gain_core.launches == before  # CPU tensors: plain version
+    assert bal.launch_counts()["ballistics_gain_core"] == before  # CPU tensors: plain version
     assert got.shape == (N, L)
     assert np.abs(got - ref).max() < MAX_ABS
     if absent:
@@ -125,11 +125,11 @@ def test_gain_pair_plain_matches_pallas(kinds, inits, N, L, absent):
         chunk=CHUNK, kinds=kinds, interpret=True, with_residuals=False, inits=inits,
     )
     ref = np.asarray(ref[:L, :N].T)
-    before = ballistics_gain_pair_core.launches
+    before = bal.launch_counts()["ballistics_gain_pair_core"]
     got = ballistics_gain_pair_core(
         torch.tensor(u), *_t(ca), *_t(cb), kinds=kinds, inits=inits
     ).numpy()
-    assert ballistics_gain_pair_core.launches == before
+    assert bal.launch_counts()["ballistics_gain_pair_core"] == before
     assert got.shape == (N, L)
     assert np.abs(got - ref).max() < MAX_ABS
     if absent is not None:
@@ -199,21 +199,70 @@ PAIR_BWD_CASES = [
 ]
 
 
-@pytest.mark.parametrize("kind, N, L, onepole, absent", GAIN_BWD_CASES)
-def test_gain_fwd_bwd_plain_match_pallas(kind, N, L, onepole, absent):
-    """#5 and #6: gain, residuals and every gradient against
-    forward_gain_pallas_tm / backward_gain_pallas_tm."""
+# The interpreted Pallas references of the cases below, computed once a
+# case: the chunked-walk tests hold the plain adjoints to the same ones.
+_PALLAS = {}
+
+
+def _pallas_once(key, compute):
+    """``compute()``'s arrays as read-only numpy arrays, cached by ``key``."""
+    if key not in _PALLAS:
+        _PALLAS[key] = tuple(np.asarray(a) for a in compute())
+        for a in _PALLAS[key]:
+            a.setflags(write=False)
+    return _PALLAS[key]
+
+
+def _gain_case(kind, N, L, onepole, absent):
+    """A GAIN_BWD_CASES case's inputs, and its Pallas forward with
+    residuals and adjoint: ``(gain_t, d_t, ylast, *outs)``."""
     rng = np.random.RandomState(N + L + 3)
     u = _energy(rng, N, L)
     consts = _consts(rng, N, kind, onepole, absent)
     gg = rng.randn(N, L).astype(np.float32)
-    ut = pad_time_major(jnp.asarray(u), CHUNK)
-    lanes = [_lanes(c) for c in consts]
-    gain_t, d_t, ylast = forward_gain_pallas_tm(ut, *lanes, chunk=CHUNK, kind=kind, interpret=True)
-    outs = backward_gain_pallas_tm(
-        d_t, ut, ylast, pad_time_major(jnp.asarray(gg), CHUNK), *lanes[1:],
-        chunk=CHUNK, kind=kind, interpret=True,
-    )
+
+    def pallas():
+        ut = pad_time_major(jnp.asarray(u), CHUNK)
+        lanes = [_lanes(c) for c in consts]
+        gain_t, d_t, ylast = forward_gain_pallas_tm(ut, *lanes, chunk=CHUNK, kind=kind, interpret=True)
+        outs = backward_gain_pallas_tm(
+            d_t, ut, ylast, pad_time_major(jnp.asarray(gg), CHUNK), *lanes[1:],
+            chunk=CHUNK, kind=kind, interpret=True,
+        )
+        return gain_t, d_t, ylast, *outs
+
+    return u, consts, gg, _pallas_once(("gain", kind, N, L, onepole, absent), pallas)
+
+
+def _pair_case(kinds, inits, N, L, absent):
+    """A PAIR_BWD_CASES case's inputs, and its Pallas forward with
+    residuals and adjoint: ``(gain_t, da_t, db_t, vlast, ulast, *outs)``."""
+    rng = np.random.RandomState(N + L + 11)
+    u = _energy(rng, N, L)
+    ca = _consts(rng, N, kinds[0], onepole=inits[0] == 0.0, absent=absent == 0)[1:]
+    cb = _consts(rng, N, kinds[1], absent=absent == 1)[1:]
+    gg = rng.randn(N, L).astype(np.float32)
+
+    def pallas():
+        ut = pad_time_major(jnp.asarray(u), CHUNK)
+        la, lb = tuple(_lanes(c) for c in ca), tuple(_lanes(c) for c in cb)
+        fwd = forward_gain_pair_pallas_tm(
+            ut, la, lb, chunk=CHUNK, kinds=kinds, interpret=True, with_residuals=True, inits=inits,
+        )
+        outs = backward_gain_pair_pallas_tm(
+            *fwd[1:3], ut, *fwd[3:], pad_time_major(jnp.asarray(gg), CHUNK), la, lb,
+            chunk=CHUNK, kinds=kinds, interpret=True,
+        )
+        return *fwd, *outs
+
+    return u, ca, cb, gg, _pallas_once(("pair", kinds, inits, N, L, absent), pallas)
+
+
+@pytest.mark.parametrize("kind, N, L, onepole, absent", GAIN_BWD_CASES)
+def test_gain_fwd_bwd_plain_match_pallas(kind, N, L, onepole, absent):
+    """#5 and #6: gain, residuals and every gradient against
+    forward_gain_pallas_tm / backward_gain_pallas_tm."""
+    u, consts, gg, (gain_t, d_t, ylast, *outs) = _gain_case(kind, N, L, onepole, absent)
 
     before = bal.launch_counts()
     gain, d, y_last = bal.ballistics_gain_fwd(torch.tensor(u), *_t(consts), kind=kind)
@@ -248,20 +297,7 @@ def test_gain_pair_fwd_bwd_plain_match_pallas(kinds, inits, N, L, absent):
     """#3 and #4: gain, residuals and the eleven gradients against
     forward_gain_pair_pallas_tm(with_residuals=True) /
     backward_gain_pair_pallas_tm."""
-    rng = np.random.RandomState(N + L + 11)
-    u = _energy(rng, N, L)
-    ca = _consts(rng, N, kinds[0], onepole=inits[0] == 0.0, absent=absent == 0)[1:]
-    cb = _consts(rng, N, kinds[1], absent=absent == 1)[1:]
-    gg = rng.randn(N, L).astype(np.float32)
-    ut = pad_time_major(jnp.asarray(u), CHUNK)
-    la, lb = tuple(_lanes(c) for c in ca), tuple(_lanes(c) for c in cb)
-    gain_t, da_t, db_t, vlast, ulast = forward_gain_pair_pallas_tm(
-        ut, la, lb, chunk=CHUNK, kinds=kinds, interpret=True, with_residuals=True, inits=inits,
-    )
-    outs = backward_gain_pair_pallas_tm(
-        da_t, db_t, ut, vlast, ulast, pad_time_major(jnp.asarray(gg), CHUNK), la, lb,
-        chunk=CHUNK, kinds=kinds, interpret=True,
-    )
+    u, ca, cb, gg, (gain_t, da_t, db_t, vlast, ulast, *outs) = _pair_case(kinds, inits, N, L, absent)
 
     before = bal.launch_counts()
     ut_ = torch.tensor(u)
@@ -583,9 +619,9 @@ def test_reverse_scan_plain_matches_pallas(N, L):
         pad_time_major(jnp.asarray(a), CHUNK), pad_time_major(jnp.asarray(g), CHUNK),
         chunk=CHUNK, interpret=True,
     )
-    before = bal.reverse_scan.launches
+    before = bal.launch_counts()["reverse_scan"]
     got = bal.reverse_scan(*_t([a, g]))
-    assert bal.reverse_scan.launches == before
+    assert bal.launch_counts()["reverse_scan"] == before
     assert got.shape == (N, L)
     _close(got, ref[:L, :N].T, RTOL_D, ATOL_D, "gh")
     # the coefficient at n, not at n + 1: gh[L-1] = g[L-1] and

@@ -39,8 +39,7 @@ from grafx_tpu import processors as jp
 from grafx_tpu_torch import processors as tp
 from grafx_tpu_torch.ops import ballistics as bal
 import grafx_tpu_torch.processors.dynamics as tdyn
-import grafx_tpu_torch.render.fuse as tfuse
-from grafx_tpu_torch.processors.dynamics import dynamics_chain, dynamics_chain_spec, request_states
+from grafx_tpu_torch.processors.dynamics import dynamics_chain, gain_op, request_states
 from test_torch_dynamics import db, noise
 from test_torch_processors import random_params
 
@@ -111,7 +110,7 @@ def port_chain(run, energy, params, present, dtype=torch.float32):
     procs = members(run, tp)
     tparams = {k: {p: torch.tensor(v, dtype=dtype, requires_grad=True) for p, v in d.items()}
                for k, d in params.items()}
-    spec = dynamics_chain_spec([proc for _, proc in procs])
+    spec = gain_op([proc for _, proc in procs]).spec
     consts, inits = dynamics_chain(spec, [(proc, tparams[name]) for name, proc in procs],
                                       torch.tensor(present))
     zi = request_states(consts, inits)
@@ -266,39 +265,6 @@ def test_streamed_composite_and_compressor_match_their_forward():
         assert torch.equal(torch.cat(outs, dim=-1), one)
 
 
-def test_runs_the_chain_qualifies():
-    """dynamics_chain_spec takes, from the configuration alone, quadratic
-    knees, ballistics or exact one-pole energy and ballistics gain
-    smoothing, one or two members of which one smooths its gain; the
-    rest keep their paths (None).  Each processor and each
-    FusedDynamicsChain holds its decision from construction."""
-    from grafx_tpu_torch.render.fuse import FusedDynamicsChain
-
-    def chain(*procs):
-        spec = dynamics_chain_spec(procs)
-        if len(procs) == 1:
-            assert procs[0].chain_spec == spec
-        fused = FusedDynamicsChain([(str(i), p) for i, p in enumerate(procs)])
-        assert fused.chain_spec == spec
-        return spec
-
-    lin = dict(energy_smoother="ballistics", gain_smoother="ballistics")
-    assert chain(tp.Compressor(**lin)) == (("compressor", "linear"),)
-    assert chain(tp.NoiseGate(energy_smoother="iir_exact"), tp.Compressor(**lin, gain_smooth_in_log=True)) == (
-        ("noisegate", None), ("compressor", "log"))
-    assert chain(tp.Compressor(energy_smoother="ballistics")) is None  # the fused gain op's
-    pair = (tp.NoiseGate(energy_smoother="iir_exact"), tp.Compressor(energy_smoother="ballistics"))
-    assert chain(*pair) is None and FusedDynamicsChain(list(zip("ab", pair))).pair  # the pair's
-    assert not FusedDynamicsChain([("a", tp.NoiseGate(energy_smoother="iir_exact")),
-                                   ("b", tp.Compressor(**lin))]).pair
-    assert chain(tp.NoiseGate(), tp.Compressor(energy_smoother="ballistics")) is None  # composed
-    assert chain(tp.Compressor(**lin, knee="hard")) is None
-    assert chain(tp.Compressor(energy_smoother="iir", gain_smoother="ballistics")) is None
-    assert chain(tp.Compressor(energy_smoother="ballistics", gain_smoother="iir_exact")) is None
-    assert chain(tp.FactorizedCompressor(frame_len=256, gain_smoother="ballistics")) is None
-    assert chain(*[tp.Compressor(**lin)] * 3) is None
-
-
 @pytest.mark.parametrize("case", ["pair", "lone fused", "composed", "factorized"])
 def test_other_runs_build_no_chain_operands(monkeypatch, case):
     """Runs the chain does not serve (the pair walk's, a lone fused gain
@@ -324,9 +290,8 @@ def test_other_runs_build_no_chain_operands(monkeypatch, case):
     if "_absent" in p:
         p["_absent"] = torch.zeros(N, len(members))
     x = torch.tensor(noise(rng, (N, 2, L), 0.01))
-    for mod in (tdyn, tfuse):
-        for name in ("dynamics_chain", "ballistics_chain_core"):
-            monkeypatch.setattr(mod, name, refuse)
+    for name in ("dynamics_chain", "ballistics_chain_core"):
+        monkeypatch.setattr(tdyn, name, refuse)
     with torch.no_grad():
         one = proc(x, **p)
     leaf = next(iter(p.values())) if len(members) == 1 else p["0_m"]["log_threshold"]

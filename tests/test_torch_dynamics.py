@@ -106,6 +106,69 @@ def test_approx_processors_and_followers_match(make):
     assert_match(make(jp), make(tp), quiet=0.1)
 
 
+BAL, EXACT = dict(energy_smoother="ballistics"), dict(energy_smoother="iir_exact")
+LIN, LOG = dict(gain_smoother="ballistics"), dict(gain_smoother="ballistics", gain_smooth_in_log=True)
+C, G = ("Compressor", "compressor"), ("NoiseGate", "noisegate")
+FC = ("FactorizedCompressor", "compressor")
+GAIN_OP_CASES = {
+    # one compressor or gate: the fused gain op, the chain, or composed
+    "comp-iir": ([(C, dict(energy_smoother="iir"))], None),  # the truncated one-pole composes
+    "gate-iir": ([(G, dict(energy_smoother="iir"))], None),
+    "comp-none": ([(C, dict(energy_smoother=None))], None),
+    "comp-exact": ([(C, EXACT)], ("gain", ((C[1], None),))),
+    "comp-ballistics": ([(C, BAL)], ("gain", ((C[1], None),))),
+    "gate-exact": ([(G, EXACT)], ("gain", ((G[1], None),))),
+    "gate-ballistics": ([(G, BAL)], ("gain", ((G[1], None),))),
+    "comp-hard": ([(C, dict(BAL, knee="hard"))], None),
+    "comp-exponential": ([(C, dict(BAL, knee="exponential"))], None),
+    "gate-exact-exponential": ([(G, dict(EXACT, knee="exponential"))], None),
+    "comp-lin": ([(C, dict(BAL, **LIN))], ("chain", ((C[1], "linear"),))),
+    "comp-exact-log": ([(C, dict(EXACT, **LOG))], ("chain", ((C[1], "log"),))),
+    "gate-lin": ([(G, dict(BAL, **LIN))], ("chain", ((G[1], "linear"),))),
+    "gate-exact-log": ([(G, dict(EXACT, **LOG))], ("chain", ((G[1], "log"),))),
+    "comp-lin-hard": ([(C, dict(BAL, **LIN, knee="hard"))], None),
+    "comp-iir-lin": ([(C, dict(energy_smoother="iir", **LIN))], None),
+    "comp-exact-gain": ([(C, dict(BAL, gain_smoother="iir_exact"))], None),  # a one-pole gain smoother
+    "comp-iir-gain": ([(C, dict(BAL, gain_smoother="iir"))], None),
+    # a lone factorized compressor: the frame gain op or composed
+    "factorized": ([(FC, dict(frame_len=256))], ("frame", ((FC[1], None),))),
+    "factorized-hard": ([(FC, dict(frame_len=256, knee="hard"))], None),
+    "factorized-exponential": ([(FC, dict(frame_len=256, knee="exponential"))], None),
+    "factorized-lin": ([(FC, dict(frame_len=256, **LIN))], None),
+    # gate -> compressor runs
+    "pair": ([(G, EXACT), (C, BAL)], ("pair", ((G[1], None), (C[1], None)))),
+    "pair-ballistics-exact": ([(G, BAL), (C, EXACT)], ("pair", ((G[1], None), (C[1], None)))),
+    "pair-then-log": ([(G, EXACT), (C, dict(BAL, **LOG))], ("chain", ((G[1], None), (C[1], "log")))),
+    "console": ([(G, dict(EXACT, **LOG)), (C, dict(BAL, **LIN))],
+                ("chain", ((G[1], "log"), (C[1], "linear")))),
+    "lin-then-plain": ([(G, dict(BAL, **LIN)), (C, EXACT)], ("chain", ((G[1], "linear"), (C[1], None)))),
+    "pair-iir": ([(G, dict(energy_smoother="iir")), (C, BAL)], None),
+    "pair-off-knees": ([(G, dict(EXACT, knee="exponential")), (C, dict(BAL, **LIN, knee="hard"))], None),
+    "gate-then-factorized": ([(G, EXACT), (FC, dict(frame_len=256))], None),
+    "lin-then-factorized": ([(G, dict(BAL, **LIN)), (FC, dict(frame_len=256))], None),
+    "three": ([(C, dict(BAL, **LIN))] * 3, None),
+}
+
+
+@pytest.mark.parametrize("case", list(GAIN_OP_CASES))
+def test_each_configuration_takes_its_gain_op(case):
+    """The op that serves a dynamics run (processors.dynamics.gain_op),
+    decided from the members' configurations alone and held from
+    construction by a lone processor and by a FusedDynamicsChain of the
+    run: quadratic knees and ballistics or exact one-pole energy take the
+    fused gain ops (one member: the gain op, two: the pair walk), and the
+    chain where some member smooths its gain with ballistics; a lone
+    quadratic-knee FactorizedCompressor without a gain smoother takes the
+    frame gain op; the rest compose."""
+    members, want = GAIN_OP_CASES[case]
+    procs = [getattr(tp, cls)(**kwargs) for (cls, _), kwargs in members]
+    assert tdyn.gain_op(procs) == want
+    assert tfuse.FusedDynamicsChain([(f"{i}_m", p) for i, p in enumerate(procs)]).gain_op == want
+    if len(procs) == 1:
+        assert procs[0].gain_op == want
+        assert procs[0].chain_spec == (want[1] if want is not None and want[0] == "chain" else None)
+
+
 @pytest.mark.parametrize(
     "kwargs",
     [
@@ -118,7 +181,7 @@ def test_approx_processors_and_followers_match(make):
 def test_composed_compressors_match(kwargs):
     """Configurations off the fused gain op: the smoother (the plain
     ballistics walk with its adjoint) composed with the knee."""
-    assert tp.Compressor(**kwargs).fused_recursion(torch.zeros(N, 2)) is None
+    assert getattr(tp.Compressor(**kwargs).gain_op, "name", None) in (None, "chain")
     assert_match(jp.Compressor(**kwargs), tp.Compressor(**kwargs))
 
 
@@ -133,7 +196,7 @@ def test_factorized_compressor_never_takes_the_fused_gain(monkeypatch):
 
     monkeypatch.setattr(tdyn, "ballistics_gain_core", refuse)
     comp = tp.FactorizedCompressor(frame_len=256)
-    assert comp.fused_recursion(torch.zeros(N, 2)) is None
+    assert comp.gain_op.name == "frame"
     assert comp.parameter_size() == tp.Compressor(energy_smoother="ballistics").parameter_size()
     calls = count_calls(
         monkeypatch, bal, ("frame_gain_plain", "frame_gain_fwd_plain", "frame_gain_bwd_plain")
@@ -166,7 +229,7 @@ def test_fused_chain_with_factorized_member_matches(monkeypatch):
     params = random_params(tchain.parameter_size(), n, rng)
     params["_absent"] = np.zeros((n, 2), np.float32)
     params["_absent"][1::2, 0] = 1.0
-    assert tchain._pair_kernel_args(to_torch(params)) is None
+    assert tchain.gain_op is None
     calls = count_calls(monkeypatch, tdyn, ("ballistics_gain_core",))
     x = noise(np.random.default_rng(0), (n, 2, L), 0.01)
     got = tchain(torch.tensor(x), **to_torch(params)).numpy()

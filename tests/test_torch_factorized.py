@@ -140,7 +140,7 @@ def composite_gain(proc, energy, p):
     """The gain as the composite computes it: for the op's configurations
     its frame smoother, log, the quadratic knee and exp, written out;
     for the others Compressor.gain_from_energy, which composes them."""
-    if not proc.frame_fused:
+    if proc.gain_op is None:
         return tp.Compressor.gain_from_energy(proc, energy, **p)
     env = tdyn._FrameSmoother(proc.frame_len)(energy, z_alpha=p["z_alpha_pre"])
     log_gain = tp.Compressor.gain_quad_knee(torch.log(env + 1e-5), p["log_threshold"] - 6.0,
@@ -161,7 +161,7 @@ def test_frame_gain_core_against_the_composite(monkeypatch, knee, gain_smoother,
     rng = np.random.default_rng(length + frame_len)
     n = 4
     proc = tp.FactorizedCompressor(frame_len=frame_len, knee=knee, gain_smoother=gain_smoother)
-    assert proc.frame_fused == (knee == "quadratic" and gain_smoother is None)
+    assert (proc.gain_op is not None) == (knee == "quadratic" and gain_smoother is None)
     # energy with -40 dB passages; a row's threshold (less 6 dB) well below
     # its mean energy, two near it (inside the knee) and one well above;
     # slow and fast attacks and releases (at < rt on some rows)
@@ -186,7 +186,7 @@ def test_frame_gain_core_against_the_composite(monkeypatch, knee, gain_smoother,
     refs = torch.autograd.grad(ref, leaves, gg)
     frames = n * -(-length // frame_len)
     assert counters["ballistics.frame.frames"] == frames
-    if not proc.frame_fused:
+    if proc.gain_op is None:
         assert torch.equal(got, ref) and all(torch.equal(a, b) for a, b in zip(grads, refs))
         assert counters.get("ballistics.frame.fused", 0) == 0 and calls == {}
         return

@@ -165,13 +165,11 @@ def test_fused_plan_matches_grafx_tpu(run):
     assert types(c.fused_graph) == types(run["Gj2"])
     assert PAIR in c.fused_processors and PAIR in run["procs_j2"]
     params = c.params[PAIR]
-    assert c.fused_processors[PAIR]._pair_kernel_args(params) is None
+    assert c.fused_processors[PAIR].gain_op == ("chain", (("noisegate", "log"), ("compressor", "linear")))
     assert run["procs_j2"][PAIR]._pair_kernel_args(
         jax.tree.map(lambda v: jnp.asarray(v.numpy()), params)) is None
-    spec = c.fused_processors[PAIR].chain_spec
-    assert spec == (("noisegate", "log"), ("compressor", "linear"))
-    for name, proc in c.fused_processors[PAIR].members:
-        assert proc.gain_smoother == "ballistics" and proc.fused_recursion(params[name]["z_alpha_pre"]) is None
+    for _, proc in c.fused_processors[PAIR].members:
+        assert proc.gain_smoother == "ballistics" and proc.gain_op.name == "chain"
 
 
 def test_render_matches_grafx_tpu(run):

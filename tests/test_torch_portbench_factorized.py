@@ -97,7 +97,7 @@ def assert_agree(port, ref):
 @pytest.mark.parametrize("length", LENGTHS)
 def test_reference_matches_the_port(length, slow):
     proc = tp.FactorizedCompressor(**SPEC["args"])
-    assert proc.chain_spec is None and proc.fused_recursion(None) is None  # the composed path
+    assert proc.gain_op == ("frame", (("compressor", None),))  # the frame gain op
     assert {k: tuple(v) if isinstance(v, tuple) else (v,) for k, v in proc.parameter_size().items()} \
         == FactorizedCompressor.parameter_size(SPEC["args"])
     port, ref, x = port_and_reference(length, slow)

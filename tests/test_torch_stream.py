@@ -141,9 +141,9 @@ def test_ballistics_plain_matches_pallas(reference, N, n):
     tests/ops/test_ballistics_pallas.py."""
     args = _walk_inputs(N, n, N + n)
     ref = (_time_major_pallas if reference == "_kernel" else _natural_pallas)(*args)
-    before = bal.ballistics_core.launches
+    before = bal.launch_counts()["ballistics_core"]
     got = bal.ballistics_core(*(torch.tensor(a) for a in args)).numpy()
-    assert bal.ballistics_core.launches == before  # CPU tensors: plain version
+    assert bal.launch_counts()["ballistics_core"] == before  # CPU tensors: plain version
     np.testing.assert_array_equal(got, bal.ballistics_plain(*(torch.tensor(a) for a in args)))
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
 
@@ -163,12 +163,12 @@ def test_ballistics_state_carry_is_exact(n, split):
 def _chain_case(n):
     """A gate -> compressor dynamics chain, both gain-smoothed, on ``n``
     rows: ``(consts, zi, spec)`` of random parameters."""
-    from grafx_tpu_torch.processors.dynamics import dynamics_chain, dynamics_chain_spec, request_states
+    from grafx_tpu_torch.processors.dynamics import dynamics_chain, gain_op, request_states
 
     members = [tp.NoiseGate(energy_smoother="ballistics", gain_smoother="ballistics"),
                tp.Compressor(energy_smoother="iir_exact", gain_smoother="ballistics",
                              gain_smooth_in_log=True)]
-    spec = dynamics_chain_spec(members)
+    spec = gain_op(members).spec
     gen = torch.Generator().manual_seed(n)
     runs = []
     for proc in members:
